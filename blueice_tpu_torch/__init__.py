@@ -1,0 +1,22 @@
+"""blueice_tpu_torch: the PyTorch and CUDA port of blueice_tpu.
+
+Same layout and public names as the JAX package (``blueice_tpu``), which
+stays the reference it is held against. This package imports torch, numpy
+and scipy only — never jax and never blueice_tpu — and carries its own numpy
+host layer (sources, models, morphers, likelihood construction), since the
+machines with the GPU have no JAX. Its device layer runs the batched binned
+profile-likelihood toy study on one device, with the hot likelihood ops as
+hand-written CUDA kernels for Hopper (``ops/fused.py``, ``csrc/``).
+
+What is ported and what is still to come is listed in ROADMAP.md.
+"""
+
+__version__ = '0.1.0'
+
+from .exceptions import *            # noqa: F401,F403
+from .models.model import *          # noqa: F401,F403
+from .models.source import *         # noqa: F401,F403
+from .likelihood import *            # noqa: F401,F403
+from .priors import *                # noqa: F401,F403
+from .morphers import MORPHERS       # noqa: F401
+from .compile import build_logl      # noqa: F401

@@ -1,0 +1,2 @@
+from .fitter import make_toy_fitter, minimize_newton
+from .toys import BinnedToyStudy, ToyResults
