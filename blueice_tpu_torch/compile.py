@@ -1,9 +1,10 @@
 """Lower a prepared binned likelihood to torch tensors on one device.
 
-Counterpart of :mod:`blueice_tpu.compile` for the binned, global-grid,
-non-Beeston-Barlow branch of ``build_logl``: the anchor tensors move to the
-device once, and every evaluation (morphing, rate multipliers, efficiencies,
-priors, physicality, the Poisson reduction) is torch on that device.
+Counterpart of :mod:`blueice_tpu.compile` for the binned, global-grid
+branch of ``build_logl``, with its Beeston-Barlow modes ('bb_single',
+'bb_lite'): the anchor tensors move to the device once, and every
+evaluation (morphing, rate multipliers, efficiencies, priors, physicality,
+the finite-MC adjustment, the Poisson reduction) is torch on that device.
 Out-of-bounds and unphysical parameter points return -inf like the host
 path. The compiled object also carries the metadata the closed-form fit
 engines read (anchor tensors and arrays, names, priors).
@@ -18,6 +19,8 @@ import numpy as np
 import torch
 
 from .device import resolve
+from .ops.bb_lite import bb_lite_logl
+from .ops.beeston_barlow import bb_single_adjust
 from .ops.interp import clip, morph_templates
 from .ops.poisson import binned_poisson_logl, binned_poisson_logl_constant
 from .priors import PRIORS
@@ -57,6 +60,11 @@ class CompiledLogLikelihood:
         the device.
       anchor_arrays, shape_names, rate_names, prior_terms [(name, prior)]:
         what the closed-form fit engines read.
+      has_bb / has_bb_lite / bb_source_i: the finite-MC-statistics mode
+        ('bb_single' of source bb_source_i, or 'bb_lite').
+      nme_tensor (*grid, S, *bins): the MC counts behind the templates on
+        the device (None without a Beeston-Barlow mode), and
+        nme_tensor_host, the same payload as float64 numpy.
     """
 
     def __init__(self, state, device=None, dtype=None, with_priors=True):
@@ -79,6 +87,14 @@ class CompiledLogLikelihood:
         self.ps_tensor = self._tensor(state['ps'])
         self.data = (None if state['data'] is None
                      else self._tensor(state['data']))
+        mode = state.get('mode')
+        self.has_bb = mode == 'bb_single'
+        self.has_bb_lite = mode == 'bb_lite'
+        self.bb_source_i = state.get('bb_source_i')
+        nme = state.get('nme')
+        self.nme_tensor_host = (None if nme is None
+                                else np.asarray(nme, dtype=float))
+        self.nme_tensor = None if nme is None else self._tensor(nme)
         self._anchor_tensors = [self._tensor(a) for a in self.anchor_arrays]
         K = len(self.shape_names)
         self._shape_lo = self._tensor(
@@ -167,9 +183,17 @@ class CompiledLogLikelihood:
             unphysical = (~finite) | (torch.sum(mus) < 0) | per_source_bad
             mus_safe = mus
 
-        ll = binned_poisson_logl(mus_safe, ps, self._tensor(data)
-                                 if not torch.is_tensor(data) else data,
-                                 include_constant=include_constant)
+        data = data if torch.is_tensor(data) else self._tensor(data)
+        if self.has_bb_lite:
+            ll = bb_lite_logl(mus_safe, ps, self._morph(self.nme_tensor, zs),
+                              data, include_constant=include_constant)
+        else:
+            if self.has_bb:
+                mus_safe, ps = bb_single_adjust(
+                    mus_safe, ps, self._morph(self.nme_tensor, zs), data,
+                    self.bb_source_i)
+            ll = binned_poisson_logl(mus_safe, ps, data,
+                                     include_constant=include_constant)
         for pname, prior in self.prior_terms:
             ll = ll + prior(self._value(params[pname]))
         return torch.where(oob | unphysical,

@@ -41,7 +41,11 @@ def state_from_reference(lf):
       ``shape_names``, ``rate_names``, ``defaults``, ``bounds``, ``priors``
       ([(name, kind, numbers)]), ``registered`` (the parameters a fit
       floats by default), ``allow_negative``, ``apply_efficiency``,
-      ``efficiency_names`` and ``data`` (the bound data's counts or None).
+      ``efficiency_names``, ``data`` (the bound data's counts or None),
+      and the finite-MC-statistics mode: ``mode`` (None, 'bb_single' or
+      'bb_lite'), ``nme`` (the n_model_events payload on the layout of
+      ``ps``, ``lf._builds['n_model_events']``, or None without a mode) and
+      ``bb_source_i`` (the finite source of 'bb_single', else None).
     """
     if not getattr(lf, 'is_prepared', False):
         raise RuntimeError("Call prepare() before reading the likelihood")
@@ -50,10 +54,6 @@ def state_from_reference(lf):
         raise NotImplementedError(
             "only binned likelihoods are ported (unbinned is ROADMAP queue "
             "1 item 9, compositions item 11)")
-    if getattr(lf, 'model_statistical_uncertainty_handling', None):
-        raise NotImplementedError(
-            "Beeston-Barlow likelihoods are not ported yet (ROADMAP queue 1 "
-            "item 8)")
     source_names = list(lf.source_name_list)
     shape_names = list(lf.shape_parameters.keys())
     ps_build = lf._builds['ps']
@@ -101,6 +101,19 @@ def state_from_reference(lf):
 
     data = (np.asarray(lf.data_events_per_bin.values, dtype=float)
             if getattr(lf, 'is_data_set', False) else None)
+
+    mode = getattr(lf, 'model_statistical_uncertainty_handling', None)
+    nme = bb_source_i = None
+    if mode is not None:
+        nme_build = lf._builds['n_model_events']
+        nme = np.asarray(nme_build[2] if nme_build[0] == 'global'
+                         else nme_build[1], dtype=float)
+        if mode == 'bb_single':
+            if lf.config.get('bb_single_source') is None:
+                raise ValueError("You need to specify bb_single_source to "
+                                 "use bb_single expectation adjustment")
+            bb_source_i = int(lf.base_model.get_source_i(
+                lf.config['bb_single_source']))
     return dict(
         mus=mus, ps=ps, anchor_arrays=anchor_arrays,
         source_names=source_names, shape_names=shape_names,
@@ -111,7 +124,7 @@ def state_from_reference(lf):
         allow_negative=[bool(a) for a in lf.source_allowed_negative],
         apply_efficiency=[bool(a) for a in lf.source_apply_efficiency],
         efficiency_names=[str(e) for e in lf.source_efficiency_names],
-        data=data)
+        data=data, mode=mode, nme=nme, bb_source_i=bb_source_i)
 
 
 def build_logl_from_state(state, device=None, dtype=None, with_priors=True):

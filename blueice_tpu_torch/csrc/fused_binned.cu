@@ -26,8 +26,8 @@
 //
 // Reductions: each thread accumulates its bins' contributions to ll, g and
 // the upper triangle of H in registers; a block then sums them in a fixed
-// order (warp shuffles, then the warps' partials in shared memory). No float
-// atomics, so a rerun on the same inputs is bit-identical.
+// order (bt::block_sum in bt_common.cuh), so a rerun on the same inputs is
+// bit-identical.
 //
 // Semantics kept exactly from the reference: lambda floored at FLT_MIN
 // inside the log, the 1e6 linear penalty on negative expectations (in value
@@ -37,45 +37,11 @@
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and loaded with ctypes; the C entry points return cudaGetLastError().
 
-#include <cfloat>
-#include <cuda_runtime.h>
+#include "bt_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr float kPenalty = 1e6f;
-
-// Sum each of NV per-thread values over the block in a fixed order; the
-// totals land in tot[0..NV) (shared memory), visible after the call.
-template <int NV>
-__device__ __forceinline__ void block_sum(float (&v)[NV], float* red,
-                                          float* tot) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    float x = v[i];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      x += __shfl_down_sync(0xffffffffu, x, off);
-    if (lane == 0) red[warp * NV + i] = x;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < NV; i += kThreads) {
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += red[w * NV + i];
-    tot[i] = s;
-  }
-  __syncthreads();
-}
-
-// Row-major index of (i, j), i <= j, in the packed upper triangle of a
-// P x P matrix.
-__host__ __device__ constexpr int tri(int P, int i, int j) {
-  return i * P - i * (i - 1) / 2 + (j - i);
-}
+using namespace bt;
 
 template <int S, int K>
 __global__ void __launch_bounds__(kThreads)
@@ -204,15 +170,7 @@ vgh_kernel(const float* __restrict__ anchor, int N,
   }
 
   block_sum<NV>(acc, s_red, s_tot);
-
-  if (threadIdx.x == 0) ll_out[b] = s_tot[0];
-  for (int i = threadIdx.x; i < P; i += kThreads)
-    g_out[(size_t)b * P + i] = s_tot[1 + i];
-  for (int ij = threadIdx.x; ij < P * P; ij += kThreads) {
-    const int i = ij / P, j = ij % P;
-    const int lo = i < j ? i : j, hi = i < j ? j : i;
-    h_out[(size_t)b * P * P + ij] = s_tot[1 + P + tri(P, lo, hi)];
-  }
+  store_vgh<P>(s_tot, b, ll_out, g_out, h_out);
 }
 
 template <int S, int K>
@@ -267,12 +225,6 @@ ll_kernel(const float* __restrict__ anchor, int N, int A,
 }
 
 }  // namespace
-
-// One switch case per instantiated (S, K): S in 1..8, K in 0..4.
-#define BT_FOR_K(X, S_) X(S_, 0) X(S_, 1) X(S_, 2) X(S_, 3) X(S_, 4)
-#define BT_FOR_SK(X)                                                   \
-  BT_FOR_K(X, 1) BT_FOR_K(X, 2) BT_FOR_K(X, 3) BT_FOR_K(X, 4)          \
-  BT_FOR_K(X, 5) BT_FOR_K(X, 6) BT_FOR_K(X, 7) BT_FOR_K(X, 8)
 
 extern "C" {
 

@@ -139,18 +139,31 @@ def build_likelihood(kind='binned', n_anchors=3, prepare=True, bb=False,
 
     :param kind: only 'binned' is ported (unbinned is ROADMAP queue 1
       item 9).
-    :param bb: only False is ported (Beeston-Barlow is ROADMAP queue 1
-      item 8).
+    :param bb: finite-MC-statistics handling. True or 'bb_single' enables
+      the reference's one-source Beeston-Barlow on the dominant 'er'
+      background (blueice/likelihood.py:618-660); 'bb_lite' enables the
+      HistFactory-style all-source per-bin scale (ops/bb_lite.py). Either
+      requires the blob templates, which carry synthetic per-bin MC counts;
+      binned only.
     """
+    likelihood_config = None
+    if bb:
+        mode = 'bb_single' if bb is True else bb
+        if mode not in ('bb_single', 'bb_lite'):
+            raise ValueError("bb must be True/'bb_single' or 'bb_lite'; "
+                             "got %r" % (bb,))
+        if kind != 'binned' or kwargs.get('jax_templates'):
+            raise ValueError("Beeston-Barlow needs the binned likelihood "
+                             "over blob templates (which carry MC counts)")
+        likelihood_config = {
+            'model_statistical_uncertainty_handling': mode}
+        if mode == 'bb_single':
+            likelihood_config['bb_single_source'] = 'er'
     if kind != 'binned':
         raise NotImplementedError(
             "kind=%r is not ported yet (ROADMAP queue 1 item 9)" % (kind,))
-    if bb:
-        raise NotImplementedError(
-            "bb=%r (Beeston-Barlow) is not ported yet (ROADMAP queue 1 "
-            "item 8)" % (bb,))
     config = build_config(**kwargs)
-    lf = BinnedLogLikelihood(config)
+    lf = BinnedLogLikelihood(config, likelihood_config=likelihood_config)
 
     lf.add_rate_parameter('wimp')
     lf.add_rate_parameter('er', log_prior=NormalPrior(1, 0.05))

@@ -12,10 +12,14 @@ Counterpart of :mod:`blueice_tpu.likelihood` for the slice the port runs:
 * :meth:`LogLikelihoodBase.make_logl` (see :mod:`blueice_tpu_torch.compile`)
   lowers the same likelihood to torch tensors on a chosen device.
 
+The binned likelihood's finite-MC-statistics modes are ported: 'bb_single'
+(the reference's one-source Beeston-Barlow profile, analytic per-bin root)
+and 'bb_lite' (one profiled scale per bin on the total template).
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP item):
-unbinned likelihoods, Beeston-Barlow modes, log template morphing,
-source-wise interpolation, parallel template builds, and the likelihood
-compositions (sum, re-parametrisation, ancillary terms).
+unbinned likelihoods, log template morphing, source-wise interpolation,
+parallel template builds, and the likelihood compositions (sum,
+re-parametrisation, ancillary terms).
 """
 
 from collections import OrderedDict
@@ -29,11 +33,14 @@ from .exceptions import (NotPreparedException, InvalidParameterSpecification,
                          InvalidParameter)
 from .models import Model
 from .morphers import MORPHERS
+from .ops.bb_lite import bb_lite_logl_host
 from .ops.hist import Hist
 from .priors import NormalPrior
 from .utils import combine_dicts, inherit_docstring_from
 
-__all__ = ['LogLikelihoodBase', 'BinnedLogLikelihood', 'UnbinnedLogLikelihood']
+__all__ = ['LogLikelihoodBase', 'BinnedLogLikelihood', 'UnbinnedLogLikelihood',
+           'beeston_barlow_root1', 'beeston_barlow_root2',
+           'beeston_barlow_roots']
 
 
 def _needs_preparation(f):
@@ -135,6 +142,7 @@ class LogLikelihoodBase:
         self.anchor_models = OrderedDict()    # zs tuple -> Model
         self.mus_interpolator = None
         self.ps_interpolator = None
+        self.n_model_events_interpolator = None
 
         # Stacked anchor tensors for the device path (set by prepare):
         #   dict payload_name -> ('global', morpher, tensor)
@@ -307,9 +315,12 @@ class LogLikelihoodBase:
             zs = np.asarray(zs, dtype=float)
             mus = np.array(self.mus_interpolator(zs), dtype=float)
             ps = self.ps_interpolator(zs)
+            n_model_events = (None if self.n_model_events_interpolator is None
+                              else self.n_model_events_interpolator(zs))
         else:
             mus = np.array(self.base_model.expected_events(), dtype=float)
             ps = self.ps
+            n_model_events = self.n_model_events
 
         # Rate multipliers (and their priors)
         for source_i, source_name in enumerate(self.source_name_list):
@@ -347,6 +358,9 @@ class LogLikelihoodBase:
                 raise ValueError("Unphysical rates: %s" % str(mus))
             return -float('inf')
 
+        # Finite-MC-statistics adjustment (analytic Beeston-Barlow, binned)
+        mus, ps = self.adjust_expectations(mus, ps, n_model_events)
+
         result += self._compute_likelihood(mus, ps)
 
         if full_output:
@@ -362,6 +376,12 @@ class LogLikelihoodBase:
             return True
         return any(not (0 <= mu) and not allowed
                    for mu, allowed in zip(mus, self.source_allowed_negative))
+
+    def adjust_expectations(self, mus, ps, n_model_events):
+        """Adjust uncertain (mus, pmfs) for the observed data: hook for the
+        analytic Beeston-Barlow profile of finite-MC templates (binned
+        only)."""
+        return mus, ps
 
     def _kwargs_to_settings(self, **kwargs):
         """Validate kwargs; return (rate_multipliers list per source,
@@ -413,18 +433,26 @@ class UnbinnedLogLikelihood(LogLikelihoodBase):
 
 
 class BinnedLogLikelihood(LogLikelihoodBase):
-    """Binned Poisson log likelihood over the analysis-space bins."""
+    """Binned Poisson log likelihood over the analysis-space bins, with
+    optional analytic handling of finite-MC templates
+    (likelihood_config 'model_statistical_uncertainty_handling': None,
+    'bb_single' with 'bb_single_source', or 'bb_lite')."""
 
     def __init__(self, pdf_base_config, likelihood_config=None, **kwargs):
         LogLikelihoodBase.__init__(self, pdf_base_config, likelihood_config,
                                    **kwargs)
+        self._bb_lite_nme = None
         self.model_statistical_uncertainty_handling = \
             self.config.get('model_statistical_uncertainty_handling')
-        if self.model_statistical_uncertainty_handling is not None:
-            raise NotImplementedError(
-                "model_statistical_uncertainty_handling=%r (Beeston-Barlow) "
-                "is not ported yet (ROADMAP queue 1 item 8, slice B)"
-                % (self.model_statistical_uncertainty_handling,))
+        if self.model_statistical_uncertainty_handling not in (
+                None, 'bb_single', 'bb_lite'):
+            # Fail at construction: an unknown mode silently evaluating the
+            # plain Poisson likelihood would be a wrong-results bug
+            raise ValueError(
+                "model_statistical_uncertainty_handling must be None, "
+                "'bb_single' (the reference's one-source Beeston-Barlow) or "
+                "'bb_lite' (HistFactory-style per-bin total-template scale); "
+                "got %r" % (self.model_statistical_uncertainty_handling,))
 
     @inherit_docstring_from(LogLikelihoodBase)
     def prepare(self, n_cores=1, ipp_client=None):
@@ -437,8 +465,17 @@ class BinnedLogLikelihood(LogLikelihoodBase):
                 extra_dims=list(self.ps.shape),
                 anchor_models=self.anchor_models)
             self._builds['ps'] = ('global', self.morpher, pmf_tensor)
+            if self.model_statistical_uncertainty_handling is not None:
+                self.n_model_events_interpolator, nme_tensor = \
+                    self._interp_and_tensor(
+                        self.morpher, f=lambda m: m.pmf_grids()[1],
+                        extra_dims=list(self.ps.shape),
+                        anchor_models=self.anchor_models)
+                self._builds['n_model_events'] = ('global', self.morpher,
+                                                  nme_tensor)
         else:
             self._builds['ps'] = ('constant', self.ps)
+            self._builds['n_model_events'] = ('constant', self.n_model_events)
 
     @inherit_docstring_from(LogLikelihoodBase)
     def set_data(self, d):
@@ -447,14 +484,119 @@ class BinnedLogLikelihood(LogLikelihoodBase):
             self.base_model.config['analysis_space'])
         self.data_events_per_bin.add(*self.base_model.to_analysis_dimensions(d))
 
+    def adjust_expectations(self, mus, pmfs, n_model_events):
+        """The finite-MC-statistics adjustment. 'bb_single' replaces the
+        finite source's (mu, pmf) by the profiled Beeston-Barlow solution;
+        'bb_lite' changes the per-bin likelihood instead, so it keeps the
+        morphed MC counts for the :meth:`_compute_likelihood` call that
+        follows."""
+        mus = np.array(mus, dtype=float)
+        pmfs = np.array(pmfs, dtype=float)
+        mode = self.model_statistical_uncertainty_handling
+        if mode == 'bb_lite':
+            self._bb_lite_nme = np.asarray(n_model_events, dtype=float)
+            return mus, pmfs
+        if mode != 'bb_single':
+            return mus, pmfs
+
+        source_i = self.config.get('bb_single_source')
+        if source_i is None:
+            raise ValueError("You need to specify bb_single_source to use "
+                             "bb_single expectation adjustment")
+        source_i = self.base_model.get_source_i(source_i)
+        assert pmfs.shape == n_model_events.shape
+
+        # Expected counts per bin from the sources we will NOT adjust
+        other_mus = mus.copy()
+        other_mus[source_i] = 0.0
+        u_bins = np.tensordot(other_mus, pmfs, axes=(0, 0))
+
+        a_bins = np.asarray(n_model_events[source_i], dtype=float)
+        n_mc_total = a_bins.sum()
+        p_calibration = mus[source_i] / n_mc_total
+        # Empty-MC bins (a == 0, so also pmf == 0) carry zero weight
+        safe_a = np.where(a_bins > 0, a_bins, 1.0)
+        w_calibration = np.where(a_bins > 0,
+                                 pmfs[source_i] / safe_a * n_mc_total, 0.0)
+
+        observed = self.data_events_per_bin.values
+        A_bins_1, A_bins_2 = beeston_barlow_roots(
+            a_bins, w_calibration * p_calibration, u_bins, observed)
+        # The first root is the unphysical one (sqrt rounding can leave it
+        # at +epsilon instead of exactly 0 when U == 0)
+        assert np.all(A_bins_1 <= 1e-6 * np.maximum(1.0, np.abs(A_bins_2)))
+
+        # U == 0 bins: the general solution is singular, use the special case
+        A_special = (observed + a_bins) / (1.0 + p_calibration)
+        A_bins = np.where(u_bins == 0, A_special, A_bins_2)
+        A_bins = np.where(w_calibration > 0, A_bins, 0.0)
+        # The physical root is >= 0 in exact arithmetic; clamp sqrt rounding
+        assert np.all(A_bins >= -1e-6 * np.maximum(1.0, observed + a_bins))
+        A_bins = np.maximum(A_bins, 0.0)
+
+        raw = A_bins * w_calibration
+        pmfs[source_i] = raw / raw.sum()
+        mus[source_i] = raw.sum() * p_calibration
+        return mus, pmfs
+
     def _compute_likelihood(self, mus, pmfs):
         """Sum over bins of Poisson logpmf(observed; sum_s mu_s pmf_s).
         Negative per-bin expectations (allow_negative sources) take a steep
-        linear penalty, matching the compiled path."""
+        linear penalty, matching the compiled path. With 'bb_lite', each
+        bin's total expectation carries the profiled lite scale and its
+        constraint."""
         observed = self.data_events_per_bin.values
+        if self.model_statistical_uncertainty_handling == 'bb_lite':
+            # Consume the MC counts of the adjust_expectations call that
+            # precedes us: never evaluate with counts of an earlier point
+            nme, self._bb_lite_nme = self._bb_lite_nme, None
+            if nme is None:
+                raise RuntimeError(
+                    "bb_lite _compute_likelihood needs the morphed MC "
+                    "counts from the immediately preceding "
+                    "adjust_expectations call")
+            return bb_lite_logl_host(mus, pmfs, nme, observed)
         expected = np.tensordot(np.asarray(mus, dtype=float),
                                 np.asarray(pmfs, dtype=float), axes=(0, 0))
         penalty = 1e6 * float(np.sum(np.minimum(expected, 0.0)))
         expected_pos = np.maximum(expected, np.finfo(float).tiny)
         return float(np.sum(xlogy(observed, expected_pos) - expected
                             - gammaln(observed + 1.0))) + penalty
+
+
+# Host (numpy, float64) roots of the per-bin Beeston-Barlow quadratic; the
+# torch twins live in ops/beeston_barlow.py.
+
+def _bb_quadratic_parts(a, p, U, d):
+    """Coefficients (A2, b) of the per-bin quadratic A2*x^2 + b*x + c with
+    c = -U*a, plus s = sqrt(b^2 + 4*A2*U*a): every term of the discriminant
+    is nonnegative, so it is cancellation-free."""
+    a = np.asarray(a, dtype=float)
+    A2 = p * (p + 1.0)
+    b = U * (p + 1.0) - p * (a + d)
+    s = np.sqrt(b * b + 4.0 * A2 * (U * a))
+    return A2, b, s
+
+
+def beeston_barlow_root1(a, p, U, d):
+    """Unphysical root of the per-bin Beeston-Barlow quadratic (kept only
+    for regression checking, like the reference)."""
+    A2, b, s = _bb_quadratic_parts(a, p, U, d)
+    tiny = np.finfo(float).tiny
+    return np.where(b >= 0, -(b + s) / np.maximum(2.0 * A2, tiny),
+                    -2.0 * U * a / np.maximum(s - b, tiny))
+
+
+def beeston_barlow_root2(a, p, U, d):
+    """Physical root of the per-bin Beeston-Barlow quadratic: the profiled
+    per-bin MC expectation of one finite-statistics source among exact
+    ones, in the cancellation-free form per sign of the linear coefficient
+    (Citardauq for b >= 0)."""
+    A2, b, s = _bb_quadratic_parts(a, p, U, d)
+    tiny = np.finfo(float).tiny
+    return np.where(b >= 0, 2.0 * U * a / np.maximum(b + s, tiny),
+                    (s - b) / np.maximum(2.0 * A2, tiny))
+
+
+def beeston_barlow_roots(a, p, U, d):
+    return beeston_barlow_root1(a, p, U, d), beeston_barlow_root2(a, p, U, d)

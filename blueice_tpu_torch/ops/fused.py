@@ -26,10 +26,13 @@ nothing is imported or built when this module is imported.
 
 import ctypes
 import functools
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -37,15 +40,17 @@ from .binned_vgh import (corner_weight_tables, corner_offsets, binned_vgh,
                          _ll_from_P)
 
 __all__ = ['binned_vgh_fused', 'binned_ll_fused_multi', 'binned_vgh_plain',
-           'binned_ll_plain', 'corner_ids', 'load_library', 'launch_counts',
-           'reset_launch_counts', 'MAX_SOURCES', 'MAX_SHAPE_AXES']
+           'binned_ll_plain', 'corner_ids', 'build_library', 'build_libraries',
+           'load_library', 'launch_counts', 'reset_launch_counts',
+           'MAX_SOURCES', 'MAX_SHAPE_AXES']
 
 #: Instantiated kernel range: S in 1..MAX_SOURCES, K in 0..MAX_SHAPE_AXES
 MAX_SOURCES = 8
 MAX_SHAPE_AXES = 4
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, 'csrc', 'fused_binned.cu')
+CSRC_DIR = os.path.join(_PKG_DIR, 'csrc')
+SOURCE = os.path.join(CSRC_DIR, 'fused_binned.cu')
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), 'build',
                          'blueice_tpu_torch')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
@@ -64,27 +69,39 @@ def _find_nvcc():
     return nvcc
 
 
-def build_library():
-    """Compile ``csrc/fused_binned.cu`` into a shared library (once per
-    source version: the file name carries the source's hash) and return its
-    path. The compiler's ``-Xptxas -v`` report is kept beside it
-    (``.log``)."""
-    with open(SOURCE, 'rb') as f:
-        digest = hashlib.sha1(f.read()).hexdigest()[:12]
-    lib_path = os.path.join(BUILD_DIR, 'libfused_binned_%s.so' % digest)
+def build_library(source=SOURCE):
+    """Compile one ``csrc/*.cu`` source into a shared library (once per
+    version of the source and the shared headers: the file name carries
+    their hash) and return its path. The compiler's ``-Xptxas -v`` report is
+    kept beside it (``.log``)."""
+    digest = hashlib.sha1()
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, '*.cuh')))
+    for path in [source] + headers:
+        with open(path, 'rb') as f:
+            digest.update(f.read())
+    name = os.path.splitext(os.path.basename(source))[0]
+    lib_path = os.path.join(BUILD_DIR, 'lib%s_%s.so'
+                            % (name, digest.hexdigest()[:12]))
     if os.path.exists(lib_path):
         return lib_path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = '%s.%d.tmp' % (lib_path, os.getpid())
-    cmd = [_find_nvcc()] + NVCC_FLAGS + ['-o', tmp, SOURCE]
+    tmp = '%s.%d.%d.tmp' % (lib_path, os.getpid(), threading.get_ident())
+    cmd = [_find_nvcc()] + NVCC_FLAGS + ['-o', tmp, source]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
     with open(lib_path[:-3] + '.log', 'w') as f:
         f.write(' '.join(cmd) + '\n' + proc.stdout + proc.stderr)
     if proc.returncode != 0:
-        raise RuntimeError("nvcc failed (exit %d):\n%s"
-                           % (proc.returncode, proc.stderr[-4000:]))
+        raise RuntimeError("nvcc failed on %s (exit %d):\n%s"
+                           % (source, proc.returncode, proc.stderr[-4000:]))
     os.replace(tmp, lib_path)
     return lib_path
+
+
+def build_libraries(sources):
+    """Build several sources at once, one nvcc process each, all started
+    together; returns their library paths."""
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        return list(pool.map(build_library, sources))
 
 
 @functools.lru_cache(maxsize=None)
@@ -117,7 +134,23 @@ def corner_ids(strides, idx, G):
     return torch.clamp(ids, 0, G - 1)
 
 
-def _check_shapes(anchor, strides, idx, t, m, observed, lead):
+def vgh_tables(strides, idx, t, G):
+    """The vgh kernels' per-toy corner tables, contiguous: ids (B, 2^K)
+    int32, w (B, 2^K), wd (B, K, 2^K) and the cross-pair second-derivative
+    weights (B, K(K-1)/2, 2^K), pairs (d, e), d < e, in row-major order."""
+    K = len(strides)
+    ids = corner_ids(strides, idx, G).to(torch.int32)
+    w, wd, wx = corner_weight_tables(t)
+    pairs = [(d, e) for d in range(K) for e in range(d + 1, K)]
+    wx_pairs = (torch.stack([wx[:, d, e] for d, e in pairs], dim=1)
+                if pairs else wx.new_zeros((t.shape[0], 0, w.shape[-1])))
+    return tuple(x.contiguous() for x in (ids, w, wd, wx_pairs))
+
+
+def _check_shapes(anchor, strides, idx, t, m, observed, lead, nme=None):
+    """(G, S, N, K) of the kernels' inputs; raises on a shape, dtype or
+    device the kernels would misread. ``nme`` is the (G, N) MC-count rows
+    of the Beeston-Barlow kernels."""
     if anchor.dim() != 3:
         raise ValueError("anchor must be (G, S, N), got %s"
                          % (tuple(anchor.shape),))
@@ -125,11 +158,15 @@ def _check_shapes(anchor, strides, idx, t, m, observed, lead):
     K = len(strides)
     expect = {'idx': (idx, lead + (K,)), 't': (t, lead + (K,)),
               'm': (m, lead + (S,)), 'observed': (observed, lead[:1] + (N,))}
+    floats = [('t', t), ('m', m), ('observed', observed)]
+    if nme is not None:
+        expect['nme'] = (nme, (G, N))
+        floats.append(('nme', nme))
     for name, (x, shape) in expect.items():
         if tuple(x.shape) != shape:
             raise ValueError("%s must have shape %s, got %s"
                              % (name, shape, tuple(x.shape)))
-    for name, x in (('t', t), ('m', m), ('observed', observed)):
+    for name, x in floats:
         if x.device != anchor.device or x.dtype != anchor.dtype:
             raise ValueError("%s must be %s on %s like the anchor tensor, "
                              "got %s on %s" % (name, anchor.dtype,
@@ -190,12 +227,7 @@ def binned_vgh_fused(anchor, strides, idx, t, m, observed):
     _check_kernel_inputs(anchor, K, S, (m, observed))
     lib = load_library()
     P = S + K
-    ids = corner_ids(strides, idx, G).to(torch.int32).contiguous()
-    w, wd, wx = corner_weight_tables(t)
-    pairs = [(d, e) for d in range(K) for e in range(d + 1, K)]
-    wx_pairs = (torch.stack([wx[:, d, e] for d, e in pairs], dim=1)
-                if pairs else wx.new_zeros((B, 0, w.shape[-1])))
-    w, wd, wx_pairs = (x.contiguous() for x in (w, wd, wx_pairs))
+    ids, w, wd, wx_pairs = vgh_tables(strides, idx, t, G)
     ll = anchor.new_empty((B,))
     g = anchor.new_empty((B, P))
     H = anchor.new_empty((B, P, P))

@@ -15,17 +15,19 @@ multipliers, scaled logistic for two-sided shape parameters), as MINUIT
 does, so the Newton steps live in an unconstrained space u.
 
 The likelihood's (ll, g, H) in the natural (m, t) coordinates comes from the
-closed form (``engine='analytic'``: :mod:`blueice_tpu_torch.ops.binned_vgh`)
-or the fused CUDA kernels (``engine='fused'``:
-:mod:`blueice_tpu_torch.ops.fused`), and is chained to u through the tiny
-parameter graph with its first and second derivatives in closed form.
+closed form (``engine='analytic'``: the kernels' plain versions) or the
+fused CUDA kernels (``engine='fused'``: :mod:`blueice_tpu_torch.ops.fused`,
+and for the Beeston-Barlow modes :mod:`~blueice_tpu_torch.ops.fused_bb` and
+:mod:`~blueice_tpu_torch.ops.fused_bb_lite`), and is chained to u through
+the tiny parameter graph with its first and second derivatives in closed
+form.
 """
 
 import numpy as np
 import torch
 
 from ..exceptions import NoOpimizationNecessary
-from ..ops import fused
+from ..ops import fused, fused_bb, fused_bb_lite
 from ..ops.binned_vgh import corner_weight_tables
 from ..ops.interp import cell_index, clip
 
@@ -437,12 +439,17 @@ def _grid_dims(compiled):
 
 
 def _fused_eligible(compiled):
-    """The CUDA kernels' instantiated range and type."""
+    """Whether the CUDA kernels take this model: their instantiated range
+    and type, and per mode what they compute. The bb_single kernels carry no
+    negative-expectation penalty (as the reference's), so a bb_single model
+    with an allow_negative source is not eligible; the plain and bb-lite
+    kernels keep the penalty."""
     K, S, _, _ = _grid_dims(compiled)
     return (compiled.device.type == 'cuda'
             and compiled.dtype == torch.float32
             and 1 <= S <= fused.MAX_SOURCES
-            and 0 <= K <= fused.MAX_SHAPE_AXES)
+            and 0 <= K <= fused.MAX_SHAPE_AXES
+            and not (compiled.has_bb and compiled.allowed_negative.any()))
 
 
 def _tie_slope(v, lo, hi):
@@ -614,6 +621,46 @@ class _ParamGraph:
         return g, H
 
 
+def _likelihood_ops(compiled, G, S, n_bins, use_fused):
+    """(vgh_op, ll_op), each called as op(anchor, strides, idx, t, m, data),
+    for the likelihood's finite-MC-statistics mode: the CUDA kernel
+    wrappers with ``use_fused`` (their plain versions for CPU tensors),
+    else the plain versions directly.
+
+    The Beeston-Barlow ops also read MC-count anchor rows (G, N), made once
+    from the float64 host payload: bb_single the finite source's rows,
+    bb-lite the rows summed over sources."""
+    if not (compiled.has_bb or compiled.has_bb_lite):
+        if use_fused:
+            return fused.binned_vgh_fused, fused.binned_ll_fused_multi
+        return fused.binned_vgh_plain, fused.binned_ll_plain
+
+    nme = compiled.nme_tensor_host.reshape(G, S, n_bins)
+    if compiled.has_bb_lite:
+        rows = nme.sum(axis=1)
+        vgh, ll = ((fused_bb_lite.binned_bblite_vgh_fused,
+                    fused_bb_lite.binned_bblite_ll_fused_multi) if use_fused
+                   else (fused_bb_lite.binned_bblite_vgh_plain,
+                         fused_bb_lite.binned_bblite_ll_plain))
+        extra = ()
+    else:
+        rows = nme[:, compiled.bb_source_i]
+        vgh, ll = ((fused_bb.binned_bb_vgh_fused,
+                    fused_bb.binned_bb_ll_fused_multi) if use_fused
+                   else (fused_bb.binned_bb_vgh_plain,
+                         fused_bb.binned_bb_ll_plain))
+        extra = (compiled.bb_source_i,)
+    rows = torch.as_tensor(rows, dtype=compiled.dtype,
+                           device=compiled.device).contiguous()
+
+    def vgh_op(anchor, strides, idx, t, m, data):
+        return vgh(anchor, rows, strides, idx, t, m, data, *extra)
+
+    def ll_op(anchor, strides, idx, t, m, data):
+        return ll(anchor, rows, strides, idx, t, m, data, *extra)
+    return vgh_op, ll_op
+
+
 def _make_analytic_parts(compiled, names, fixed, transform, use_fused,
                          runtime_fixed=()):
     """(value_many(u_cands, data, fv), vgh(u, data, fv)) computing the
@@ -621,15 +668,13 @@ def _make_analytic_parts(compiled, names, fixed, transform, use_fused,
     the parameter graph: transforms, rate morphing, efficiencies, priors.
 
     ``use_fused`` routes the heavy (ll, g, H) and value ops to the CUDA
-    kernel wrappers of :mod:`blueice_tpu_torch.ops.fused` (their plain
-    versions on the CPU); otherwise to those plain versions directly.
+    kernel wrappers (their plain versions on the CPU); otherwise to those
+    plain versions directly (see :func:`_likelihood_ops`).
     """
     K, S, G, n_bins = _grid_dims(compiled)
     anchor = compiled.ps_tensor.reshape(G, S, n_bins).contiguous()
     graph = _ParamGraph(compiled, names, fixed, transform, runtime_fixed)
-    vgh_op = fused.binned_vgh_fused if use_fused else fused.binned_vgh_plain
-    ll_op = (fused.binned_ll_fused_multi if use_fused
-             else fused.binned_ll_plain)
+    vgh_op, ll_op = _likelihood_ops(compiled, G, S, n_bins, use_fused)
 
     def value_many(u_cands, data, fv):
         """Objective at candidates u_cands (L, A, n), data (L, N), fv (L, R)
@@ -662,8 +707,10 @@ def make_toy_fitter(compiled, fixed=None, guess=None, max_iter=60, tol=1e-8,
 
     :param engine: 'analytic' runs the closed form in plain torch;
       'fused' the CUDA kernels (their plain versions for CPU tensors);
-      'auto' takes 'fused' on a CUDA device for every model in the kernels'
-      range (float32, 1 <= S <= 8, K <= 4) and 'analytic' elsewhere.
+      'auto' takes 'fused' on a CUDA device for every model the kernels
+      take (float32, 1 <= S <= 8, K <= 4, and no allow_negative source
+      under bb_single, whose kernels have no negative-expectation penalty)
+      and 'analytic' elsewhere.
     :param runtime_fixed: parameter names fixed at call time; their values
       arrive as ``fixed_values`` ((R,) or (B, R), aligned with this list).
     :param kink_jumps: in-loop escape steps along each shape coordinate, or
@@ -686,7 +733,8 @@ def make_toy_fitter(compiled, fixed=None, guess=None, max_iter=60, tol=1e-8,
     if engine == 'fused' and dev.type == 'cuda' \
             and not _fused_eligible(compiled):
         raise ValueError("engine='fused' on CUDA needs float32 and a model "
-                         "in the kernels' range (1 <= S <= %d, K <= %d)"
+                         "in the kernels' range (1 <= S <= %d, K <= %d; no "
+                         "allow_negative source under bb_single)"
                          % (fused.MAX_SOURCES, fused.MAX_SHAPE_AXES))
 
     def as_batch(data):

@@ -5,18 +5,29 @@ Run from the root of a checkout on a machine with a CUDA GPU:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from ``blueice_tpu_torch/csrc`` (nvcc,
-sm_90a, into ``build/``) and drives the port's main path: the XENON1T-style
-binned profile-likelihood toy study (6 sources, 3^4 = 81 anchors, 50x62
-bins, 8 floating parameters), 512 toys, float32. Phases:
+It builds the port's CUDA kernels from ``blueice_tpu_torch/csrc`` (one nvcc
+per source, all started together, sm_90a, into ``build/``) and drives three
+paths of the port, each the XENON1T-style binned profile-likelihood toy
+study (6 sources, 3^4 = 81 anchors, 50x62 bins, 8 floating parameters,
+float32):
 
-1. kernels vs their plain PyTorch versions at the XENON shape, on the card
-   (ll relative 1e-5; g and H within 1e-4 of each toy's largest entry),
-   with warm times (median of 20, CUDA events);
-2. the main path, twice, with the kernels' launch counters read around it
-   and the profile statistic checked against the reference's statistics;
-3. 16 toys' counts fitted on CUDA in float32 and on the CPU in float64
-   (plain versions): max |d max_ll| <= 0.05, median |d t| <= 0.01.
+* ``xenon``: the plain binned likelihood, 512 toys;
+* ``bb``: Beeston-Barlow ``bb_single`` on the ER source, 256 toys;
+* ``bblite``: Barlow-Beeston-lite on all sources, 256 toys.
+
+For each path:
+
+1. its two kernels vs their plain PyTorch versions at the XENON shape, on
+   the card: the vgh at B = 512, the value kernel at A = 12 and 20 (ll
+   relative 1e-5; g and H within 1e-4 of each toy's largest entry), with
+   warm times (median of 20, CUDA events);
+2. the path itself, twice (seeds 0 and 1), with all six launch counters
+   set to 0 just before and read just after: the path's own two kernels
+   must have launched, the others not; the profile statistic is checked
+   against the reference's statistics;
+3. the same counts fitted on CUDA in float32 and on the CPU in float64
+   (plain versions): max |d max_ll| <= 0.05, median |d t| <= 0.01 (16
+   toys for xenon, 8 for bb and bblite).
 
 Any failure raises (exit code != 0, no result line). Without CUDA it exits
 with code 2 before doing anything. The last line of standard output is
@@ -25,6 +36,7 @@ with code 2 before doing anything. The last line of standard output is
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -32,8 +44,17 @@ import time
 import numpy as np
 
 TARGET = 'wimp_rate_multiplier'
-N_TOYS = 512
+KERNEL_TOYS = 512
 TIMED_RUNS = 20
+CSRC = 'blueice_tpu_torch/csrc/'
+
+# label: (build_likelihood's bb argument, toys of the main path, toys
+# compared between float32 and float64, band of the median t)
+PATHS = {
+    'xenon': (False, 512, 16, (0.10, 0.20)),
+    'bb': (True, 256, 8, (0.08, 0.20)),
+    'bblite': ('bb_lite', 256, 8, (0.08, 0.20)),
+}
 
 
 def log(*args):
@@ -70,6 +91,82 @@ def rel_to_toy_max(a, b):
     return float(((a - b).abs() / scale).max())
 
 
+def ptxas_report(lib_paths):
+    """The -Xptxas -v lines (registers, spills) of the XENON-shape (S = 6,
+    K = 4) instantiations, from the logs kept beside the libraries."""
+    lines = []
+    for path in lib_paths:
+        with open(path[:-3] + '.log') as f:
+            text = f.read()
+        for entry in text.split("Compiling entry function '")[1:]:
+            name = entry.split("'", 1)[0]
+            if 'ILi6ELi4E' not in name:
+                continue
+            kernel = re.search(r'([a-z_]+_kernel)ILi6ELi4E', name)
+            spills = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill '
+                               r'loads', entry)
+            regs = re.search(r'Used (\d+) registers', entry)
+            lines.append('%s<6,4>: %s registers, spill stores/loads %s/%s B'
+                         % (kernel.group(1) if kernel else name,
+                            regs.group(1) if regs else '?',
+                            *(spills.groups() if spills else ('?', '?'))))
+    return lines
+
+
+def path_ops(label, compiled, ops, torch):
+    """(vgh kernel, vgh plain, value kernel, value plain) of a path, each
+    called as f(anchor, strides, idx, t, m, observed), and the row metadata
+    of its two kernels."""
+    fused, fused_bb, fused_bb_lite = ops
+    S = len(compiled.rate_names)
+    if label == 'xenon':
+        return ((fused.binned_vgh_fused, fused.binned_vgh_plain,
+                 fused.binned_ll_fused_multi, fused.binned_ll_plain),
+                [dict(name='binned_vgh_fused', source=CSRC + 'fused_binned.cu',
+                      replaces='blueice_tpu/ops/fused.py:144',
+                      also_replaces='blueice_tpu/ops/fused.py:597'),
+                 dict(name='binned_ll_fused_multi',
+                      source=CSRC + 'fused_binned.cu',
+                      replaces='blueice_tpu/ops/fused.py:251',
+                      also_replaces='blueice_tpu/ops/fused.py:690')])
+    G = compiled.mus_tensor.numel() // S
+    nme = compiled.nme_tensor_host.reshape(G, S, -1)
+    if label == 'bb':
+        rows = nme[:, compiled.bb_source_i]
+        fns = (fused_bb.binned_bb_vgh_fused, fused_bb.binned_bb_vgh_plain,
+               fused_bb.binned_bb_ll_fused_multi, fused_bb.binned_bb_ll_plain)
+        extra = (compiled.bb_source_i,)
+        meta = [dict(name='binned_bb_vgh_fused', source=CSRC + 'fused_bb.cu',
+                     replaces='blueice_tpu/ops/fused_bb.py:191',
+                     also_replaces='blueice_tpu/ops/fused_bb.py:458'),
+                dict(name='binned_bb_ll_fused_multi',
+                     source=CSRC + 'fused_bb.cu',
+                     replaces='blueice_tpu/ops/fused_bb.py:227',
+                     also_replaces='blueice_tpu/ops/fused_bb.py:605')]
+    else:
+        rows = nme.sum(axis=1)
+        fns = (fused_bb_lite.binned_bblite_vgh_fused,
+               fused_bb_lite.binned_bblite_vgh_plain,
+               fused_bb_lite.binned_bblite_ll_fused_multi,
+               fused_bb_lite.binned_bblite_ll_plain)
+        extra = ()
+        meta = [dict(name='binned_bblite_vgh_fused',
+                     source=CSRC + 'fused_bb_lite.cu',
+                     replaces='blueice_tpu/ops/fused_bb_lite.py:154',
+                     also_replaces='blueice_tpu/ops/fused_bb_lite.py:417'),
+                dict(name='binned_bblite_ll_fused_multi',
+                     source=CSRC + 'fused_bb_lite.cu',
+                     replaces='blueice_tpu/ops/fused_bb_lite.py:189',
+                     also_replaces='blueice_tpu/ops/fused_bb_lite.py:511')]
+    rows = torch.as_tensor(rows, dtype=torch.float32,
+                           device=compiled.device).contiguous()
+
+    def bind(fn):
+        return lambda anchor, strides, idx, t, m, obs: fn(
+            anchor, rows, strides, idx, t, m, obs, *extra)
+    return tuple(bind(fn) for fn in fns), meta
+
+
 def kernel_inputs(compiled, rng, torch, lead):
     """Kernel inputs at the XENON shape from a fixed seed: random lower
     corners and lerp weights, rates within 20% of the default expectations,
@@ -89,7 +186,8 @@ def kernel_inputs(compiled, rng, torch, lead):
     return (torch.as_tensor(idx, device=dev), f32(t), f32(m), f32(observed))
 
 
-def check_kernels(compiled, fused, torch):
+def check_kernels(label, compiled, fns, meta, torch):
+    vgh, vgh_plain, value, value_plain = fns
     K = len(compiled.shape_names)
     S = len(compiled.rate_names)
     G = compiled.mus_tensor.numel() // S
@@ -97,135 +195,116 @@ def check_kernels(compiled, fused, torch):
     grid = [len(a) for a in compiled.anchor_arrays]
     strides = tuple(int(np.prod(grid[d + 1:])) for d in range(K))
     rng = np.random.default_rng(0)
-    rows = []
 
-    idx, t, m, obs = kernel_inputs(compiled, rng, torch, (N_TOYS,))
+    idx, t, m, obs = kernel_inputs(compiled, rng, torch, (KERNEL_TOYS,))
     args = (anchor, strides, idx, t, m, obs)
-    out = fused.binned_vgh_fused(*args)
-    ref = fused.binned_vgh_plain(*args)
+    out = vgh(*args)
+    ref = vgh_plain(*args)
     torch.cuda.synchronize()
     ll_rel = float(((out[0] - ref[0]).abs() / ref[0].abs()).max())
     g_rel = rel_to_toy_max(out[1], ref[1])
     h_rel = rel_to_toy_max(out[2], ref[2])
     abs_err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
-    ms = cuda_ms(lambda: fused.binned_vgh_fused(*args), torch)
-    plain_ms = cuda_ms(lambda: fused.binned_vgh_plain(*args), torch)
-    log("vgh kernel   B=%d: ll rel err %.3g, g %.3g, H %.3g (of toy max); "
-        "%.4f ms vs plain %.4f ms" % (N_TOYS, ll_rel, g_rel, h_rel, ms,
-                                      plain_ms))
+    ms = cuda_ms(lambda: vgh(*args), torch)
+    plain_ms = cuda_ms(lambda: vgh_plain(*args), torch)
+    log("%s vgh kernel   B=%d: ll rel err %.3g, g %.3g, H %.3g (of toy max);"
+        " %.4f ms vs plain %.4f ms" % (label, KERNEL_TOYS, ll_rel, g_rel,
+                                       h_rel, ms, plain_ms))
     if not (ll_rel <= 1e-5 and g_rel <= 1e-4 and h_rel <= 1e-4):
-        raise AssertionError("vgh kernel disagrees with its plain version")
-    rows.append(dict(name='binned_vgh_fused', route='cuda',
-                     source='blueice_tpu_torch/csrc/fused_binned.cu',
-                     replaces='blueice_tpu/ops/fused.py:144',
-                     also_replaces='blueice_tpu/ops/fused.py:597',
-                     max_abs_err=abs_err, max_rel_err=max(ll_rel, g_rel,
-                                                          h_rel),
-                     ms=ms, plain_ms=plain_ms))
+        raise AssertionError("%s vgh kernel disagrees with its plain "
+                             "version" % label)
+    rows = [dict(meta[0], route='cuda', max_abs_err=abs_err,
+                 max_rel_err=max(ll_rel, g_rel, h_rel), ms=ms,
+                 plain_ms=plain_ms)]
 
-    value = dict(name='binned_ll_fused_multi', route='cuda',
-                 source='blueice_tpu_torch/csrc/fused_binned.cu',
-                 replaces='blueice_tpu/ops/fused.py:251',
-                 also_replaces='blueice_tpu/ops/fused.py:690',
-                 max_abs_err=0.0, max_rel_err=0.0)
+    row = dict(meta[1], route='cuda', max_abs_err=0.0, max_rel_err=0.0)
     for A in (12, 20):
-        idx, t, m, _ = kernel_inputs(compiled, rng, torch, (N_TOYS, A))
+        idx, t, m, _ = kernel_inputs(compiled, rng, torch, (KERNEL_TOYS, A))
         args = (anchor, strides, idx, t, m, obs)
-        out = fused.binned_ll_fused_multi(*args)
-        ref = fused.binned_ll_plain(*args)
+        out = value(*args)
+        ref = value_plain(*args)
         torch.cuda.synchronize()
         rel = float(((out - ref).abs() / ref.abs()).max())
-        ms = cuda_ms(lambda: fused.binned_ll_fused_multi(*args), torch)
-        plain_ms = cuda_ms(lambda: fused.binned_ll_plain(*args), torch)
-        log("value kernel B=%d A=%d: ll rel err %.3g; %.4f ms vs plain "
-            "%.4f ms" % (N_TOYS, A, rel, ms, plain_ms))
+        ms = cuda_ms(lambda: value(*args), torch)
+        plain_ms = cuda_ms(lambda: value_plain(*args), torch)
+        log("%s value kernel B=%d A=%d: ll rel err %.3g; %.4f ms vs plain "
+            "%.4f ms" % (label, KERNEL_TOYS, A, rel, ms, plain_ms))
         if not rel <= 1e-5:
-            raise AssertionError("value kernel (A=%d) disagrees with its "
-                                 "plain version" % A)
-        value['max_abs_err'] = max(value['max_abs_err'],
-                                   float((out - ref).abs().max()))
-        value['max_rel_err'] = max(value['max_rel_err'], rel)
+            raise AssertionError("%s value kernel (A=%d) disagrees with its "
+                                 "plain version" % (label, A))
+        row['max_abs_err'] = max(row['max_abs_err'],
+                                 float((out - ref).abs().max()))
+        row['max_rel_err'] = max(row['max_rel_err'], rel)
         suffix = '' if A == 12 else '_A%d' % A
-        value['ms' + suffix] = ms
-        value['plain_ms' + suffix] = plain_ms
-    rows.append(value)
+        row['ms' + suffix] = ms
+        row['plain_ms' + suffix] = plain_ms
+    rows.append(row)
     return rows
 
 
-def check_statistics(t, free):
+def check_statistics(label, t, free, band):
     wimp = float(np.mean(free[TARGET]))
     med = float(np.median(t))
     if not np.isfinite(free.max_ll).all():
-        raise AssertionError("non-finite free-fit max_ll")
+        raise AssertionError("%s: non-finite free-fit max_ll" % label)
     if not (t >= 0).all():
-        raise AssertionError("negative profile statistic")
+        raise AssertionError("%s: negative profile statistic" % label)
     if not 0.7 < wimp < 1.3:
-        raise AssertionError("mean fitted %s %.4f outside (0.7, 1.3)"
-                             % (TARGET, wimp))
-    if not 0.10 < med < 0.20:
-        raise AssertionError("median t %.4f outside (0.10, 0.20)" % med)
+        raise AssertionError("%s: mean fitted %s %.4f outside (0.7, 1.3)"
+                             % (label, TARGET, wimp))
+    if not band[0] < med < band[1]:
+        raise AssertionError("%s: median t %.4f outside %s"
+                             % (label, med, band))
     return wimp, med
 
 
-def main():
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from blueice_tpu_torch.examples import xenon_like
-    from blueice_tpu_torch.ops import fused
-    from blueice_tpu_torch.parallel import BinnedToyStudy
-    from blueice_tpu_torch.utils import set_progress
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    set_progress(False)
-    log(card_line())
-    log("torch %s, CUDA %s, device %s" % (torch.__version__,
-                                          torch.version.cuda,
-                                          torch.cuda.get_device_name(0)))
+def run_path(label, xenon_like, BinnedToyStudy, ops, torch):
+    """Phases 1-3 of one path; returns its kernel rows."""
+    bb, n_toys, n_compare, band = PATHS[label]
     t0 = time.time()
-    fused.load_library()
-    log("kernel build + load: %.1f s" % (time.time() - t0))
-
-    t0 = time.time()
-    lf = xenon_like.build_likelihood('binned')
+    lf = xenon_like.build_likelihood('binned', bb=bb)
     study = BinnedToyStudy(lf, dtype=torch.float32, device='cuda',
                            max_iter=96, tol=3e-4)
-    log("XENON likelihood: anchor tensor %s (grid, sources, bins), built "
-        "in %.1f s" % (tuple(study.compiled.ps_tensor.shape),
-                       time.time() - t0))
+    log("%s likelihood: anchor tensor %s (grid, sources, bins), built in "
+        "%.1f s" % (label, tuple(study.compiled.ps_tensor.shape),
+                    time.time() - t0))
 
     # 1. kernels vs plain versions (launches here are not counted below)
-    rows = check_kernels(study.compiled, fused, torch)
+    fns, meta = path_ops(label, study.compiled, ops, torch)
+    rows = check_kernels(label, study.compiled, fns, meta, torch)
 
-    # 2. the main path, twice, around the launch counters
-    fused.reset_launch_counts()
+    # 2. the path, twice, around all six launch counters
+    for module in ops:
+        module.reset_launch_counts()
     results = []
     for seed in (0, 1):
         t0 = time.time()
-        t, free, cond = study.profile_ts(seed, n_toys=N_TOYS, target=TARGET,
+        t, free, cond = study.profile_ts(seed, n_toys=n_toys, target=TARGET,
                                          hypothesis=1.0)
         torch.cuda.synchronize()
         results.append((time.time() - t0, t, free, cond))
-    launches = fused.launch_counts()
-    log("kernel launches in the main path: %s" % launches)
-    if not all(launches.values()):
-        raise AssertionError("a kernel of the main path never launched")
-    for (secs, t, free, cond), label in zip(results, ('first', 'warm')):
-        wimp, med = check_statistics(t, free)
-        log("profile_ts %s run: %d toys in %.3f s (%.1f profile fits/s); "
-            "median t %.4f; mean %s %.4f; mean Newton iterations free "
-            "%.1f, conditional %.1f" % (label, N_TOYS, secs, N_TOYS / secs,
-                                        med, TARGET, wimp,
-                                        free.n_iter.mean(),
-                                        cond.n_iter.mean()))
+    launches = {}
+    for module in ops:
+        launches.update(module.launch_counts())
+    log("%s kernel launches in the main path: %s" % (label, launches))
+    own = [r['name'] for r in rows]
+    if not all(launches[name] > 0 for name in own):
+        raise AssertionError("%s: a kernel of the path never launched"
+                             % label)
+    if any(n for name, n in launches.items() if name not in own):
+        raise AssertionError("%s: another path's kernel launched" % label)
+    for (secs, t, free, cond), run in zip(results, ('first', 'warm')):
+        wimp, med = check_statistics(label, t, free, band)
+        log("%s profile_ts %s run: %d toys in %.3f s (%.1f profile fits/s); "
+            "median t %.4f; mean %s %.4f; mean Newton iterations free %.1f, "
+            "conditional %.1f" % (label, run, n_toys, secs, n_toys / secs,
+                                  med, TARGET, wimp, free.n_iter.mean(),
+                                  cond.n_iter.mean()))
     for row in rows:
         row['launches'] = launches[row['name']]
 
     # 3. same counts, two precisions
-    counts = study.simulate(0, N_TOYS)[:16]
+    counts = study.simulate(0, n_toys)[:n_compare]
     t32, f32, c32 = study._run_profile(counts, TARGET, 1.0, None)
     cpu_study = BinnedToyStudy(lf, dtype=torch.float64, device='cpu',
                                max_iter=96, tol=3e-4)
@@ -236,14 +315,48 @@ def main():
                       np.abs(c32.max_ll - c64.max_ll))
     d_t = np.abs(t32 - t64)
     worst = int(np.argmax(d_ll))
-    log("float32 (CUDA) vs float64 (CPU, %.1f s), 16 toys: max |d max_ll| "
-        "%.4g, median |d t| %.4g; worst toy %d: free %.4f vs %.4f, "
+    log("%s float32 (CUDA) vs float64 (CPU, %.1f s), %d toys: max |d "
+        "max_ll| %.4g, median |d t| %.4g; worst toy %d: free %.4f vs %.4f, "
         "conditional %.4f vs %.4f, t %.4f vs %.4f"
-        % (time.time() - t0, d_ll.max(), np.median(d_t), worst,
-           f32.max_ll[worst], f64.max_ll[worst], c32.max_ll[worst],
+        % (label, time.time() - t0, n_compare, d_ll.max(), np.median(d_t),
+           worst, f32.max_ll[worst], f64.max_ll[worst], c32.max_ll[worst],
            c64.max_ll[worst], t32[worst], t64[worst]))
     if not (d_ll.max() <= 0.05 and np.median(d_t) <= 0.01):
-        raise AssertionError("float32 fits disagree with float64")
+        raise AssertionError("%s: float32 fits disagree with float64" % label)
+    return rows
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from blueice_tpu_torch.examples import xenon_like
+    from blueice_tpu_torch.ops import fused, fused_bb, fused_bb_lite
+    from blueice_tpu_torch.parallel import BinnedToyStudy
+    from blueice_tpu_torch.utils import set_progress
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    set_progress(False)
+    log(card_line())
+    log("torch %s, CUDA %s, device %s" % (torch.__version__,
+                                          torch.version.cuda,
+                                          torch.cuda.get_device_name(0)))
+    ops = (fused, fused_bb, fused_bb_lite)
+    t0 = time.time()
+    libs = fused.build_libraries([m.SOURCE for m in ops])
+    for module in ops:
+        module.load_library()
+    log("kernel build + load (%d sources in parallel): %.1f s"
+        % (len(libs), time.time() - t0))
+    for line in ptxas_report(libs):
+        log("ptxas " + line)
+
+    rows = []
+    for label in PATHS:
+        rows += run_path(label, xenon_like, BinnedToyStudy, ops, torch)
 
     log(card_line())
     print(json.dumps({'kernels': rows}))

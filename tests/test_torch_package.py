@@ -85,8 +85,10 @@ def test_auto_engine_is_closed_form_on_cpu(lf):
 def test_not_ported_features_say_so(lf):
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         build_likelihood('unbinned', **SIZE)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        build_likelihood('binned', bb=True, **SIZE)
+    with pytest.raises(ValueError, match='bb must be'):
+        build_likelihood('binned', bb='bb_full', **SIZE)
+    with pytest.raises(ValueError, match='blob templates'):
+        build_likelihood('binned', bb=True, jax_templates=True, **SIZE)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         build_likelihood('binned', jax_templates=True, **SIZE)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
