@@ -5,8 +5,10 @@ stays the reference it is held against. This package imports torch, numpy
 and scipy only — never jax and never blueice_tpu — and carries its own numpy
 host layer (sources, models, morphers, likelihood construction), since the
 machines with the GPU have no JAX. Its device layer runs the batched binned
-profile-likelihood toy study on one device, with the hot likelihood ops as
-hand-written CUDA kernels for Hopper (``ops/fused.py``, ``csrc/``).
+and unbinned profile-likelihood toy studies on one device, with the hot
+likelihood ops as hand-written CUDA kernels for Hopper (``ops/fused*.py``,
+``csrc/``). Entry points compile onto the CUDA device unless the caller
+asks for the CPU with ``device='cpu'``.
 
 What is ported and what is still to come is listed in ROADMAP.md.
 """

@@ -1,13 +1,15 @@
-"""Lower a prepared binned likelihood to torch tensors on one device.
+"""Lower a prepared likelihood to torch tensors on one device.
 
-Counterpart of :mod:`blueice_tpu.compile` for the binned, global-grid
-branch of ``build_logl``, with its Beeston-Barlow modes ('bb_single',
-'bb_lite'): the anchor tensors move to the device once, and every
-evaluation (morphing, rate multipliers, efficiencies, priors, physicality,
-the finite-MC adjustment, the Poisson reduction) is torch on that device.
-Out-of-bounds and unphysical parameter points return -inf like the host
-path. The compiled object also carries the metadata the closed-form fit
-engines read (anchor tensors and arrays, names, priors).
+Counterpart of :mod:`blueice_tpu.compile` for the global-grid branch of
+``build_logl``: binned, with its Beeston-Barlow modes ('bb_single',
+'bb_lite'), and extended unbinned, data-bound or data-free (the toy studies
+supply each toy's per-event density tensor at call time). The anchor tensors
+move to the device once, and every evaluation (morphing, rate multipliers,
+efficiencies, priors, physicality, the finite-MC adjustment, the Poisson or
+extended reduction) is torch on that device. Out-of-bounds and unphysical
+parameter points return -inf like the host path. The compiled object also
+carries the metadata the closed-form fit engines read (anchor tensors and
+arrays, names, priors).
 
 Sums, re-parametrisations and ancillary terms are ROADMAP queue 1 item 11;
 exposing the livetime as a parameter is item 16.
@@ -22,7 +24,8 @@ from .device import resolve
 from .ops.bb_lite import bb_lite_logl
 from .ops.beeston_barlow import bb_single_adjust
 from .ops.interp import clip, morph_templates
-from .ops.poisson import binned_poisson_logl, binned_poisson_logl_constant
+from .ops.poisson import (binned_poisson_logl, binned_poisson_logl_constant,
+                          extended_logl)
 from .priors import PRIORS
 
 __all__ = ['CompiledLogLikelihood', 'build_logl']
@@ -30,10 +33,13 @@ __all__ = ['CompiledLogLikelihood', 'build_logl']
 
 def build_logl(lf, dtype=None, device=None, include_livetime=False,
                with_priors=True):
-    """Compile the prepared binned likelihood ``lf`` onto ``device``.
+    """Compile the prepared likelihood ``lf`` onto ``device``: a binned
+    one, or an unbinned one with its data set or without (data-free: for
+    toy studies, which pass each toy's density tensor).
 
     :param dtype: tensor dtype (None: float32 on CUDA, float64 on the CPU).
-    :param device: torch device ('cpu' default, 'cuda').
+    :param device: torch device (None: the CUDA device, raising without
+      CUDA; 'cpu' for the CPU).
     :param with_priors: include rate/shape log-prior terms.
     :return: :class:`CompiledLogLikelihood`.
     """
@@ -50,14 +56,19 @@ def build_logl(lf, dtype=None, device=None, include_livetime=False,
 
 
 class CompiledLogLikelihood:
-    """A binned log likelihood on torch tensors, plus its parameter metadata.
+    """A log likelihood on torch tensors, plus its parameter metadata.
 
     Attributes:
       param_names: all parameter names, rates first then shapes.
       defaults / bounds: per-parameter base values and (lo, hi) tuples.
-      data: the bound observed counts (tensor) or None.
-      mus_tensor (*grid, S), ps_tensor (*grid, S, *bins): anchor payloads on
-        the device.
+      is_binned: False for the extended unbinned likelihood, whose
+        ``outlier_likelihood`` is the density floor of events whose summed
+        density is not positive.
+      data: the bound observed counts (tensor) or None (unbinned: None; the
+        bound events are the per-event ``ps_tensor``).
+      mus_tensor (*grid, S), ps_tensor (*grid, S, *bins), or for an
+        unbinned likelihood (*grid, S, n_events): anchor payloads on the
+        device; ps_tensor is None for a data-free unbinned compile.
       anchor_arrays, shape_names, rate_names, prior_terms [(name, prior)]:
         what the closed-form fit engines read.
       has_bb / has_bb_lite / bb_source_i: the finite-MC-statistics mode
@@ -83,8 +94,11 @@ class CompiledLogLikelihood:
         self.prior_terms = ([(name, PRIORS[kind](*numbers))
                              for name, kind, numbers in state['priors']]
                             if with_priors else [])
+        self.is_binned = state.get('kind', 'binned') == 'binned'
+        self.outlier_likelihood = float(state.get('outlier_likelihood', 0.0))
         self.mus_tensor = self._tensor(state['mus'])
-        self.ps_tensor = self._tensor(state['ps'])
+        self.ps_tensor = (None if state['ps'] is None
+                          else self._tensor(state['ps']))
         self.data = (None if state['data'] is None
                      else self._tensor(state['data']))
         mode = state.get('mode')
@@ -165,11 +179,18 @@ class CompiledLogLikelihood:
 
     # -- evaluation ----------------------------------------------------------------
 
-    def logl_with_data(self, params, data, include_constant=True):
+    def logl_with_data(self, params, data, mask=None, include_constant=True):
         """Log likelihood at one parameter point for the observed-counts
-        tensor ``data`` (*bins)."""
+        tensor ``data`` (*bins), or for an unbinned likelihood one toy's
+        per-event density tensor (*grid, S, n_events), grid flattened or
+        not, with its optional event ``mask`` (n_events,) (False: padding)."""
         zs, oob = self._clipped_zs(params)
-        ps = self._morph(self.ps_tensor, zs)
+        data = data if torch.is_tensor(data) else self._tensor(data)
+        if self.is_binned:
+            ps = self._morph(self.ps_tensor, zs)
+        else:
+            grid = tuple(len(a) for a in self.anchor_arrays)
+            ps = self._morph(data.reshape(grid + tuple(data.shape[-2:])), zs)
         mus = self._mus_at(params, zs)
 
         finite = torch.all(mus < float('inf'))
@@ -183,8 +204,12 @@ class CompiledLogLikelihood:
             unphysical = (~finite) | (torch.sum(mus) < 0) | per_source_bad
             mus_safe = mus
 
-        data = data if torch.is_tensor(data) else self._tensor(data)
-        if self.has_bb_lite:
+        if not self.is_binned:
+            ll = extended_logl(mus_safe, ps, self.outlier_likelihood,
+                               mask=None if mask is None
+                               else torch.as_tensor(mask, dtype=torch.bool,
+                                                    device=self.device))
+        elif self.has_bb_lite:
             ll = bb_lite_logl(mus_safe, ps, self._morph(self.nme_tensor, zs),
                               data, include_constant=include_constant)
         else:
@@ -200,10 +225,11 @@ class CompiledLogLikelihood:
                            self._value(-float('inf')), ll)
 
     def logl(self, params):
-        if self.data is None:
+        data = self.data if self.is_binned else self.ps_tensor
+        if data is None:
             raise RuntimeError("No data bound: call set_data() before "
                                "compiling, or use logl_with_data")
-        return self.logl_with_data(params, self.data)
+        return self.logl_with_data(params, data)
 
     def __call__(self, **kwargs):
         return self.logl(self.params_from_kwargs(**kwargs))
@@ -216,6 +242,10 @@ class CompiledLogLikelihood:
         Summed in float64 whatever the working dtype: each bin's
         k log k - k - lgamma(k+1) is a difference of terms ~k log k, which
         float32 resolves only to ~1e-4 at XENON-scale counts; the sum is
-        computed once per fit."""
+        computed once per fit. The extended unbinned likelihood has none
+        (zeros)."""
+        if not self.is_binned:
+            return torch.zeros(data.shape[:batch_dims], dtype=data.dtype,
+                               device=data.device)
         return binned_poisson_logl_constant(
             data.to(torch.float64), batch_dims=batch_dims).to(data.dtype)

@@ -1,11 +1,12 @@
-"""The bridge for weights and state between a prepared binned likelihood and
-the port's compiled likelihood.
+"""The bridge for weights and state between a prepared likelihood and the
+port's compiled likelihood.
 
-:func:`state_from_reference` reads a prepared ``BinnedLogLikelihood`` — one
-of the JAX package or one of this package; the two keep the same attributes
-— into a plain dict of numpy arrays, names and numbers, without importing
-either framework. :func:`build_logl_from_state` turns such a state into the
-port's :class:`~blueice_tpu_torch.compile.CompiledLogLikelihood` on a torch
+:func:`state_from_reference` reads a prepared ``BinnedLogLikelihood`` or
+``UnbinnedLogLikelihood`` — one of the JAX package or one of this package;
+the two keep the same attributes — into a plain dict of numpy arrays, names
+and numbers, without importing either framework.
+:func:`build_logl_from_state` turns such a state into the port's
+:class:`~blueice_tpu_torch.compile.CompiledLogLikelihood` on a torch
 device. The tests use the pair to feed both packages bit-identical
 templates; :func:`blueice_tpu_torch.compile.build_logl` is the same two steps
 on the port's own likelihood.
@@ -32,14 +33,21 @@ def _prior_state(name, prior):
         "item 16)" % (name, prior))
 
 
-def state_from_reference(lf):
-    """Numpy state of a prepared binned likelihood.
+def _is_a(lf, name):
+    return any(c.__name__ == name for c in type(lf).__mro__)
 
-    :return: dict with the anchor payloads ``mus`` (*grid, S) and ``ps``
-      (*grid, S, *bins) (``lf._builds['mus'][2]`` / ``lf._builds['ps'][2]``
-      for a morphed likelihood), ``anchor_arrays``, ``source_names``,
-      ``shape_names``, ``rate_names``, ``defaults``, ``bounds``, ``priors``
-      ([(name, kind, numbers)]), ``registered`` (the parameters a fit
+
+def state_from_reference(lf):
+    """Numpy state of a prepared binned or unbinned likelihood.
+
+    :return: dict with ``kind`` ('binned' or 'unbinned'), the anchor
+      payloads ``mus`` (*grid, S) and ``ps`` (*grid, S, *bins), or for an
+      unbinned likelihood the per-event densities of its data (*grid, S,
+      n_events), None when no data is set (``lf._builds['mus'][2]`` /
+      ``lf._builds['ps'][2]`` for a morphed likelihood),
+      ``outlier_likelihood`` (unbinned; 0 for binned), ``anchor_arrays``,
+      ``source_names``, ``shape_names``, ``rate_names``, ``defaults``,
+      ``bounds``, ``priors`` ([(name, kind, numbers)]), ``registered`` (the parameters a fit
       floats by default), ``allow_negative``, ``apply_efficiency``,
       ``efficiency_names``, ``data`` (the bound data's counts or None),
       and the finite-MC-statistics mode: ``mode`` (None, 'bb_single' or
@@ -49,14 +57,23 @@ def state_from_reference(lf):
     """
     if not getattr(lf, 'is_prepared', False):
         raise RuntimeError("Call prepare() before reading the likelihood")
-    if not any(c.__name__ == 'BinnedLogLikelihood'
-               for c in type(lf).__mro__):
+    binned = _is_a(lf, 'BinnedLogLikelihood')
+    if not binned and not _is_a(lf, 'UnbinnedLogLikelihood'):
         raise NotImplementedError(
-            "only binned likelihoods are ported (unbinned is ROADMAP queue "
-            "1 item 9, compositions item 11)")
+            "only binned and unbinned likelihoods are ported (compositions "
+            "are ROADMAP queue 1 item 11)")
+    if getattr(lf, 'source_wise_interpolation', False):
+        raise NotImplementedError(
+            "source-wise interpolation is not ported yet (ROADMAP queue 1 "
+            "item 17)")
     source_names = list(lf.source_name_list)
     shape_names = list(lf.shape_parameters.keys())
-    ps_build = lf._builds['ps']
+    ps_build = lf._builds.get('ps')
+    if ps_build is None and not binned:
+        # Data-free unbinned likelihood: the rates and the anchor grid only;
+        # each toy brings its own per-event densities
+        ps_build = (('global', lf.morpher, None) if shape_names
+                    else ('constant', None))
     if ps_build[0] == 'global':
         morpher = ps_build[1]
         if type(morpher).__name__ != 'GridInterpolator':
@@ -64,12 +81,14 @@ def state_from_reference(lf):
                 "%s template morphing is not ported yet (ROADMAP queue 1 "
                 "items 11, 16)" % type(morpher).__name__)
         mus = np.asarray(lf._builds['mus'][2], dtype=float)
-        ps = np.asarray(ps_build[2], dtype=float)
+        ps = None if ps_build[2] is None else np.asarray(ps_build[2],
+                                                         dtype=float)
         anchor_arrays = [np.asarray(a, dtype=float)
                          for a in morpher.anchor_z_arrays]
     elif ps_build[0] == 'constant':
         mus = np.asarray(lf.base_model.expected_events(), dtype=float)
-        ps = np.asarray(ps_build[1], dtype=float)
+        ps = None if ps_build[1] is None else np.asarray(ps_build[1],
+                                                         dtype=float)
         anchor_arrays = []
     else:
         raise NotImplementedError(
@@ -100,7 +119,7 @@ def state_from_reference(lf):
             priors.append((sp,) + _prior_state(sp, prior))
 
     data = (np.asarray(lf.data_events_per_bin.values, dtype=float)
-            if getattr(lf, 'is_data_set', False) else None)
+            if binned and getattr(lf, 'is_data_set', False) else None)
 
     mode = getattr(lf, 'model_statistical_uncertainty_handling', None)
     nme = bb_source_i = None
@@ -115,6 +134,9 @@ def state_from_reference(lf):
             bb_source_i = int(lf.base_model.get_source_i(
                 lf.config['bb_single_source']))
     return dict(
+        kind='binned' if binned else 'unbinned',
+        outlier_likelihood=(0.0 if binned else float(
+            lf.config.get('outlier_likelihood', 1e-12))),
         mus=mus, ps=ps, anchor_arrays=anchor_arrays,
         source_names=source_names, shape_names=shape_names,
         rate_names=rate_names, defaults=defaults, bounds=bounds,

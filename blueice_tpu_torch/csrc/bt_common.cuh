@@ -1,6 +1,7 @@
 // Shared pieces of the port's CUDA kernels (fused_binned.cu, fused_bb.cu,
-// fused_bb_lite.cu): the block size, the fixed-order block reduction, the
-// packed upper-triangle index, and the (S, K) instantiation list.
+// fused_bb_lite.cu, fused_unbinned.cu): the block size, the fixed-order
+// block reduction, the packed upper-triangle index, and the (S, K)
+// instantiation list.
 #pragma once
 
 #include <cfloat>

@@ -1,7 +1,9 @@
 """Device and dtype policy of the port.
 
-A likelihood compiles onto one torch device: float32 on a CUDA device (the
-kernels' type), float64 on the CPU unless asked otherwise. On CUDA the
+A likelihood compiles onto one torch device: the card unless the caller asks
+for the CPU with ``device='cpu'``, never the CPU as a quiet fallback;
+float32 on a CUDA device (the kernels' type), float64 on the CPU unless
+asked otherwise. On CUDA the
 float32 matrix products and convolutions are held to full float32: TF32
 keeps about three decimal digits, and the reference lost the XENON profile
 statistic to a reduced-precision combine (median t 0.140 -> 0.073).
@@ -15,11 +17,18 @@ __all__ = ['resolve']
 def resolve(device=None, dtype=None):
     """(torch.device, torch.dtype) for a compile request.
 
-    :param device: None or 'cpu' for the CPU, 'cuda' / 'cuda:N' / a
-      torch.device for a GPU. A CUDA device without CUDA raises.
+    :param device: None or 'cuda' / 'cuda:N' / a torch.device for a GPU
+      (None: the current CUDA device), 'cpu' for the CPU. A CUDA device
+      without CUDA raises.
     :param dtype: None picks float32 on CUDA and float64 on the CPU.
     """
-    device = torch.device('cpu' if device is None else device)
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "the port runs on the CUDA device by default, and CUDA is "
+                "not available here: pass device='cpu' to run on the CPU")
+        device = 'cuda'
+    device = torch.device(device)
     if device.type == 'cuda':
         if not torch.cuda.is_available():
             raise RuntimeError("device %s requested but CUDA is not available"

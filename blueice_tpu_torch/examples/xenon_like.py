@@ -16,7 +16,7 @@ import numpy as np
 
 from ..models.source import HistogramPdfSource
 from ..ops.hist import Hist
-from ..likelihood import BinnedLogLikelihood
+from ..likelihood import BinnedLogLikelihood, UnbinnedLogLikelihood
 from ..priors import NormalPrior
 
 __all__ = ['GaussianBlobSource', 'build_config', 'build_likelihood']
@@ -137,8 +137,9 @@ def build_likelihood(kind='binned', n_anchors=3, prepare=True, bb=False,
     band_shift, band_width_scale, cs1_tilt (morphing) + efficiency (rate-like,
     applied to the wimp source). Background rates carry Gaussian constraints.
 
-    :param kind: only 'binned' is ported (unbinned is ROADMAP queue 1
-      item 9).
+    :param kind: 'binned', or 'unbinned' for the extended unbinned
+      likelihood over the same sources (the reference's science mode; pass
+      a short ``livetime_days`` such as 3.0 for ~1,900 events per toy).
     :param bb: finite-MC-statistics handling. True or 'bb_single' enables
       the reference's one-source Beeston-Barlow on the dominant 'er'
       background (blueice/likelihood.py:618-660); 'bb_lite' enables the
@@ -159,11 +160,9 @@ def build_likelihood(kind='binned', n_anchors=3, prepare=True, bb=False,
             'model_statistical_uncertainty_handling': mode}
         if mode == 'bb_single':
             likelihood_config['bb_single_source'] = 'er'
-    if kind != 'binned':
-        raise NotImplementedError(
-            "kind=%r is not ported yet (ROADMAP queue 1 item 9)" % (kind,))
     config = build_config(**kwargs)
-    lf = BinnedLogLikelihood(config, likelihood_config=likelihood_config)
+    cls = BinnedLogLikelihood if kind == 'binned' else UnbinnedLogLikelihood
+    lf = cls(config, likelihood_config=likelihood_config)
 
     lf.add_rate_parameter('wimp')
     lf.add_rate_parameter('er', log_prior=NormalPrior(1, 0.05))

@@ -1,4 +1,5 @@
-"""Log-likelihood constructors: the host layer of the binned likelihood.
+"""Log-likelihood constructors: the host layer of the binned and unbinned
+likelihoods.
 
 Counterpart of :mod:`blueice_tpu.likelihood` for the slice the port runs:
 
@@ -14,12 +15,14 @@ Counterpart of :mod:`blueice_tpu.likelihood` for the slice the port runs:
 
 The binned likelihood's finite-MC-statistics modes are ported: 'bb_single'
 (the reference's one-source Beeston-Barlow profile, analytic per-bin root)
-and 'bb_lite' (one profiled scale per bin on the total template).
+and 'bb_lite' (one profiled scale per bin on the total template). The
+extended unbinned likelihood is ported with global morphing (``set_data``
+scores the events at every anchor model into a (*grid, n_sources,
+n_events) tensor) and without shape parameters.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP item):
-unbinned likelihoods, log template morphing, source-wise interpolation,
-parallel template builds, and the likelihood compositions (sum,
-re-parametrisation, ancillary terms).
+log template morphing, source-wise interpolation, parallel template builds,
+and the likelihood compositions (sum, re-parametrisation, ancillary terms).
 """
 
 from collections import OrderedDict
@@ -35,12 +38,13 @@ from .models import Model
 from .morphers import MORPHERS
 from .ops.bb_lite import bb_lite_logl_host
 from .ops.hist import Hist
+from .ops.poisson import extended_logl_np
 from .priors import NormalPrior
 from .utils import combine_dicts, inherit_docstring_from
 
 __all__ = ['LogLikelihoodBase', 'BinnedLogLikelihood', 'UnbinnedLogLikelihood',
            'beeston_barlow_root1', 'beeston_barlow_root2',
-           'beeston_barlow_roots']
+           'beeston_barlow_roots', 'extended_loglikelihood']
 
 
 def _needs_preparation(f):
@@ -108,7 +112,7 @@ class LogLikelihoodBase:
         if self.source_wise_interpolation:
             raise NotImplementedError(
                 "source_wise_interpolation is not ported yet (ROADMAP queue "
-                "1 item 9)")
+                "1 item 17)")
 
         # Base model: no variation of any setting
         self.base_model = Model(self.pdf_base_config)
@@ -291,16 +295,24 @@ class LogLikelihoodBase:
     # -- evaluation (host path) --------------------------------------------------
 
     @_needs_data
-    def __call__(self, livetime_days=None, full_output=False, **kwargs):
+    def __call__(self, livetime_days=None, compute_pdf=False,
+                 full_output=False, **kwargs):
         """Evaluate the log likelihood. Parameters not passed take their base
         values; rate uncertainties are passed as sourcename_rate_multiplier.
         :param livetime_days: exposure to evaluate at (scales all rates).
+        :param compute_pdf: build a fresh model at the exact parameter point
+          instead of interpolating between anchors.
         :param full_output: also return the mus and ps.
         """
         result = 0
         rate_multipliers, shape_settings = self._kwargs_to_settings(**kwargs)
 
-        if len(self.shape_parameters):
+        if len(self.shape_parameters) and compute_pdf:
+            if self._has_non_numeric:
+                raise NotImplementedError(
+                    "compute_pdf requires numeric shape-parameter values")
+            mus, ps, n_model_events = self._compute_single_pdf(**kwargs)
+        elif len(self.shape_parameters):
             zs = []
             for setting_name, (_, log_prior, _) in \
                     self.shape_parameters.items():
@@ -411,6 +423,20 @@ class LogLikelihoodBase:
                             for sn in self.source_name_list]
         return rate_multipliers, shape_settings
 
+    def _compute_single_model(self, **kwargs):
+        """A Model built from the base config with kwargs as exact
+        overrides."""
+        _, shape_settings = self._kwargs_to_settings(**kwargs)
+        config = combine_dicts(self.pdf_base_config, shape_settings,
+                               deep_copy=True)
+        config['never_save_to_cache'] = True
+        return Model(config)
+
+    def _compute_single_pdf(self, **kwargs):
+        """(mus, ps, n_model_events) from a freshly computed model at the
+        exact parameter point."""
+        raise NotImplementedError
+
     def _compute_likelihood(self, mus, ps):
         raise NotImplementedError
 
@@ -423,13 +449,42 @@ class LogLikelihoodBase:
         return build_logl(self, **opts)
 
 
-class UnbinnedLogLikelihood(LogLikelihoodBase):
-    """Extended unbinned log likelihood — not ported yet."""
+def _n_events(d):
+    """Event count of a dataset indexable by analysis-dimension name
+    (``len`` of a dict of arrays would count its keys)."""
+    if isinstance(d, dict):
+        return len(next(iter(d.values()))) if d else 0
+    return len(d)
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "UnbinnedLogLikelihood is not ported yet (ROADMAP queue 1 item 9, "
-            "slice C)")
+
+class UnbinnedLogLikelihood(LogLikelihoodBase):
+    """Extended unbinned log likelihood: per-event densities interpolated
+    between anchors (the per-event tensor is rebuilt on every set_data).
+
+    likelihood_config option: outlier_likelihood (default 1e-12), the
+    density of events whose summed density is not positive."""
+
+    @inherit_docstring_from(LogLikelihoodBase)
+    def set_data(self, d):
+        LogLikelihoodBase.set_data(self, d)
+        if len(self.shape_parameters):
+            self.ps_interpolator, ps_tensor = self._interp_and_tensor(
+                self.morpher, f=lambda m: m.score_events(d),
+                extra_dims=[len(self.source_name_list), _n_events(d)],
+                anchor_models=self.anchor_models)
+            self._builds['ps'] = ('global', self.morpher, ps_tensor)
+        else:
+            self.ps = self.base_model.score_events(d)
+            self._builds['ps'] = ('constant', self.ps)
+
+    def _compute_single_pdf(self, **kwargs):
+        model = self._compute_single_model(**kwargs)
+        return model.expected_events(), model.score_events(self._data), None
+
+    def _compute_likelihood(self, mus, pdf_values_at_events):
+        return extended_loglikelihood(
+            mus, pdf_values_at_events,
+            outlier_likelihood=self.config.get('outlier_likelihood', 1e-12))
 
 
 class BinnedLogLikelihood(LogLikelihoodBase):
@@ -476,6 +531,11 @@ class BinnedLogLikelihood(LogLikelihoodBase):
         else:
             self._builds['ps'] = ('constant', self.ps)
             self._builds['n_model_events'] = ('constant', self.n_model_events)
+
+    def _compute_single_pdf(self, **kwargs):
+        model = self._compute_single_model(**kwargs)
+        ps, n_model_events = model.pmf_grids()
+        return model.expected_events(), ps, n_model_events
 
     @inherit_docstring_from(LogLikelihoodBase)
     def set_data(self, d):
@@ -562,6 +622,13 @@ class BinnedLogLikelihood(LogLikelihoodBase):
         expected_pos = np.maximum(expected, np.finfo(float).tiny)
         return float(np.sum(xlogy(observed, expected_pos) - expected
                             - gammaln(observed + 1.0))) + penalty
+
+
+def extended_loglikelihood(mu, ps, outlier_likelihood=0.0):
+    """Extended unbinned log likelihood (host path): -sum(mu) + sum over
+    events of log(sum_s mu_s ps_s); events whose summed density is not a
+    positive number take ``outlier_likelihood`` (when it is not 0)."""
+    return extended_logl_np(mu, ps, outlier_likelihood=outlier_likelihood)
 
 
 # Host (numpy, float64) roots of the per-bin Beeston-Barlow quadratic; the

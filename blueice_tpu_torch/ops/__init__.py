@@ -1,4 +1,5 @@
 from .hist import Hist
 from .interp import (morph_weights, morph_templates, morph_templates_np,
                      interp_at_points_np)
-from .poisson import binned_poisson_logl, binned_poisson_logl_constant
+from .poisson import (binned_poisson_logl, binned_poisson_logl_constant,
+                      extended_logl)

@@ -1,14 +1,17 @@
-"""Binned Poisson likelihood reductions in torch.
+"""Likelihood reductions in torch: Poisson bin sums and the extended
+unbinned likelihood, with the numpy host twin of the latter.
 
-Counterpart of :mod:`blueice_tpu.ops.poisson` (the binned half; the extended
-unbinned likelihood is ROADMAP queue 1 item 9). Same deviance-centered form:
-the parameter-dependent part of the sum stays O(n_dof) in magnitude, so
-float32 resolves the likelihood differences profile statistics need.
+Counterpart of :mod:`blueice_tpu.ops.poisson`. The binned sums keep the
+deviance-centered form: the parameter-dependent part of the sum stays
+O(n_dof) in magnitude, so float32 resolves the likelihood differences
+profile statistics need.
 """
 
+import numpy as np
 import torch
 
-__all__ = ['binned_poisson_logl', 'binned_poisson_logl_constant']
+__all__ = ['binned_poisson_logl', 'binned_poisson_logl_constant',
+           'extended_logl', 'extended_logl_np']
 
 
 def binned_poisson_logl(mus, pmfs, observed, include_constant=True):
@@ -45,3 +48,46 @@ def binned_poisson_logl_constant(observed, batch_dims=0):
     terms = torch.xlogy(observed, k_safe) - observed - torch.lgamma(
         observed + 1.0)
     return terms.reshape(tuple(observed.shape[:batch_dims]) + (-1,)).sum(-1)
+
+
+def extended_logl(mus, ps, outlier_likelihood=0.0, mask=None):
+    """Extended unbinned log likelihood.
+
+    :param mus: (n_sources,) expected number of events per source.
+    :param ps: (n_sources, n_events) pdf value of each source at each event.
+    :param outlier_likelihood: density given to events whose summed density
+      is not a positive number (0, negative or nan), so that one
+      zero-density event cannot sink the whole likelihood.
+    :param mask: optional (n_events,) boolean; False entries are padding and
+      contribute nothing.
+    :return: scalar: -sum(mus) + sum_events log(sum_s mu_s p_s(event)).
+    """
+    p_events = torch.nansum(mus[:, None] * ps, dim=0)
+    if mask is not None:
+        # Double-where: floor the padded events' density before the log, so
+        # no log(0) = -inf stays in the computation
+        p_events = torch.where(mask, p_events, torch.ones_like(p_events))
+    if outlier_likelihood != 0:
+        p_events = torch.where(p_events > 0, p_events,
+                               torch.full_like(p_events, outlier_likelihood))
+    log_terms = torch.log(p_events)
+    if mask is not None:
+        log_terms = torch.where(mask, log_terms, torch.zeros_like(log_terms))
+    return -torch.sum(mus) + torch.sum(log_terms)
+
+
+def extended_logl_np(mus, ps, outlier_likelihood=0.0, mask=None):
+    """Numpy (float64) twin of :func:`extended_logl`: the host likelihood's
+    reduction (``UnbinnedLogLikelihood._compute_likelihood``)."""
+    mus = np.asarray(mus, dtype=float)
+    ps = np.asarray(ps, dtype=float)
+    p_events = np.nansum(mus[:, None] * ps, axis=0)
+    if mask is not None:
+        p_events = np.where(mask, p_events, 1.0)
+    if outlier_likelihood != 0:
+        p_events = np.where(p_events > 0, p_events, outlier_likelihood)
+    with np.errstate(divide='ignore', invalid='ignore'):
+        log_terms = np.log(p_events)
+    if mask is not None:
+        log_terms = np.where(mask, log_terms, 0.0)
+    return float(-mus.sum() + np.sum(log_terms))

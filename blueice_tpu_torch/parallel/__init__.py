@@ -1,2 +1,2 @@
 from .fitter import make_toy_fitter, minimize_newton
-from .toys import BinnedToyStudy, ToyResults
+from .toys import BinnedToyStudy, UnbinnedToyStudy, ToyResults

@@ -1,8 +1,8 @@
-"""Batched damped-Newton maximum-likelihood fits of a compiled binned
-likelihood.
+"""Batched damped-Newton maximum-likelihood fits of a compiled binned or
+unbinned likelihood.
 
-Counterpart of :mod:`blueice_tpu.parallel.fitter` (the binned closed-form
-path). The JAX package writes one fit and vmaps it; here the toy batch is a
+Counterpart of :mod:`blueice_tpu.parallel.fitter` (the closed-form paths).
+The JAX package writes one fit and vmaps it; here the toy batch is a
 written-out leading dimension, and ``lax.while_loop`` becomes a Python loop
 over iterations with a per-lane active mask: a lane that has converged (or
 used up ``max_iter``) freezes — its u, f and iteration count stop — and each
@@ -17,22 +17,29 @@ does, so the Newton steps live in an unconstrained space u.
 The likelihood's (ll, g, H) in the natural (m, t) coordinates comes from the
 closed form (``engine='analytic'``: the kernels' plain versions) or the
 fused CUDA kernels (``engine='fused'``: :mod:`blueice_tpu_torch.ops.fused`,
-and for the Beeston-Barlow modes :mod:`~blueice_tpu_torch.ops.fused_bb` and
-:mod:`~blueice_tpu_torch.ops.fused_bb_lite`), and is chained to u through
-the tiny parameter graph with its first and second derivatives in closed
-form.
+for the Beeston-Barlow modes :mod:`~blueice_tpu_torch.ops.fused_bb` and
+:mod:`~blueice_tpu_torch.ops.fused_bb_lite`, and for the extended unbinned
+likelihood :mod:`~blueice_tpu_torch.ops.fused_unbinned`), and is chained to
+u through the tiny parameter graph with its first and second derivatives in
+closed form.
+
+An unbinned fit's data is each toy's per-event density tensor at every
+anchor point, (B, G, S, E), with its event mask and the per-toy centering
+data of :func:`unbinned_center`; the kernels read a lane's toy through an
+index tensor, so no lane subset of that tensor is ever copied.
 """
 
 import numpy as np
 import torch
 
 from ..exceptions import NoOpimizationNecessary
-from ..ops import fused, fused_bb, fused_bb_lite
+from ..ops import fused, fused_bb, fused_bb_lite, fused_unbinned
 from ..ops.binned_vgh import corner_weight_tables
 from ..ops.interp import cell_index, clip
+from ..ops.unbinned_vgh import reference_center
 
 __all__ = ['Transform', 'make_transform', 'minimize_newton',
-           'make_toy_fitter', 'check_fixed_in_bounds']
+           'make_toy_fitter', 'check_fixed_in_bounds', 'unbinned_center']
 
 
 class Transform:
@@ -429,12 +436,13 @@ def _floating_setup(compiled, fixed, guess=None):
 
 
 def _grid_dims(compiled):
-    """(K shape params, S sources, G flattened anchor-grid size, n_bins)."""
+    """(K shape params, S sources, G flattened anchor-grid size, n_bins;
+    None for an unbinned likelihood)."""
     K = len(compiled.shape_names)
     S = len(compiled.rate_names)
-    ps = compiled.ps_tensor
-    G = int(np.prod(ps.shape[:K])) if K else 1
-    n_bins = int(np.prod(ps.shape[K + 1:]))
+    G = int(np.prod([len(a) for a in compiled.anchor_arrays])) if K else 1
+    n_bins = (int(np.prod(compiled.ps_tensor.shape[K + 1:]))
+              if compiled.is_binned else None)
     return K, S, G, n_bins
 
 
@@ -443,7 +451,8 @@ def _fused_eligible(compiled):
     and type, and per mode what they compute. The bb_single kernels carry no
     negative-expectation penalty (as the reference's), so a bb_single model
     with an allow_negative source is not eligible; the plain and bb-lite
-    kernels keep the penalty."""
+    kernels keep the penalty. The unbinned kernels take any event count
+    (no memory budget, unlike the TPU's VMEM rule)."""
     K, S, _, _ = _grid_dims(compiled)
     return (compiled.device.type == 'cuda'
             and compiled.dtype == torch.float32
@@ -698,19 +707,116 @@ def _make_analytic_parts(compiled, names, fixed, transform, use_fused,
     return value_many, vgh
 
 
+def _reference_point(compiled):
+    """(m0 (S,), idx0 (K,), t0 (K,)) of the centering reference: every
+    parameter at its default, whatever the fit's guesses or fixed values,
+    so that every fit of a toy (free, conditional, refined) shares it."""
+    dt, dev = compiled.dtype, compiled.device
+    m0 = compiled.rates(dict(compiled.defaults))
+    idx0, t0 = [], []
+    for d, sp in enumerate(compiled.shape_names):
+        arr = np.asarray(compiled.anchor_arrays[d], dtype=float)
+        z = float(np.clip(float(compiled.defaults[sp]), arr[0], arr[-1]))
+        i = int(np.clip(np.searchsorted(arr, z, side='right') - 1,
+                        0, len(arr) - 2))
+        idx0.append(i)
+        t0.append(float(np.clip((z - arr[i]) / (arr[i + 1] - arr[i]),
+                                0.0, 1.0)))
+    return (m0, torch.as_tensor(idx0, dtype=torch.int64, device=dev),
+            torch.as_tensor(t0, dtype=dt, device=dev))
+
+
+def unbinned_center(compiled, ps, mask, chunk=64):
+    """Per-toy centering data of an unbinned toy batch, computed once per
+    event set and shared by every fit of those toys:
+    ``(inv_ref (B, E), ref_msum (B,), ref_ll (B,) float64)`` at the
+    default parameters (see
+    :func:`blueice_tpu_torch.ops.unbinned_vgh.reference_center`). Without
+    the centering, float32 loses the profile statistic at a few thousand
+    events per toy.
+
+    :param ps: (B, G, S, E) per-toy per-event densities at every anchor.
+    :param mask: (B, E) bool event validity.
+    :param chunk: toys per step (bounds the corner block's memory).
+    """
+    K = len(compiled.shape_names)
+    B, G, S, E = ps.shape
+    grid = tuple(len(a) for a in compiled.anchor_arrays)
+    strides = tuple(int(np.prod(grid[d + 1:])) for d in range(K))
+    m0, idx0, t0 = _reference_point(compiled)
+    ids0 = fused.corner_ids(strides, idx0, G)                     # (C,)
+    parts = []
+    for b0 in range(0, B, chunk):
+        sl = slice(b0, min(B, b0 + chunk))
+        n = sl.stop - sl.start
+        parts.append(reference_center(
+            ps[sl][:, ids0], m0.expand(n, S), t0.expand(n, K), mask[sl],
+            compiled.outlier_likelihood))
+    inv_ref, ref_msum, ref_ll = (torch.cat(p) for p in zip(*parts))
+    return inv_ref.contiguous(), ref_msum, ref_ll
+
+
+def _make_unbinned_parts(compiled, names, fixed, transform, use_fused,
+                         runtime_fixed=()):
+    """(value_many(u_cands, data, rows, fv), vgh(u, data, rows, fv)) of the
+    negated extended unbinned objective, centered. ``data`` is (ps
+    (B, G, S, E), mask (B, E), center) and ``rows`` (L,) the toys of the
+    lanes: the ops read ``ps[rows]`` in place.
+
+    ``use_fused`` routes the (ll, g, H) and value ops to the CUDA kernel
+    wrappers (their plain versions on the CPU); otherwise to the plain
+    versions, the closed forms of :mod:`blueice_tpu_torch.ops.unbinned_vgh`.
+    """
+    graph = _ParamGraph(compiled, names, fixed, transform, runtime_fixed)
+    outlier = compiled.outlier_likelihood
+    if use_fused:
+        vgh_op = fused_unbinned.unbinned_vgh_fused
+        ll_op = fused_unbinned.unbinned_ll_fused_multi
+    else:
+        vgh_op = fused_unbinned.unbinned_vgh_plain
+        ll_op = fused_unbinned.unbinned_ll_plain
+
+    def value_many(u_cands, data, rows, fv):
+        ps, mask, (inv_ref, ref_msum, _) = data
+        fvA = fv[:, None, :].expand(u_cands.shape[:2] + fv.shape[-1:])
+        x, idx, lo, width, musc = graph.cells(u_cands, fvA)
+        m, t, prior = graph.values(x, fvA, lo, width, musc)
+        moff = (m.sum(-1) - ref_msum[rows][:, None]).contiguous()
+        lls = ll_op(ps, graph.strides, rows, idx, t.contiguous(),
+                    m.contiguous(), mask, inv_ref, moff, outlier)
+        return -(lls + prior)
+
+    def vgh(u, data, rows, fv):
+        ps, mask, (inv_ref, ref_msum, _) = data
+        x, idx, lo, width, musc = graph.cells(u, fv)
+        m, t, prior, parts = graph.values(x, fv, lo, width, musc,
+                                          derivs=True)
+        moff = (m.sum(-1) - ref_msum[rows]).contiguous()
+        ll, g_mt, H_mt = vgh_op(ps, graph.strides, rows, idx, t.contiguous(),
+                                m.contiguous(), mask, inv_ref, moff, outlier)
+        g, H = graph.chain(u, x, fv, musc, t, parts, g_mt, H_mt)
+        return -(ll + prior), g, H
+
+    return value_many, vgh
+
+
 def make_toy_fitter(compiled, fixed=None, guess=None, max_iter=60, tol=1e-8,
                     engine='auto', runtime_fixed=(), polish=4,
                     kink_jumps=None):
-    """Build the batched fit ``fit(data, fixed_values=None, x0=None)
-    -> (x (B, n_floating), max_ll (B,), n_iter (B,))`` for toy count tensors
-    ``data`` (B, *bins).
+    """Build the batched fit ``fit(data, fixed_values=None, x0=None,
+    lanes=None) -> (x (B, n_floating), max_ll (B,), n_iter (B,))`` for toy
+    count tensors ``data`` (B, *bins) of a binned likelihood, or for an
+    unbinned one ``data = (ps (B, G, S, E), mask (B, E), center)`` with
+    ``center = unbinned_center(compiled, ps, mask)``; ``lanes`` fits only
+    those toys of the batch.
 
     :param engine: 'analytic' runs the closed form in plain torch;
       'fused' the CUDA kernels (their plain versions for CPU tensors);
       'auto' takes 'fused' on a CUDA device for every model the kernels
       take (float32, 1 <= S <= 8, K <= 4, and no allow_negative source
-      under bb_single, whose kernels have no negative-expectation penalty)
-      and 'analytic' elsewhere.
+      under bb_single, whose kernels have no negative-expectation penalty;
+      every unbinned model in that range, at any event count) and
+      'analytic' elsewhere.
     :param runtime_fixed: parameter names fixed at call time; their values
       arrive as ``fixed_values`` ((R,) or (B, R), aligned with this list).
     :param kink_jumps: in-loop escape steps along each shape coordinate, or
@@ -737,10 +843,6 @@ def make_toy_fitter(compiled, fixed=None, guess=None, max_iter=60, tol=1e-8,
                          "allow_negative source under bb_single)"
                          % (fused.MAX_SOURCES, fused.MAX_SHAPE_AXES))
 
-    def as_batch(data):
-        data = torch.as_tensor(data, dtype=dt, device=dev)
-        return data.reshape(data.shape[0], -1).contiguous()
-
     def fixed_batch(fixed_values, B):
         if not torch.is_tensor(fixed_values):
             fixed_values = np.asarray(
@@ -750,23 +852,43 @@ def make_toy_fitter(compiled, fixed=None, guess=None, max_iter=60, tol=1e-8,
         return fv.reshape(fv.numel() // R if R else 1, R).expand(
             B, R).contiguous()
 
+    def batch_of(data, lanes):
+        """(data on the device, toys of the fit (L,) or None, L): binned
+        counts (B, *bins) are indexed at ``lanes``; unbinned data is
+        (ps, mask, center), read in place at ``lanes``."""
+        if compiled.is_binned:
+            data = torch.as_tensor(data, dtype=dt, device=dev)
+            data = data.reshape(data.shape[0], -1)
+            if lanes is not None:
+                data = data[torch.as_tensor(lanes, device=dev)]
+            return data.contiguous(), None, data.shape[0]
+        ps, mask, center = data
+        if lanes is None:
+            return data, torch.arange(ps.shape[0], device=dev), ps.shape[0]
+        rows = torch.as_tensor(lanes, dtype=torch.int64, device=dev)
+        return data, rows, rows.shape[0]
+
     try:
         names, fixed, transform, x0 = _floating_setup(compiled, fixed, guess)
     except NoOpimizationNecessary:
         base = dict(compiled.defaults)
         base.update(fixed)
 
-        def fit_fixed(data, fixed_values=None, x0=None):
-            data = torch.as_tensor(data, dtype=dt, device=dev)
-            fv = fixed_batch(fixed_values, data.shape[0])
+        def fit_fixed(data, fixed_values=None, x0=None, lanes=None):
+            data, rows, B = batch_of(data, lanes)
+            fv = fixed_batch(fixed_values, B)
             lls = []
-            for b in range(data.shape[0]):
+            for b in range(B):
                 p = dict(base)
                 p.update({r: fv[b, i] for i, r in enumerate(runtime_fixed)})
-                lls.append(compiled.logl_with_data(p, data[b]))
-            return (torch.zeros((data.shape[0], 0), dtype=dt, device=dev),
+                if compiled.is_binned:
+                    lls.append(compiled.logl_with_data(p, data[b]))
+                else:
+                    lls.append(compiled.logl_with_data(
+                        p, data[0][rows[b]], data[1][rows[b]]).double())
+            return (torch.zeros((B, 0), dtype=dt, device=dev),
                     torch.stack(lls),
-                    torch.zeros(data.shape[0], dtype=torch.int64, device=dev))
+                    torch.zeros(B, dtype=torch.int64, device=dev))
         return fit_fixed, []
 
     u0 = torch.as_tensor(transform.to_u_np(x0), dtype=dt, device=dev)
@@ -782,23 +904,34 @@ def make_toy_fitter(compiled, fixed=None, guess=None, max_iter=60, tol=1e-8,
             transform.to_u_coord(
                 ci, np.asarray(compiled.anchor_arrays[shape_idx[names[ci]]]))
             for ci in kink_coords]
-    value_many, vgh = _make_analytic_parts(
+    make_parts = (_make_analytic_parts if compiled.is_binned
+                  else _make_unbinned_parts)
+    value_many, vgh = make_parts(
         compiled, names, fixed, transform, use_fused=(engine == 'fused'),
         runtime_fixed=runtime_fixed)
 
-    def fit(data, fixed_values=None, x0=None):
-        data = as_batch(data)
-        B = data.shape[0]
+    def fit(data, fixed_values=None, x0=None, lanes=None):
+        """Fit a batch: binned counts (B, *bins), or unbinned
+        ``(ps (B, G, S, E), mask (B, E), unbinned_center(...))``; with
+        ``lanes`` only those toys of the batch. Returns (x (L, n), max_ll
+        (L,), n_iter (L,)); an unbinned max_ll is float64 (the centered
+        optimum plus the float64 reference value)."""
+        data, rows, B = batch_of(data, lanes)
         fv = fixed_batch(fixed_values, B)
-        const = compiled.data_constant(data, batch_dims=1)
         u_start = (u0.expand(B, -1) if x0 is None else
                    transform.to_u(torch.as_tensor(x0, dtype=dt, device=dev)))
+        if compiled.is_binned:
+            const = compiled.data_constant(data, batch_dims=1)
+            f_many = lambda L, c: value_many(c, data[L], fv[L])  # noqa: E731
+            vgh_l = lambda L, v: vgh(v, data[L], fv[L])          # noqa: E731
+        else:
+            const = data[2][2][rows]
+            f_many = lambda L, c: value_many(c, data, rows[L], fv[L])  # noqa
+            vgh_l = lambda L, v: vgh(v, data, rows[L], fv[L])          # noqa
         u, fval, it = minimize_newton(
-            lambda L, c: value_many(c, data[L], fv[L]),
-            lambda L, v: vgh(v, data[L], fv[L]),
-            u_start.contiguous(), max_iter=max_iter, tol=tol, polish=polish,
-            kink_coords=kink_coords, kink_jumps=kink_jumps,
+            f_many, vgh_l, u_start.contiguous(), max_iter=max_iter, tol=tol,
+            polish=polish, kink_coords=kink_coords, kink_jumps=kink_jumps,
             snap_anchors=snap_anchors)
-        return transform.to_x(u), -fval + const, it
+        return transform.to_x(u), -fval.to(const.dtype) + const, it
 
     return fit, names

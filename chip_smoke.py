@@ -6,34 +6,53 @@ Run from the root of a checkout on a machine with a CUDA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``blueice_tpu_torch/csrc`` (one nvcc
-per source, all started together, sm_90a, into ``build/``) and drives three
-paths of the port, each the XENON1T-style binned profile-likelihood toy
-study (6 sources, 3^4 = 81 anchors, 50x62 bins, 8 floating parameters,
-float32):
+per source, all started together, sm_90a, into ``build/``) and drives five
+paths of the port, each a profile-likelihood toy study at the width of a
+model the repo supports, float32 on the card:
 
-* ``xenon``: the plain binned likelihood, 512 toys;
-* ``bb``: Beeston-Barlow ``bb_single`` on the ER source, 256 toys;
-* ``bblite``: Barlow-Beeston-lite on all sources, 256 toys.
+* ``xenon``: the XENON1T-style binned likelihood (6 sources, 3^4 = 81
+  anchors, 50x62 bins, 8 floating parameters), 512 toys;
+* ``bb``: the same with Beeston-Barlow ``bb_single`` on the ER source, 256
+  toys;
+* ``bblite``: the same with Barlow-Beeston-lite on all sources, 256 toys;
+* ``unbinned_xenon``: the same sources and anchors as an extended unbinned
+  likelihood at 3 live days (~1,880 events per toy), 256 toys;
+* ``unbinned``: bench.py's Gaussian unbinned model (2 Monte-Carlo sources
+  over 100 bins, shape parameter mu on 3 anchors, ~2,000 events per toy),
+  1,024 toys, target s0_rate_multiplier.
 
 For each path:
 
-1. its two kernels vs their plain PyTorch versions at the XENON shape, on
-   the card: the vgh at B = 512, the value kernel at A = 12 and 20 (ll
-   relative 1e-5; g and H within 1e-4 of each toy's largest entry), with
-   warm times (median of 20, CUDA events);
-2. the path itself, twice (seeds 0 and 1), with all six launch counters
-   set to 0 just before and read just after: the path's own two kernels
-   must have launched, the others not; the profile statistic is checked
-   against the reference's statistics;
-3. the same counts fitted on CUDA in float32 and on the CPU in float64
-   (plain versions): max |d max_ll| <= 0.05, median |d t| <= 0.01 (16
-   toys for xenon, 8 for bb and bblite).
+1. its two kernels vs their plain PyTorch versions on the card (ll relative
+   1e-5; g and H within 1e-4 of each toy's largest entry), with warm times
+   (median of 20, CUDA events) beside the least time the card could take
+   for the same work (``bound_ms``: bytes over 3.35 TB/s or float32
+   operations over 67 TFLOP/s, whichever is larger, counted from this
+   run's inputs, see ``work``). Binned paths at the XENON shape (512 toys;
+   the value kernel at A = 12 and 20); unbinned paths on the study's own
+   scored event tensors (all toys of the path, A = 12 and 20);
+2. the path itself, twice (seeds 0 and 1), with every launch counter set
+   to 0 just before and read just after: the path's own two kernels must
+   have launched, the others not; the profile statistic is checked against
+   the reference's statistics (median t band, mean fitted target in
+   (0.7, 1.3));
+3. the same toys (counts, or event sets) fitted on CUDA in float32 and on
+   the CPU in float64 (plain versions): max |d max_ll| <= 0.05, median
+   |d t| <= 0.01.
+
+Measurement options (the numbers in PERF.md name the option that made
+them): ``--paths a,b`` runs only those paths; ``--phases 1,3`` only those
+phases; ``--profile`` adds a torch.profiler account of one warm profile of
+each selected unbinned path; ``--ab`` adds an engine A/B ('fused' against
+'analytic', warm profiles on seed 1, order f a a f f a) on each selected
+unbinned path.
 
 Any failure raises (exit code != 0, no result line). Without CUDA it exits
 with code 2 before doing anything. The last line of standard output is
 ``{"ok": true, "device": {...}}``.
 """
 
+import argparse
 import json
 import os
 import re
@@ -42,18 +61,52 @@ import sys
 import time
 
 import numpy as np
+import torch
 
-TARGET = 'wimp_rate_multiplier'
 KERNEL_TOYS = 512
 TIMED_RUNS = 20
 CSRC = 'blueice_tpu_torch/csrc/'
+TPU = 'blueice_tpu/ops/'
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
+FP32_FLOPS = 67e12               # float32 outside the tensor cores
 
-# label: (build_likelihood's bb argument, toys of the main path, toys
-# compared between float32 and float64, band of the median t)
+# label: (model, target, toys of the main path, toys compared between
+# float32 and float64, band of the median t)
 PATHS = {
-    'xenon': (False, 512, 16, (0.10, 0.20)),
-    'bb': (True, 256, 8, (0.08, 0.20)),
-    'bblite': ('bb_lite', 256, 8, (0.08, 0.20)),
+    'xenon': ('binned', 'wimp_rate_multiplier', 512, 16, (0.10, 0.20)),
+    'bb': ('bb', 'wimp_rate_multiplier', 256, 8, (0.08, 0.20)),
+    'bblite': ('bblite', 'wimp_rate_multiplier', 256, 8, (0.08, 0.20)),
+    'unbinned_xenon': ('unbinned_xenon', 'wimp_rate_multiplier', 256, 8,
+                       (0.25, 0.80)),
+    'unbinned': ('unbinned_gauss', 's0_rate_multiplier', 1024, 16,
+                 (0.33, 0.66)),
+}
+
+# kernel row metadata per path: (wrapper, source, Pallas body it replaces,
+# the other Pallas flavour of the same contract)
+META = {
+    'xenon': [('binned_vgh_fused', 'fused_binned.cu', 'fused.py:144',
+               'fused.py:597'),
+              ('binned_ll_fused_multi', 'fused_binned.cu', 'fused.py:251',
+               'fused.py:690')],
+    'bb': [('binned_bb_vgh_fused', 'fused_bb.cu', 'fused_bb.py:191',
+            'fused_bb.py:458'),
+           ('binned_bb_ll_fused_multi', 'fused_bb.cu', 'fused_bb.py:227',
+            'fused_bb.py:605')],
+    'bblite': [('binned_bblite_vgh_fused', 'fused_bb_lite.cu',
+                'fused_bb_lite.py:154', 'fused_bb_lite.py:417'),
+               ('binned_bblite_ll_fused_multi', 'fused_bb_lite.cu',
+                'fused_bb_lite.py:189', 'fused_bb_lite.py:511')],
+    # G = 81 > 16: the TPU ran the per-toy gather flavour (when it fit VMEM)
+    'unbinned_xenon': [('unbinned_vgh_fused', 'fused_unbinned.cu',
+                        'fused_unbinned.py:245', 'fused_unbinned.py:81'),
+                       ('unbinned_ll_fused_multi', 'fused_unbinned.cu',
+                        'fused_unbinned.py:332', 'fused_unbinned.py:156')],
+    # G = 3 <= 16: the block flavour
+    'unbinned': [('unbinned_vgh_fused', 'fused_unbinned.cu',
+                  'fused_unbinned.py:81', 'fused_unbinned.py:245'),
+                 ('unbinned_ll_fused_multi', 'fused_unbinned.cu',
+                  'fused_unbinned.py:156', 'fused_unbinned.py:332')],
 }
 
 
@@ -68,7 +121,7 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, torch, runs=TIMED_RUNS, warmup=3):
+def cuda_ms(fn, runs=TIMED_RUNS, warmup=3):
     """Median warm time of fn() in ms, CUDA events around each call."""
     for _ in range(warmup):
         fn()
@@ -92,43 +145,119 @@ def rel_to_toy_max(a, b):
 
 
 def ptxas_report(lib_paths):
-    """The -Xptxas -v lines (registers, spills) of the XENON-shape (S = 6,
-    K = 4) instantiations, from the logs kept beside the libraries."""
+    """The -Xptxas -v lines (registers, spills) of the instantiations the
+    paths run: S = 6, K = 4 (XENON) and S = 2, K = 1 (Gaussian unbinned),
+    from the logs kept beside the libraries."""
     lines = []
     for path in lib_paths:
         with open(path[:-3] + '.log') as f:
             text = f.read()
         for entry in text.split("Compiling entry function '")[1:]:
             name = entry.split("'", 1)[0]
-            if 'ILi6ELi4E' not in name:
+            shape = re.search(r'([a-z_]+_kernel)ILi(\d)ELi(\d)E', name)
+            if not shape or shape.group(2, 3) not in (('6', '4'), ('2', '1')):
                 continue
-            kernel = re.search(r'([a-z_]+_kernel)ILi6ELi4E', name)
+            if shape.group(2, 3) == ('2', '1') and 'unbinned' not in path:
+                continue
             spills = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill '
                                r'loads', entry)
             regs = re.search(r'Used (\d+) registers', entry)
-            lines.append('%s<6,4>: %s registers, spill stores/loads %s/%s B'
-                         % (kernel.group(1) if kernel else name,
+            lines.append('%s<%s,%s>: %s registers, spill stores/loads %s/%s B'
+                         % (shape.group(1), shape.group(2), shape.group(3),
                             regs.group(1) if regs else '?',
                             *(spills.groups() if spills else ('?', '?'))))
     return lines
 
 
-def path_ops(label, compiled, ops, torch):
-    """(vgh kernel, vgh plain, value kernel, value plain) of a path, each
-    called as f(anchor, strides, idx, t, m, observed), and the row metadata
-    of its two kernels."""
-    fused, fused_bb, fused_bb_lite = ops
-    S = len(compiled.rate_names)
+# -- the least time the card could take ---------------------------------------
+
+def work(kind, S, K, n, rows, lead, extra_rows=0):
+    """(bytes, float32 operations) that one kernel call must move and do.
+
+    Bytes: each input read once and each output written once: the distinct
+    corner rows the call's toys touch (``rows`` of S * n floats, plus
+    ``extra_rows`` rows of n floats: the MC-count rows of bb / bb-lite),
+    the per-toy data (binned: observed counts; unbinned: event mask and
+    inv_ref), the per-call tables and the outputs. Operations: the corner
+    combination (2 flops per FMA), the rate sum and the g / H accumulation
+    of each bin or event, as counted in the kernel sources; the per-bin
+    logarithm, division and Beeston-Barlow root are not counted, so this is
+    a lower bound.
+
+    :param kind: 'vgh' or 'value'; n: bins or events; lead: (B,) or (B, A).
+    """
+    C = 2 ** K
+    NP = K * (K - 1) // 2
+    P = S + K
+    NH = P * (P + 1) // 2
+    R = S + (1 if extra_rows else 0)       # rows combined per corner
+    B = lead[0]
+    calls = int(np.prod(lead))
+    rows_bytes = rows * S * n * 4 + extra_rows * n * 4
+    if kind == 'vgh':
+        per = C * R * (2 + 2 * K + (1 + 2 * NP if NP else 0))
+        per += 2 * S * (1 + K) + 2 * P + 2 * NH + P + 2 * S * K + 2 * NP
+        tables = calls * (C * (1 + K + NP) + S) * 4
+        out = B * (1 + P + P * P) * 4
+    else:
+        per = C * R * 2 + 2 * S
+        tables = calls * (2 * C + S) * 4
+        out = calls * 4
+    return rows_bytes + B * n * 4 + tables + out, float(per) * calls * n
+
+
+def bound(bytes_, flops):
+    t_mem = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return (t_mem, 'bytes') if t_mem >= t_ops else (t_ops, 'operations')
+
+
+def distinct_rows(ids, per_toy):
+    """Distinct corner rows a call reads: anchor ids over the whole batch
+    (binned: one anchor tensor shared by every toy), or (toy, id) pairs
+    (unbinned: each toy has its own rows)."""
+    ids = ids.reshape(ids.shape[0], -1)
+    if not per_toy:
+        return int(ids.unique().numel())
+    G = int(ids.max()) + 1
+    toy = torch.arange(ids.shape[0], device=ids.device)
+    return int((toy[:, None] * G + ids).unique().numel())
+
+
+# -- the paths ---------------------------------------------------------------
+
+def build_model(label, xenon_like, test_helpers, likelihood):
+    model = PATHS[label][0]
+    if model == 'unbinned_xenon':
+        return xenon_like.build_likelihood('unbinned', livetime_days=3.0)
+    if model == 'unbinned_gauss':
+        # bench.py's `unbinned` scenario (bench.py:125-146); the MC template
+        # draws come from numpy's global state
+        np.random.seed(0)
+        conf = test_helpers.conf_for_test(
+            n_sources=2, mc=True,
+            analysis_space=[['x', np.linspace(-10, 10, 101)]],
+            n_events_for_pdf=int(2e5))
+        conf['sources'][1]['mu'] = 3.0
+        lf = likelihood.UnbinnedLogLikelihood(conf)
+        lf.add_rate_parameter('s0')
+        lf.add_shape_parameter('mu', (-1.0, 0.0, 1.0))
+        lf.prepare()
+        return lf
+    return xenon_like.build_likelihood(
+        'binned', bb={'binned': False, 'bb': True, 'bblite': 'bb_lite'}[model])
+
+
+def binned_ops(label, compiled, mods):
+    """(vgh kernel, vgh plain, value kernel, value plain) of a binned path,
+    each called as f(anchor, strides, idx, t, m, observed), and the number
+    of MC-count rows per corner its kernels also read."""
+    fused, fused_bb, fused_bb_lite = mods['fused'], mods['fused_bb'], \
+        mods['fused_bb_lite']
     if label == 'xenon':
-        return ((fused.binned_vgh_fused, fused.binned_vgh_plain,
-                 fused.binned_ll_fused_multi, fused.binned_ll_plain),
-                [dict(name='binned_vgh_fused', source=CSRC + 'fused_binned.cu',
-                      replaces='blueice_tpu/ops/fused.py:144',
-                      also_replaces='blueice_tpu/ops/fused.py:597'),
-                 dict(name='binned_ll_fused_multi',
-                      source=CSRC + 'fused_binned.cu',
-                      replaces='blueice_tpu/ops/fused.py:251',
-                      also_replaces='blueice_tpu/ops/fused.py:690')])
+        return (fused.binned_vgh_fused, fused.binned_vgh_plain,
+                fused.binned_ll_fused_multi, fused.binned_ll_plain), 0
+    S = len(compiled.rate_names)
     G = compiled.mus_tensor.numel() // S
     nme = compiled.nme_tensor_host.reshape(G, S, -1)
     if label == 'bb':
@@ -136,13 +265,6 @@ def path_ops(label, compiled, ops, torch):
         fns = (fused_bb.binned_bb_vgh_fused, fused_bb.binned_bb_vgh_plain,
                fused_bb.binned_bb_ll_fused_multi, fused_bb.binned_bb_ll_plain)
         extra = (compiled.bb_source_i,)
-        meta = [dict(name='binned_bb_vgh_fused', source=CSRC + 'fused_bb.cu',
-                     replaces='blueice_tpu/ops/fused_bb.py:191',
-                     also_replaces='blueice_tpu/ops/fused_bb.py:458'),
-                dict(name='binned_bb_ll_fused_multi',
-                     source=CSRC + 'fused_bb.cu',
-                     replaces='blueice_tpu/ops/fused_bb.py:227',
-                     also_replaces='blueice_tpu/ops/fused_bb.py:605')]
     else:
         rows = nme.sum(axis=1)
         fns = (fused_bb_lite.binned_bblite_vgh_fused,
@@ -150,167 +272,258 @@ def path_ops(label, compiled, ops, torch):
                fused_bb_lite.binned_bblite_ll_fused_multi,
                fused_bb_lite.binned_bblite_ll_plain)
         extra = ()
-        meta = [dict(name='binned_bblite_vgh_fused',
-                     source=CSRC + 'fused_bb_lite.cu',
-                     replaces='blueice_tpu/ops/fused_bb_lite.py:154',
-                     also_replaces='blueice_tpu/ops/fused_bb_lite.py:417'),
-                dict(name='binned_bblite_ll_fused_multi',
-                     source=CSRC + 'fused_bb_lite.cu',
-                     replaces='blueice_tpu/ops/fused_bb_lite.py:189',
-                     also_replaces='blueice_tpu/ops/fused_bb_lite.py:511')]
     rows = torch.as_tensor(rows, dtype=torch.float32,
                            device=compiled.device).contiguous()
 
     def bind(fn):
         return lambda anchor, strides, idx, t, m, obs: fn(
             anchor, rows, strides, idx, t, m, obs, *extra)
-    return tuple(bind(fn) for fn in fns), meta
+    return tuple(bind(fn) for fn in fns), 1
 
 
-def kernel_inputs(compiled, rng, torch, lead):
-    """Kernel inputs at the XENON shape from a fixed seed: random lower
-    corners and lerp weights, rates within 20% of the default expectations,
-    Poisson counts at the default expectations."""
+def random_point(compiled, rng, lead):
+    """Random lower corners, lerp weights and rates within 20% of the
+    default expectations (float32 tensors on the card)."""
     K = len(compiled.shape_names)
     S = len(compiled.rate_names)
     dev = compiled.device
     mus = compiled.rates(compiled.defaults).cpu().numpy()
-    expected = compiled.expected_counts(compiled.defaults).cpu().numpy()
-    idx = rng.integers(0, 2, lead + (K,))
+    hi = [len(a) - 1 for a in compiled.anchor_arrays]
+    idx = np.stack([rng.integers(0, h, lead) for h in hi], axis=-1) \
+        if K else np.zeros(lead + (0,), int)
     t = rng.random(lead + (K,))
     m = mus * rng.uniform(0.8, 1.2, lead + (S,))
-    observed = rng.poisson(expected.ravel(), (lead[0], expected.size))
 
     def f32(x):
         return torch.as_tensor(x, dtype=torch.float32, device=dev)
-    return (torch.as_tensor(idx, device=dev), f32(t), f32(m), f32(observed))
+    return torch.as_tensor(idx, device=dev), f32(t), f32(m)
 
 
-def check_kernels(label, compiled, fns, meta, torch):
-    vgh, vgh_plain, value, value_plain = fns
+def check_pair(label, name, out, ref, ll_scale):
+    """(max abs err, max rel err, text) of a kernel against its plain
+    version; raises unless the ll is within 1e-5 of ``ll_scale`` (per toy,
+    see ``term_scale``) and g and H within 1e-4 of each toy's largest
+    entry."""
+    ll, ll_ref = (out[0], ref[0]) if isinstance(out, tuple) else (out, ref)
+    ll_rel = float(((ll - ll_ref).abs() / ll_scale).max())
+    rel, ok = ll_rel, ll_rel <= 1e-5
+    detail = 'll err %.3g (of its terms)' % ll_rel
+    if isinstance(out, tuple):
+        g_rel = rel_to_toy_max(out[1], ref[1])
+        h_rel = rel_to_toy_max(out[2], ref[2])
+        ok = ok and g_rel <= 1e-4 and h_rel <= 1e-4
+        rel = max(ll_rel, g_rel, h_rel)
+        detail += ', g %.3g, H %.3g (of toy max)' % (g_rel, h_rel)
+    outs = out if isinstance(out, tuple) else (out,)
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    if not (ok and all(bool(torch.isfinite(o).all()) for o in outs)):
+        raise AssertionError("%s %s disagrees with its plain version: %s"
+                             % (label, name, detail))
+    abs_err = max(float((a - b).abs().max()) for a, b in zip(outs, refs))
+    return abs_err, rel, detail
+
+
+def term_scale(ps, strides, lanes, idx, t, m, mask, inv_ref, moff, outlier):
+    """Per lane (and candidate) sum of the magnitudes of the centered
+    unbinned ll's terms, sum_e |log(lam_e * inv_ref_e)| + |moff|, in
+    float64: the scale of that ll's float32 rounding. (A centered ll near
+    the reference point is a small difference of O(1) terms, so its own
+    magnitude is no scale for a relative error; the binned deviance ll has
+    terms of one sign, so there the scale is |ll|.)"""
+    from blueice_tpu_torch.ops import fused
+    from blueice_tpu_torch.ops.binned_vgh import corner_weight_tables
+    single = idx.dim() == 2
+    if single:
+        idx, t, m, moff = idx[:, None], t[:, None], m[:, None], moff[:, None]
+    ids = fused.corner_ids(strides, idx, ps.shape[1])          # (L, A, C)
+    w = corner_weight_tables(t.double())[0]
+    mk, ir = mask[lanes], inv_ref[lanes].double()
+    cols = []
+    for a in range(ids.shape[1]):
+        lam = 0.0
+        for c in range(ids.shape[2]):
+            rows = ps[lanes, ids[:, a, c]].double()             # (L, S, E)
+            lam = lam + w[:, a, c, None] * torch.einsum(
+                'ls,lse->le', m[:, a].double(), rows)
+        if outlier:
+            lam = torch.where(lam > 0, lam, torch.full_like(lam, outlier))
+        terms = torch.where(mk, torch.log(lam * ir).abs(),
+                            torch.zeros_like(lam))
+        cols.append(terms.sum(-1) + moff[:, a].double().abs())
+    out = torch.stack(cols, dim=1)
+    return out[:, 0] if single else out
+
+
+def kernel_rows(label, study, mods):
+    """Phase 1: each kernel of the path against its plain version, timed,
+    beside its bound. Returns the path's two kernel rows."""
+    compiled = study.compiled
     K = len(compiled.shape_names)
     S = len(compiled.rate_names)
     G = compiled.mus_tensor.numel() // S
-    anchor = compiled.ps_tensor.reshape(G, S, -1).contiguous()
     grid = [len(a) for a in compiled.anchor_arrays]
     strides = tuple(int(np.prod(grid[d + 1:])) for d in range(K))
     rng = np.random.default_rng(0)
+    fused, fu = mods['fused'], mods['fused_unbinned']
+    unbinned = not compiled.is_binned
 
-    idx, t, m, obs = kernel_inputs(compiled, rng, torch, (KERNEL_TOYS,))
-    args = (anchor, strides, idx, t, m, obs)
-    out = vgh(*args)
-    ref = vgh_plain(*args)
+    if unbinned:
+        n_toys = PATHS[label][2]
+        ps, mask, (inv_ref, ref_msum, _) = study._fit_data(
+            study.simulate(0, n_toys))
+        B, n = ps.shape[0], ps.shape[-1]
+        lanes = torch.randperm(B, generator=torch.Generator().manual_seed(0)
+                               ).to(compiled.device)
+
+        def moff_of(m):
+            return (m.sum(-1) - (ref_msum[lanes] if m.dim() == 2
+                                 else ref_msum[lanes][:, None])).contiguous()
+
+        def call(fn, idx, t, m):
+            return fn(ps, strides, lanes, idx, t, m, mask, inv_ref,
+                      moff_of(m), compiled.outlier_likelihood)
+
+        def ll_scale(idx, t, m, ref_ll):
+            return term_scale(ps, strides, lanes, idx, t, m, mask, inv_ref,
+                              moff_of(m), compiled.outlier_likelihood)
+        fns = (fu.unbinned_vgh_fused, fu.unbinned_vgh_plain,
+               fu.unbinned_ll_fused_multi, fu.unbinned_ll_plain)
+        extra_rows = 0
+        shape = 'B=%d E=%d' % (B, n)
+    else:
+        B = KERNEL_TOYS
+        anchor = compiled.ps_tensor.reshape(G, S, -1).contiguous()
+        n = anchor.shape[-1]
+        expected = compiled.expected_counts(compiled.defaults).cpu().numpy()
+        obs = torch.as_tensor(rng.poisson(expected.ravel(), (B, n)),
+                              dtype=torch.float32, device=compiled.device)
+
+        def call(fn, idx, t, m):
+            return fn(anchor, strides, idx, t, m, obs)
+
+        def ll_scale(idx, t, m, ref_ll):
+            return ref_ll.abs()
+        fns, extra_rows = binned_ops(label, compiled, mods)
+        shape = 'B=%d N=%d' % (B, n)
+
+    meta = [dict(name=w, path=label, route='cuda', source=CSRC + src,
+                 replaces=TPU + rep, also_replaces=TPU + alt,
+                 library_ms=None)
+            for w, src, rep, alt in META[label]]
+    vgh, vgh_plain, value, value_plain = fns
+
+    idx, t, m = random_point(compiled, rng, (B,))
+    out, ref = call(vgh, idx, t, m), call(vgh_plain, idx, t, m)
     torch.cuda.synchronize()
-    ll_rel = float(((out[0] - ref[0]).abs() / ref[0].abs()).max())
-    g_rel = rel_to_toy_max(out[1], ref[1])
-    h_rel = rel_to_toy_max(out[2], ref[2])
-    abs_err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
-    ms = cuda_ms(lambda: vgh(*args), torch)
-    plain_ms = cuda_ms(lambda: vgh_plain(*args), torch)
-    log("%s vgh kernel   B=%d: ll rel err %.3g, g %.3g, H %.3g (of toy max);"
-        " %.4f ms vs plain %.4f ms" % (label, KERNEL_TOYS, ll_rel, g_rel,
-                                       h_rel, ms, plain_ms))
-    if not (ll_rel <= 1e-5 and g_rel <= 1e-4 and h_rel <= 1e-4):
-        raise AssertionError("%s vgh kernel disagrees with its plain "
-                             "version" % label)
-    rows = [dict(meta[0], route='cuda', max_abs_err=abs_err,
-                 max_rel_err=max(ll_rel, g_rel, h_rel), ms=ms,
-                 plain_ms=plain_ms)]
+    abs_err, rel, detail = check_pair(label, 'vgh kernel', out, ref,
+                                      ll_scale(idx, t, m, ref[0]))
+    ms = cuda_ms(lambda: call(vgh, idx, t, m))
+    plain_ms = cuda_ms(lambda: call(vgh_plain, idx, t, m))
+    ids = fused.corner_ids(strides, idx, G)
+    nbytes, flops = work('vgh', S, K, n, distinct_rows(ids, unbinned), (B,),
+                         extra_rows * distinct_rows(ids, False))
+    bound_ms, bound_by = bound(nbytes, flops)
+    log("%s vgh kernel   %s: %s; %.4f ms vs plain %.4f ms; bound %.4f ms "
+        "(%s: %.1f MB, %.3f GFLOP)" % (label, shape, detail, ms, plain_ms,
+                                       bound_ms, bound_by, nbytes / 1e6,
+                                       flops / 1e9))
+    rows = [dict(meta[0], max_abs_err=abs_err, max_rel_err=rel, ms=ms,
+                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)]
 
-    row = dict(meta[1], route='cuda', max_abs_err=0.0, max_rel_err=0.0)
+    row = dict(meta[1], max_abs_err=0.0, max_rel_err=0.0)
     for A in (12, 20):
-        idx, t, m, _ = kernel_inputs(compiled, rng, torch, (KERNEL_TOYS, A))
-        args = (anchor, strides, idx, t, m, obs)
-        out = value(*args)
-        ref = value_plain(*args)
+        idx, t, m = random_point(compiled, rng, (B, A))
+        out, ref = call(value, idx, t, m), call(value_plain, idx, t, m)
         torch.cuda.synchronize()
-        rel = float(((out - ref).abs() / ref.abs()).max())
-        ms = cuda_ms(lambda: value(*args), torch)
-        plain_ms = cuda_ms(lambda: value_plain(*args), torch)
-        log("%s value kernel B=%d A=%d: ll rel err %.3g; %.4f ms vs plain "
-            "%.4f ms" % (label, KERNEL_TOYS, A, rel, ms, plain_ms))
-        if not rel <= 1e-5:
-            raise AssertionError("%s value kernel (A=%d) disagrees with its "
-                                 "plain version" % (label, A))
-        row['max_abs_err'] = max(row['max_abs_err'],
-                                 float((out - ref).abs().max()))
+        abs_err, rel, detail = check_pair(label, 'value kernel (A=%d)' % A,
+                                          out, ref, ll_scale(idx, t, m, ref))
+        ms = cuda_ms(lambda: call(value, idx, t, m))
+        plain_ms = cuda_ms(lambda: call(value_plain, idx, t, m))
+        ids = fused.corner_ids(strides, idx, G)
+        nbytes, flops = work('value', S, K, n, distinct_rows(ids, unbinned),
+                             (B, A), extra_rows * distinct_rows(ids, False))
+        bound_ms, bound_by = bound(nbytes, flops)
+        log("%s value kernel %s A=%d: %s; %.4f ms vs plain %.4f ms; bound "
+            "%.4f ms (%s: %.1f MB, %.3f GFLOP)"
+            % (label, shape, A, detail, ms, plain_ms, bound_ms, bound_by,
+               nbytes / 1e6, flops / 1e9))
+        row['max_abs_err'] = max(row['max_abs_err'], abs_err)
         row['max_rel_err'] = max(row['max_rel_err'], rel)
         suffix = '' if A == 12 else '_A%d' % A
-        row['ms' + suffix] = ms
-        row['plain_ms' + suffix] = plain_ms
+        row.update({'ms' + suffix: ms, 'plain_ms' + suffix: plain_ms,
+                    'bound_ms' + suffix: bound_ms,
+                    'bound_by' + suffix: bound_by})
     rows.append(row)
     return rows
 
 
 def check_statistics(label, t, free, band):
-    wimp = float(np.mean(free[TARGET]))
+    target = PATHS[label][1]
+    mean_target = float(np.mean(free[target]))
     med = float(np.median(t))
     if not np.isfinite(free.max_ll).all():
         raise AssertionError("%s: non-finite free-fit max_ll" % label)
     if not (t >= 0).all():
         raise AssertionError("%s: negative profile statistic" % label)
-    if not 0.7 < wimp < 1.3:
+    if not 0.7 < mean_target < 1.3:
         raise AssertionError("%s: mean fitted %s %.4f outside (0.7, 1.3)"
-                             % (label, TARGET, wimp))
+                             % (label, target, mean_target))
     if not band[0] < med < band[1]:
         raise AssertionError("%s: median t %.4f outside %s"
                              % (label, med, band))
-    return wimp, med
+    return mean_target, med
 
 
-def run_path(label, xenon_like, BinnedToyStudy, ops, torch):
-    """Phases 1-3 of one path; returns its kernel rows."""
-    bb, n_toys, n_compare, band = PATHS[label]
-    t0 = time.time()
-    lf = xenon_like.build_likelihood('binned', bb=bb)
-    study = BinnedToyStudy(lf, dtype=torch.float32, device='cuda',
-                           max_iter=96, tol=3e-4)
-    log("%s likelihood: anchor tensor %s (grid, sources, bins), built in "
-        "%.1f s" % (label, tuple(study.compiled.ps_tensor.shape),
-                    time.time() - t0))
-
-    # 1. kernels vs plain versions (launches here are not counted below)
-    fns, meta = path_ops(label, study.compiled, ops, torch)
-    rows = check_kernels(label, study.compiled, fns, meta, torch)
-
-    # 2. the path, twice, around all six launch counters
-    for module in ops:
+def main_path(label, study, mods, rows):
+    """Phase 2: the path twice between reset and read of every counter."""
+    _, target, n_toys, _, band = PATHS[label]
+    for module in mods.values():
         module.reset_launch_counts()
     results = []
     for seed in (0, 1):
         t0 = time.time()
-        t, free, cond = study.profile_ts(seed, n_toys=n_toys, target=TARGET,
+        t, free, cond = study.profile_ts(seed, n_toys=n_toys, target=target,
                                          hypothesis=1.0)
         torch.cuda.synchronize()
         results.append((time.time() - t0, t, free, cond))
     launches = {}
-    for module in ops:
+    for module in mods.values():
         launches.update(module.launch_counts())
     log("%s kernel launches in the main path: %s" % (label, launches))
-    own = [r['name'] for r in rows]
+    own = [name for name, _, _, _ in META[label]]
     if not all(launches[name] > 0 for name in own):
         raise AssertionError("%s: a kernel of the path never launched"
                              % label)
-    if any(n for name, n in launches.items() if name not in own):
+    if any(count for name, count in launches.items() if name not in own):
         raise AssertionError("%s: another path's kernel launched" % label)
     for (secs, t, free, cond), run in zip(results, ('first', 'warm')):
-        wimp, med = check_statistics(label, t, free, band)
+        mean_target, med = check_statistics(label, t, free, band)
         log("%s profile_ts %s run: %d toys in %.3f s (%.1f profile fits/s); "
             "median t %.4f; mean %s %.4f; mean Newton iterations free %.1f, "
             "conditional %.1f" % (label, run, n_toys, secs, n_toys / secs,
-                                  med, TARGET, wimp, free.n_iter.mean(),
-                                  cond.n_iter.mean()))
+                                  med, target, mean_target,
+                                  free.n_iter.mean(), cond.n_iter.mean()))
     for row in rows:
         row['launches'] = launches[row['name']]
 
-    # 3. same counts, two precisions
-    counts = study.simulate(0, n_toys)[:n_compare]
-    t32, f32, c32 = study._run_profile(counts, TARGET, 1.0, None)
-    cpu_study = BinnedToyStudy(lf, dtype=torch.float64, device='cpu',
-                               max_iter=96, tol=3e-4)
+
+def two_precisions(label, study, cls):
+    """Phase 3: the same toys in float32 on the card and in float64 on the
+    CPU (plain versions)."""
+    _, target, n_toys, n_compare, _ = PATHS[label]
+    if study.compiled.is_binned:
+        toys = study.simulate(0, n_toys)[:n_compare]
+        cpu_toys = toys.cpu().double()
+        cpu_study = cls(study.lf, dtype=torch.float64, device='cpu',
+                        max_iter=96, tol=3e-4)
+    else:
+        toys = tuple(x[:n_compare] for x in study.simulate(0, n_toys))
+        cpu_toys = tuple(x.cpu() for x in toys)
+        cpu_study = cls(study.lf, n_max=study.n_max, dtype=torch.float64,
+                        device='cpu', max_iter=96, tol=3e-4)
+    t32, f32, c32 = study._run_profile(toys, target, 1.0, None)
     t0 = time.time()
-    t64, f64, c64 = cpu_study._run_profile(counts.cpu().double(), TARGET,
-                                           1.0, None)
+    t64, f64, c64 = cpu_study._run_profile(cpu_toys, target, 1.0, None)
     d_ll = np.maximum(np.abs(f32.max_ll - f64.max_ll),
                       np.abs(c32.max_ll - c64.max_ll))
     d_t = np.abs(t32 - t64)
@@ -323,18 +536,136 @@ def run_path(label, xenon_like, BinnedToyStudy, ops, torch):
            c64.max_ll[worst], t32[worst], t64[worst]))
     if not (d_ll.max() <= 0.05 and np.median(d_t) <= 0.01):
         raise AssertionError("%s: float32 fits disagree with float64" % label)
+
+
+def profile_account(label, study):
+    """torch.profiler over one warm profile_ts: the device's kernel events
+    by name, and their summed duration over the wall time (one stream, so
+    the kernels do not overlap: the rest of the wall time the card idles)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    _, target, n_toys, _, _ = PATHS[label]
+    study.profile_ts(1, n_toys=n_toys, target=target, hypothesis=1.0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        study.profile_ts(1, n_toys=n_toys, target=target, hypothesis=1.0)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            total, count = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (total + e.time_range.elapsed_us(), count + 1)
+    busy_us = sum(total for total, _ in by_name.values())
+    log("%s profile (torch.profiler, one warm profile_ts on seed 1): wall "
+        "%.3f s; %d kernels on the device, %.1f ms in all (%.1f%% of the "
+        "wall time; the card idles the rest)"
+        % (label, wall, sum(c for _, c in by_name.values()), busy_us / 1e3,
+           100 * busy_us / 1e6 / wall))
+    for name, (total, count) in sorted(by_name.items(),
+                                       key=lambda kv: -kv[1][0])[:12]:
+        log("  %10.2f ms  %7d calls  %s" % (total / 1e3, count, name[:90]))
+    # The path's own kernels alone, without their wrappers' table set-up
+    # (which the CUDA-event times of phase 1 include)
+    for symbol in ('uvgh_kernel<', 'ull_kernel<'):
+        hits = [v for name, v in by_name.items() if '::' + symbol in name]
+        total = sum(us for us, _ in hits)
+        count = sum(n for _, n in hits)
+        log("%s %s> on the device: %.2f ms in %d calls, %.1f us per call"
+            % (label, symbol, total / 1e3, count,
+               total / count if count else 0.0))
+
+
+def engine_ab(label, study, cls):
+    """Warm profile_ts on seed 1 with engine 'fused' and 'analytic', in the
+    order f a a f f a, host clock around a synchronize."""
+    _, target, n_toys, _, _ = PATHS[label]
+    studies = {'fused': study,
+               'analytic': cls(study.lf, n_max=study.n_max, max_iter=96,
+                               tol=3e-4, engine='analytic')}
+    for s in studies.values():
+        s.profile_ts(1, n_toys=n_toys, target=target, hypothesis=1.0)
+    times = {'fused': [], 'analytic': []}
+    for engine in ('fused', 'analytic', 'analytic', 'fused', 'fused',
+                   'analytic'):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        t, free, cond = studies[engine].profile_ts(
+            1, n_toys=n_toys, target=target, hypothesis=1.0)
+        torch.cuda.synchronize()
+        times[engine].append(time.time() - t0)
+        log("%s A/B %s: %.3f s, median t %.5f, mean iterations %.2f / %.2f"
+            % (label, engine, times[engine][-1], np.median(t),
+               free.n_iter.mean(), cond.n_iter.mean()))
+    log("%s A/B medians: fused %.3f s, analytic %.3f s"
+        % (label, np.median(times['fused']), np.median(times['analytic'])))
+
+
+def check_on_card(label, compiled):
+    """The study's defaults: float32 on the card."""
+    if compiled.device.type != 'cuda' or compiled.dtype != torch.float32:
+        raise AssertionError("%s: the study did not default to float32 on "
+                             "the card" % label)
+
+
+def run_path(label, phases, opts, mods, api):
+    model = PATHS[label][0]
+    t0 = time.time()
+    lf = build_model(label, api['xenon_like'], api['test_helpers'],
+                     api['likelihood'])
+    if model.startswith('unbinned'):
+        cls = api['UnbinnedToyStudy']
+        study = cls(lf, max_iter=96, tol=3e-4)          # the card, float32
+        log("%s likelihood: anchor pdf tensor %s (grid, sources, bins), "
+            "n_max %d, built in %.1f s"
+            % (label, tuple(study._pdf_tensor.shape), study.n_max,
+               time.time() - t0))
+    else:
+        cls = api['BinnedToyStudy']
+        study = cls(lf, max_iter=96, tol=3e-4)          # the card, float32
+        log("%s likelihood: anchor tensor %s (grid, sources, bins), built in "
+            "%.1f s" % (label, tuple(study.compiled.ps_tensor.shape),
+                        time.time() - t0))
+    check_on_card(label, study.compiled)
+    rows = []
+    if 1 in phases:
+        rows = kernel_rows(label, study, mods)
+    if 2 in phases:
+        main_path(label, study, mods, rows)
+    if 3 in phases:
+        two_precisions(label, study, cls)
+    if not study.compiled.is_binned:
+        if opts.profile:
+            profile_account(label, study)
+        if opts.ab:
+            engine_ab(label, study, cls)
     return rows
 
 
-def main():
-    import torch
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    parser.add_argument('--paths', default=','.join(PATHS))
+    parser.add_argument('--phases', default='1,2,3')
+    parser.add_argument('--profile', action='store_true')
+    parser.add_argument('--ab', action='store_true')
+    opts = parser.parse_args(argv)
+    paths = [p for p in opts.paths.split(',') if p]
+    phases = {int(p) for p in opts.phases.split(',') if p}
+    unknown = set(paths) - set(PATHS)
+    if unknown:
+        parser.error("unknown paths %s" % sorted(unknown))
+
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from blueice_tpu_torch import likelihood, test_helpers
     from blueice_tpu_torch.examples import xenon_like
-    from blueice_tpu_torch.ops import fused, fused_bb, fused_bb_lite
-    from blueice_tpu_torch.parallel import BinnedToyStudy
+    from blueice_tpu_torch.ops import (fused, fused_bb, fused_bb_lite,
+                                       fused_unbinned)
+    from blueice_tpu_torch.parallel import BinnedToyStudy, UnbinnedToyStudy
     from blueice_tpu_torch.utils import set_progress
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -344,10 +675,14 @@ def main():
     log("torch %s, CUDA %s, device %s" % (torch.__version__,
                                           torch.version.cuda,
                                           torch.cuda.get_device_name(0)))
-    ops = (fused, fused_bb, fused_bb_lite)
+    mods = dict(fused=fused, fused_bb=fused_bb, fused_bb_lite=fused_bb_lite,
+                fused_unbinned=fused_unbinned)
+    api = dict(xenon_like=xenon_like, test_helpers=test_helpers,
+               likelihood=likelihood, BinnedToyStudy=BinnedToyStudy,
+               UnbinnedToyStudy=UnbinnedToyStudy)
     t0 = time.time()
-    libs = fused.build_libraries([m.SOURCE for m in ops])
-    for module in ops:
+    libs = fused.build_libraries([m.SOURCE for m in mods.values()])
+    for module in mods.values():
         module.load_library()
     log("kernel build + load (%d sources in parallel): %.1f s"
         % (len(libs), time.time() - t0))
@@ -355,8 +690,8 @@ def main():
         log("ptxas " + line)
 
     rows = []
-    for label in PATHS:
-        rows += run_path(label, xenon_like, BinnedToyStudy, ops, torch)
+    for label in paths:
+        rows += run_path(label, phases, opts, mods, api)
 
     log(card_line())
     print(json.dumps({'kernels': rows}))

@@ -219,14 +219,14 @@ def test_compiled_logl_matches(lfs, point):
     data = jlf.data_events_per_bin.values * 1.0 + 1.0
     ref = float(jc.logl_with_data(jc.params_from_kwargs(**point),
                                   jnp.asarray(data)))
-    for c in (build_logl(tlf), build_logl_from_state(
-            state_from_reference(jlf))):
+    for c in (build_logl(tlf, device='cpu'), build_logl_from_state(
+            state_from_reference(jlf), device='cpu')):
         np.testing.assert_allclose(
             float(c.logl_with_data(c.params_from_kwargs(**point),
                                    torch.as_tensor(data))), ref, rtol=1e-10)
         np.testing.assert_allclose(float(c(**point)), tlf(**point),
                                    rtol=1e-10)
-    c = build_logl(tlf)
+    c = build_logl(tlf, device='cpu')
     mode = tlf.model_statistical_uncertainty_handling
     assert (c.has_bb, c.has_bb_lite) == (mode == 'bb_single',
                                          mode == 'bb_lite')
@@ -255,7 +255,7 @@ def test_fused_routing_per_mode(mode):
     kernels have no negative-expectation penalty); bb-lite keeps it."""
     set_progress(False)
     lf = _allow_negative_lf(mode)
-    compiled = build_logl(lf, dtype=torch.float32)
+    compiled = build_logl(lf, dtype=torch.float32, device='cpu')
     on_card = types.SimpleNamespace(**vars(compiled))
     on_card.device = torch.device('cuda')
     assert fitter._fused_eligible(on_card) == (mode == 'bb_lite')
@@ -265,8 +265,8 @@ def test_fused_routing_per_mode(mode):
     # kernels' plain versions) for either mode
     counts = np.random.default_rng(1).poisson(
         compiled.expected_counts(compiled.defaults).numpy(), (3, 5, 4))
-    fit_auto, _ = make_toy_fitter(build_logl(lf), max_iter=30)
-    fit_fused, _ = make_toy_fitter(build_logl(lf), max_iter=30,
+    fit_auto, _ = make_toy_fitter(build_logl(lf, device='cpu'), max_iter=30)
+    fit_fused, _ = make_toy_fitter(build_logl(lf, device='cpu'), max_iter=30,
                                    engine='fused')
     np.testing.assert_allclose(fit_auto(counts)[1].numpy(),
                                fit_fused(counts)[1].numpy(), rtol=1e-12)
@@ -281,4 +281,4 @@ def test_mode_validation():
         'model_statistical_uncertainty_handling': 'bb_single'})
     lf.prepare()
     with pytest.raises(ValueError, match='bb_single_source'):
-        build_logl(lf)
+        build_logl(lf, device='cpu')

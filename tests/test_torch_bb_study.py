@@ -30,7 +30,8 @@ def test_bb_profile_study_matches():
                       engine='analytic', profile_mode='split',
                       two_stage=False)
     tstudy = BinnedToyStudy(build_likelihood('binned', bb=True, **SIZE),
-                            max_iter=60, engine='fused', two_stage=False)
+                            device='cpu', max_iter=60, engine='fused',
+                            two_stage=False)
     assert tstudy.compiled.has_bb and tstudy.compiled.bb_source_i == 0
     expected = tstudy.expected_counts().numpy()
     counts = np.random.default_rng(0).poisson(

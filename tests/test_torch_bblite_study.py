@@ -29,7 +29,8 @@ def test_bblite_profile_study_matches():
                       engine='analytic', profile_mode='split',
                       two_stage=False)
     tstudy = BinnedToyStudy(build_likelihood('binned', bb='bb_lite', **SIZE),
-                            max_iter=60, engine='fused', two_stage=False)
+                            device='cpu', max_iter=60, engine='fused',
+                            two_stage=False)
     assert tstudy.compiled.has_bb_lite and not tstudy.compiled.has_bb
     expected = tstudy.expected_counts().numpy()
     counts = np.random.default_rng(0).poisson(

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (the binned, Beeston-Barlow and bb-lite
-contracts) against their plain PyTorch versions on the card.
+"""The port's CUDA kernels (the binned, Beeston-Barlow, bb-lite and
+unbinned contracts) against their plain PyTorch versions on the card.
 
 These need an NVIDIA GPU (a CUDA kernel has no CPU mode): they carry the
 ``cuda`` marker and skip where ``torch.cuda.is_available()`` is false. On a
@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from blueice_tpu_torch.ops import fused, fused_bb, fused_bb_lite
+from blueice_tpu_torch.ops import fused, fused_bb, fused_bb_lite, fused_unbinned
 
 S, N, B, A = 3, 300, 16, 7
 BB_I = 1
@@ -173,3 +173,97 @@ def test_bb_kernels_refuse_bad_inputs(cuda_device, mode):
     if mode == 'bb':
         with pytest.raises(ValueError, match='bb_i'):
             kernel(anchor, nme, strides, idx, t, m, observed, S)
+
+
+# Unbinned: name -> (anchor grid, S); the block shape of the Gaussian model
+# (G = 3) and a gather shape (G = 25), plus K = 0
+UNBINNED = {'block': ((3,), 2), 'gather': ((5, 5), 3), 'constant': ((), 2)}
+UB, UE, UA = 7, 700, 5
+U_LANES = [4, 0, 6, 2]
+
+
+def _unbinned_inputs(case, outlier, device, seed=0):
+    """(vgh args, value args) of the unbinned wrappers: masked tails, events
+    of zero and of negative summed density (valid only with an outlier
+    floor), centered, on a lane subset in a non-trivial order."""
+    grid, S_ = UNBINNED[case]
+    K = len(grid)
+    G = int(np.prod(grid)) if K else 1
+    rng = np.random.default_rng(seed + 3 * K + S_)
+    ps = rng.uniform(0.001, 0.4, (UB, G, S_, UE))
+    mask = np.arange(UE)[None, :] < rng.integers(UE // 2, UE - 10, UB)[:, None]
+    bad = [0, 1] if outlier else [UE - 2, UE - 1]
+    ps[:, :, :, bad[0]] = 0.0
+    ps[:, :, 0, bad[1]] = -50.0
+    inv_ref = np.where(mask, rng.uniform(0.5, 2.0, (UB, UE)), 1.0)
+    ref_msum = rng.uniform(500, 3000, UB)
+    strides = tuple(int(np.prod(grid[d + 1:])) for d in range(K))
+    L = len(U_LANES)
+    hi = max(grid) - 1 if K else 1
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+    lanes = torch.as_tensor(U_LANES, dtype=torch.int64, device=device)
+    common = (f32(ps), strides, lanes)
+    tail = (torch.as_tensor(mask, device=device), f32(inv_ref))
+    m = rng.uniform(100, 2000, (L, S_))
+    vgh = common + (torch.as_tensor(rng.integers(0, hi, (L, K)),
+                                    device=device),
+                    f32(rng.uniform(0, 1, (L, K))), f32(m)) + tail + (
+        f32(m.sum(-1) - ref_msum[U_LANES]), outlier)
+    mc = rng.uniform(100, 2000, (L, UA, S_))
+    ll = common + (torch.as_tensor(rng.integers(0, hi, (L, UA, K)),
+                                   device=device),
+                   f32(rng.uniform(0, 1, (L, UA, K))), f32(mc)) + tail + (
+        f32(mc.sum(-1) - ref_msum[U_LANES][:, None]), outlier)
+    return vgh, ll
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("outlier", [0.0, 1e-12])
+@pytest.mark.parametrize("case", sorted(UNBINNED))
+def test_unbinned_vgh_kernel_matches_plain(cuda_device, case, outlier):
+    args, _ = _unbinned_inputs(case, outlier, cuda_device)
+    fused_unbinned.reset_launch_counts()
+    out = fused_unbinned.unbinned_vgh_fused(*args)
+    ref = fused_unbinned.unbinned_vgh_plain(*args)
+    torch.cuda.synchronize()
+    assert fused_unbinned.launch_counts()['unbinned_vgh_fused'] == 1
+    assert torch.isfinite(out[0]).all()
+    np.testing.assert_allclose(out[0].cpu(), ref[0].cpu(), rtol=1e-5)
+    assert _rel_to_toy_max(out[1], ref[1]) < 1e-4
+    assert _rel_to_toy_max(out[2], ref[2]) < 1e-4
+    again = fused_unbinned.unbinned_vgh_fused(*args)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("outlier", [0.0, 1e-12])
+@pytest.mark.parametrize("case", sorted(UNBINNED))
+def test_unbinned_value_kernel_matches_plain(cuda_device, case, outlier):
+    _, args = _unbinned_inputs(case, outlier, cuda_device, seed=1)
+    fused_unbinned.reset_launch_counts()
+    out = fused_unbinned.unbinned_ll_fused_multi(*args)
+    ref = fused_unbinned.unbinned_ll_plain(*args)
+    torch.cuda.synchronize()
+    assert fused_unbinned.launch_counts()['unbinned_ll_fused_multi'] == 1
+    assert out.shape == (len(U_LANES), UA) and torch.isfinite(out).all()
+    np.testing.assert_allclose(out.cpu(), ref.cpu(), rtol=1e-5)
+    assert torch.equal(out, fused_unbinned.unbinned_ll_fused_multi(*args))
+
+
+@pytest.mark.cuda
+def test_unbinned_kernels_refuse_bad_inputs(cuda_device):
+    vgh, ll = _unbinned_inputs('gather', 1e-12, cuda_device)
+    as64 = [a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+            for a in vgh]
+    with pytest.raises(TypeError):
+        fused_unbinned.unbinned_vgh_fused(*as64)
+    bad = list(vgh)
+    bad[7] = vgh[7].t().contiguous().t()               # inv_ref, strided
+    with pytest.raises(ValueError, match='contiguous'):
+        fused_unbinned.unbinned_vgh_fused(*bad)
+    bad = list(ll)
+    bad[0] = ll[0].transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises(ValueError, match='contiguous'):
+        fused_unbinned.unbinned_ll_fused_multi(*bad)

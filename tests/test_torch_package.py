@@ -12,9 +12,12 @@ import pytest
 import torch
 
 import blueice_tpu_torch
-from blueice_tpu_torch.examples.xenon_like import build_likelihood
-from blueice_tpu_torch.ops import fused
-from blueice_tpu_torch.parallel import BinnedToyStudy, make_toy_fitter
+from blueice_tpu_torch.device import resolve
+from blueice_tpu_torch.examples.xenon_like import build_config, build_likelihood
+from blueice_tpu_torch.likelihood import UnbinnedLogLikelihood
+from blueice_tpu_torch.ops import fused, fused_unbinned
+from blueice_tpu_torch.parallel import (BinnedToyStudy, UnbinnedToyStudy,
+                                        make_toy_fitter)
 from blueice_tpu_torch.utils import set_progress
 
 SIZE = dict(n_cs1_bins=6, n_cs2_bins=5, livetime_days=30.0)
@@ -29,7 +32,9 @@ def test_imports_without_jax():
     """Every module imports in a process where jax and blueice_tpu cannot
     be imported at all."""
     modules = _modules()
-    assert 'blueice_tpu_torch.ops.fused' in modules
+    assert {'blueice_tpu_torch.ops.fused', 'blueice_tpu_torch.ops.fused_unbinned',
+            'blueice_tpu_torch.ops.unbinned_vgh',
+            'blueice_tpu_torch.test_helpers'} <= set(modules)
     code = textwrap.dedent("""
         import importlib, sys
         sys.modules['jax'] = None
@@ -54,11 +59,33 @@ def lf():
 
 def test_launch_counters_stay_zero_on_cpu(lf):
     fused.reset_launch_counts()
-    study = BinnedToyStudy(lf, max_iter=30, engine='fused')
+    study = BinnedToyStudy(lf, device='cpu', max_iter=30, engine='fused')
     t, free, cond = study.profile_ts(3, 4, 'wimp_rate_multiplier', 1.0)
     assert t.shape == (4,) and np.isfinite(free.max_ll).all()
     assert fused.launch_counts() == {'binned_vgh_fused': 0,
                                      'binned_ll_fused_multi': 0}
+    fused_unbinned.reset_launch_counts()
+    ulf = build_likelihood('unbinned', **dict(SIZE, livetime_days=3.0))
+    study = UnbinnedToyStudy(ulf, device='cpu', max_iter=20, engine='fused')
+    t, free, cond = study.profile_ts(3, 2, 'wimp_rate_multiplier', 1.0)
+    assert t.shape == (2,) and np.isfinite(free.max_ll).all()
+    assert fused_unbinned.launch_counts() == {'unbinned_vgh_fused': 0,
+                                              'unbinned_ll_fused_multi': 0}
+
+
+def test_default_device_raises_without_cuda(lf):
+    """The entry points run on the card unless asked for the CPU: without
+    CUDA the default raises, naming device='cpu', and never falls back."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available here")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BinnedToyStudy(lf)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lf.make_logl()
+    assert resolve('cpu') == (torch.device('cpu'), torch.float64)
+    assert resolve('cpu', torch.float32)[1] == torch.float32
 
 
 def test_cuda_requests_raise_without_cuda(lf):
@@ -70,21 +97,26 @@ def test_cuda_requests_raise_without_cuda(lf):
         lf.make_logl(device='cuda')
     with pytest.raises(RuntimeError):
         fused.load_library()
+    with pytest.raises(RuntimeError):
+        fused_unbinned.load_library()
 
 
 def test_auto_engine_is_closed_form_on_cpu(lf):
     """'auto' picks 'fused' only for a CUDA device; on the CPU the fit runs
     the closed form and matches engine='fused' (its plain versions)."""
-    study = BinnedToyStudy(lf, max_iter=30)
+    study = BinnedToyStudy(lf, device='cpu', max_iter=30)
     counts = study.simulate(11, 3)
-    ref = BinnedToyStudy(lf, max_iter=30, engine='fused').fit_toys(counts)
+    ref = BinnedToyStudy(lf, device='cpu', max_iter=30, engine='fused').fit_toys(counts)
     res = study.fit_toys(counts)
     np.testing.assert_allclose(res.max_ll, ref.max_ll, rtol=1e-12)
 
 
 def test_not_ported_features_say_so(lf):
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        build_likelihood('unbinned', **SIZE)
+        UnbinnedLogLikelihood(dict(build_config(**SIZE),
+                                   source_wise_interpolation=True))
+    with pytest.raises(ValueError, match='blob templates'):
+        build_likelihood('unbinned', bb=True, **SIZE)
     with pytest.raises(ValueError, match='bb must be'):
         build_likelihood('binned', bb='bb_full', **SIZE)
     with pytest.raises(ValueError, match='blob templates'):
@@ -92,9 +124,9 @@ def test_not_ported_features_say_so(lf):
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         build_likelihood('binned', jax_templates=True, **SIZE)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        BinnedToyStudy(lf).simulate(0, 2, mesh=object())
+        BinnedToyStudy(lf, device='cpu').simulate(0, 2, mesh=object())
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        make_toy_fitter(lf.make_logl(), engine='ad')
+        make_toy_fitter(lf.make_logl(device='cpu'), engine='ad')
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         lf.prepare(n_cores=2)
 

@@ -87,7 +87,8 @@ def test_profile_study_matches(K):
     assert (tlf._builds['ps'][0] == 'constant') == (K == 0)
     jstudy = JaxStudy(jlf, max_iter=40, engine='analytic',
                       profile_mode='split')
-    tstudy = BinnedToyStudy(tlf, max_iter=40, engine='fused')
+    tstudy = BinnedToyStudy(tlf, device='cpu', max_iter=40,
+                            engine='fused')
     expected = tstudy.expected_counts().numpy()
     np.testing.assert_allclose(expected, np.asarray(jstudy.expected_counts()),
                                rtol=1e-12)

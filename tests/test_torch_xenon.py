@@ -35,7 +35,7 @@ def lfs():
 @pytest.fixture(scope='module')
 def compiled(lfs):
     jlf, tlf = lfs
-    return jax_build_logl(jlf), build_logl(tlf)
+    return jax_build_logl(jlf), build_logl(tlf, device='cpu')
 
 
 @pytest.fixture(scope='module')
@@ -67,7 +67,8 @@ POINTS = [dict(),
 def test_logl_matches(lfs, compiled, counts, point):
     jlf, _ = lfs
     jc, tc = compiled
-    from_state = build_logl_from_state(state_from_reference(jlf))
+    from_state = build_logl_from_state(state_from_reference(jlf),
+                                       device='cpu')
     data = counts[0]
     ref = float(jc.logl_with_data(jc.params_from_kwargs(**point),
                                   jnp.asarray(data)))
@@ -127,7 +128,7 @@ def test_host_simulation_and_likelihood_match(lfs, point):
     np.testing.assert_allclose(tlf(**point), jlf(**point), rtol=1e-12)
     assert tlf(band_shift=5.0) == -float('inf')
     # the compiled likelihood on the bound data is the host likelihood
-    compiled = tlf.make_logl()
+    compiled = tlf.make_logl(device='cpu')
     np.testing.assert_allclose(float(compiled(**point)), tlf(**point),
                                rtol=1e-10)
     assert float(compiled(band_shift=5.0)) == -float('inf')

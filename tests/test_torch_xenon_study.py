@@ -29,7 +29,7 @@ def studies(lfs):
     jlf, tlf = lfs
     return (JaxStudy(jlf, max_iter=40, engine='analytic',
                      profile_mode='split'),
-            BinnedToyStudy(tlf, max_iter=40, engine='fused'))
+            BinnedToyStudy(tlf, device='cpu', max_iter=40, engine='fused'))
 
 
 @pytest.fixture(scope='module')
