@@ -28,11 +28,12 @@
 //
 // What bounds them on an H100: streaming each toy's corner rows from HBM.
 // Unlike the binned kernels, the density tensor is per toy (each toy
-// scored its own events): (B, G, S, E) float32, 4.2 MB a toy at the XENON
-// shape (G = 81, S = 6, E ~ 2,150), 1.07 GB at 256 toys, so it does not
-// stay in the 50 MB L2. A vgh call reads C*S*E*4 B of corner rows per toy
-// (0.8 MB at K = 4, 211 MB for 256 toys, ~63 us at 3.35 TB/s) and does
-// ~2,400 FLOPs per event (~12 us at 67 TFLOP/s float32): memory-bound. The
+// scored its own events): (B, G, S, E) float32, 4.1 MB a toy at the XENON
+// shape (G = 81, S = 6, E = n_max = 2,094), 1.04 GB at 256 toys, so it
+// does not stay in the 50 MB L2. Both kernels skip masked events, so a vgh
+// call reads C*S*4 B of corner rows per valid event (~1,830 a toy: 0.70 MB
+// at K = 4, ~180 MB for 256 toys, ~54 us at 3.35 TB/s) and does ~2,400
+// FLOPs per event (~10 us at 67 TFLOP/s float32): memory-bound. The
 // value kernel re-reads a toy's rows for each candidate; neighbouring
 // blocks take the same toy's candidates, so most re-reads hit L2. The
 // toy's entry of `lanes` is read in the kernel, so the fitter never copies
@@ -107,6 +108,8 @@ uvgh_kernel(const float* __restrict__ ps, int G, int E, float outlier,
   const unsigned char* mask_b = mask + b * E;
   const float* ir_b = inv_ref + b * E;
   for (int e = threadIdx.x; e < E; e += kThreads) {
+    // A masked event adds nothing to ll, g or H: its rows are not read
+    if (!mask_b[e]) continue;
     // Multilinear combination of the corner rows: P (S), D (K x S), and the
     // m-weighted cross-pair second derivatives Xbar (NP)
     float Pv[S];
@@ -155,12 +158,11 @@ uvgh_kernel(const float* __restrict__ ps, int G, int E, float outlier,
       v[S + d] = db;
     }
 
-    const bool valid = mask_b[e] != 0;
     const bool pos = lam > 0.f;
-    if (valid) acc[0] += logf(lam_eff(lam, outlier) * __ldg(ir_b + e));
-    // Outlier-floored and masked events are constant in the parameters
+    acc[0] += logf(lam_eff(lam, outlier) * __ldg(ir_b + e));
+    // Outlier-floored events are constant in the parameters
     const float lam_safe = pos ? lam : 1.f;
-    const float inv = (valid && pos) ? 1.f / lam_safe : 0.f;
+    const float inv = pos ? 1.f / lam_safe : 0.f;
     const float q = inv / lam_safe;
 
 #pragma unroll

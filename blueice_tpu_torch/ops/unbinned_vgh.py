@@ -15,9 +15,13 @@ binned case (:mod:`blueice_tpu_torch.ops.binned_vgh`). Events whose summed
 density is not positive take the ``outlier_likelihood`` floor in the value
 and contribute no gradient or curvature (the floor is a constant).
 
-These are the plain versions behind the fused unbinned CUDA kernels
-(:mod:`blueice_tpu_torch.ops.fused_unbinned`) and the engine of
-``engine='analytic'``.
+:func:`vgh_parts` is the plain version behind the fused unbinned vgh kernel
+(:mod:`blueice_tpu_torch.ops.fused_unbinned`, whose plain versions are the
+engine of ``engine='analytic'``) and :func:`reference_center` centers every
+fit. :func:`unbinned_vgh` and :func:`unbinned_ll` take a corner block as the
+JAX functions do; the fitter does not call them (it reads the per-toy
+tensor through a lane index instead), and they are kept as the surface the
+parity tests hold against the JAX package.
 """
 
 import torch

@@ -726,7 +726,11 @@ def _reference_point(compiled):
             torch.as_tensor(t0, dtype=dt, device=dev))
 
 
-def unbinned_center(compiled, ps, mask, chunk=64):
+#: toys per step of :func:`unbinned_center` (bounds the corner block's memory)
+CENTER_CHUNK = 64
+
+
+def unbinned_center(compiled, ps, mask):
     """Per-toy centering data of an unbinned toy batch, computed once per
     event set and shared by every fit of those toys:
     ``(inv_ref (B, E), ref_msum (B,), ref_ll (B,) float64)`` at the
@@ -737,7 +741,6 @@ def unbinned_center(compiled, ps, mask, chunk=64):
 
     :param ps: (B, G, S, E) per-toy per-event densities at every anchor.
     :param mask: (B, E) bool event validity.
-    :param chunk: toys per step (bounds the corner block's memory).
     """
     K = len(compiled.shape_names)
     B, G, S, E = ps.shape
@@ -746,8 +749,8 @@ def unbinned_center(compiled, ps, mask, chunk=64):
     m0, idx0, t0 = _reference_point(compiled)
     ids0 = fused.corner_ids(strides, idx0, G)                     # (C,)
     parts = []
-    for b0 in range(0, B, chunk):
-        sl = slice(b0, min(B, b0 + chunk))
+    for b0 in range(0, B, CENTER_CHUNK):
+        sl = slice(b0, min(B, b0 + CENTER_CHUNK))
         n = sl.stop - sl.start
         parts.append(reference_center(
             ps[sl][:, ids0], m0.expand(n, S), t0.expand(n, K), mask[sl],

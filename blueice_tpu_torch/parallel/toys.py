@@ -27,6 +27,10 @@ from .fitter import make_toy_fitter, check_fixed_in_bounds, unbinned_center
 
 __all__ = ['BinnedToyStudy', 'UnbinnedToyStudy', 'ToyResults']
 
+#: toys per scoring step of :meth:`UnbinnedToyStudy.score_events` (bounds
+#: the (toys, G*S, E) gather's memory)
+SCORE_CHUNK = 32
+
 
 def _refine_stragglers(fit_long, data, x, ll, it, cap, fixed_values=None,
                        idx=None):
@@ -304,9 +308,6 @@ class UnbinnedToyStudy(_ToyStudy):
       :class:`BinnedToyStudy`.
     """
 
-    #: toys per scoring step (bounds the (toys, G*S, E) gather's memory)
-    score_chunk = 32
-
     def __init__(self, lf, n_max=None, dtype=None, device=None, max_iter=60,
                  tol=1e-8, engine='auto', two_stage=True, polish=4):
         super().__init__(lf, dtype, device, max_iter, tol, engine, two_stage,
@@ -494,8 +495,8 @@ class UnbinnedToyStudy(_ToyStudy):
         G, S = self._grid_sources
         out = torch.empty((B, G, S, E), dtype=self.compiled.dtype,
                           device=self.device)
-        for b0 in range(0, B, self.score_chunk):
-            b1 = min(B, b0 + self.score_chunk)
+        for b0 in range(0, B, SCORE_CHUNK):
+            b1 = min(B, b0 + SCORE_CHUNK)
             acc = None
             for flat, w in self._score_terms(coords[b0:b1], bins[b0:b1]):
                 term = self._pdf_rows[:, flat.reshape(-1)].reshape(

@@ -40,19 +40,14 @@ For each path:
    the CPU in float64 (plain versions): max |d max_ll| <= 0.05, median
    |d t| <= 0.01.
 
-Measurement options (the numbers in PERF.md name the option that made
-them): ``--paths a,b`` runs only those paths; ``--phases 1,3`` only those
-phases; ``--profile`` adds a torch.profiler account of one warm profile of
-each selected unbinned path; ``--ab`` adds an engine A/B ('fused' against
-'analytic', warm profiles on seed 1, order f a a f f a) on each selected
-unbinned path.
+It takes no options; ``measure_unbinned.py`` holds the torch.profiler
+account and the engine A/B of the unbinned paths.
 
 Any failure raises (exit code != 0, no result line). Without CUDA it exits
 with code 2 before doing anything. The last line of standard output is
 ``{"ok": true, "device": {...}}``.
 """
 
-import argparse
 import json
 import os
 import re
@@ -171,29 +166,30 @@ def ptxas_report(lib_paths):
 
 # -- the least time the card could take ---------------------------------------
 
-def work(kind, S, K, n, rows, lead, extra_rows=0):
+def work(kind, S, K, lead, row_floats, data_bytes, items, mc_rows=False):
     """(bytes, float32 operations) that one kernel call must move and do.
 
-    Bytes: each input read once and each output written once: the distinct
-    corner rows the call's toys touch (``rows`` of S * n floats, plus
-    ``extra_rows`` rows of n floats: the MC-count rows of bb / bb-lite),
-    the per-toy data (binned: observed counts; unbinned: event mask and
-    inv_ref), the per-call tables and the outputs. Operations: the corner
-    combination (2 flops per FMA), the rate sum and the g / H accumulation
-    of each bin or event, as counted in the kernel sources; the per-bin
-    logarithm, division and Beeston-Barlow root are not counted, so this is
-    a lower bound.
+    Bytes: each input read once and each output written once: the
+    ``row_floats`` floats of the distinct corner rows the call's toys touch,
+    the ``data_bytes`` of per-toy data (binned: the observed counts;
+    unbinned: the event mask and the valid events' inv_ref), the per-call
+    tables and the outputs. Operations: per bin or event (``items``, summed
+    over the call's toys and candidates; unbinned, the valid events only,
+    as the others add nothing) the corner combination (2 flops per FMA),
+    the rate sum and the g / H accumulation, as counted in the kernel
+    sources; the logarithm, division and Beeston-Barlow root are not
+    counted, so this is a lower bound.
 
-    :param kind: 'vgh' or 'value'; n: bins or events; lead: (B,) or (B, A).
+    :param kind: 'vgh' or 'value'; lead: (B,) or (B, A).
+    :param mc_rows: each corner also combines an MC-count row (bb, bb-lite).
     """
     C = 2 ** K
     NP = K * (K - 1) // 2
     P = S + K
     NH = P * (P + 1) // 2
-    R = S + (1 if extra_rows else 0)       # rows combined per corner
+    R = S + (1 if mc_rows else 0)          # rows combined per corner
     B = lead[0]
     calls = int(np.prod(lead))
-    rows_bytes = rows * S * n * 4 + extra_rows * n * 4
     if kind == 'vgh':
         per = C * R * (2 + 2 * K + (1 + 2 * NP if NP else 0))
         per += 2 * S * (1 + K) + 2 * P + 2 * NH + P + 2 * S * K + 2 * NP
@@ -203,7 +199,7 @@ def work(kind, S, K, n, rows, lead, extra_rows=0):
         per = C * R * 2 + 2 * S
         tables = calls * (2 * C + S) * 4
         out = calls * 4
-    return rows_bytes + B * n * 4 + tables + out, float(per) * calls * n
+    return row_floats * 4 + data_bytes + tables + out, float(per) * items
 
 
 def bound(bytes_, flops):
@@ -212,16 +208,21 @@ def bound(bytes_, flops):
     return (t_mem, 'bytes') if t_mem >= t_ops else (t_ops, 'operations')
 
 
-def distinct_rows(ids, per_toy):
-    """Distinct corner rows a call reads: anchor ids over the whole batch
-    (binned: one anchor tensor shared by every toy), or (toy, id) pairs
-    (unbinned: each toy has its own rows)."""
+def distinct_rows(ids):
+    """Distinct anchor ids a binned call reads (one anchor tensor shared by
+    every toy)."""
+    return int(ids.unique().numel())
+
+
+def row_events(ids, events):
+    """Events of the distinct corner rows an unbinned call reads: each
+    (lane, anchor id) pair is a row of that lane's own toy, of which only
+    the lane's ``events`` (L,) valid events are needed."""
     ids = ids.reshape(ids.shape[0], -1)
-    if not per_toy:
-        return int(ids.unique().numel())
     G = int(ids.max()) + 1
-    toy = torch.arange(ids.shape[0], device=ids.device)
-    return int((toy[:, None] * G + ids).unique().numel())
+    lane = torch.arange(ids.shape[0], device=ids.device)
+    pairs = (lane[:, None] * G + ids).unique()
+    return int(events[pairs // G].sum())
 
 
 # -- the paths ---------------------------------------------------------------
@@ -386,10 +387,19 @@ def kernel_rows(label, study, mods):
         def ll_scale(idx, t, m, ref_ll):
             return term_scale(ps, strides, lanes, idx, t, m, mask, inv_ref,
                               moff_of(m), compiled.outlier_likelihood)
+
+        valid = mask[lanes].sum(-1)          # valid events of each lane
+
+        def costs(ids, lead):
+            # the whole mask (1 B an event) and the valid events' inv_ref
+            per_lane = int(np.prod(lead[1:]))
+            return dict(row_floats=S * row_events(ids, valid),
+                        data_bytes=mask.numel() + 4 * int(valid.sum()),
+                        items=per_lane * int(valid.sum()))
         fns = (fu.unbinned_vgh_fused, fu.unbinned_vgh_plain,
                fu.unbinned_ll_fused_multi, fu.unbinned_ll_plain)
-        extra_rows = 0
-        shape = 'B=%d E=%d' % (B, n)
+        shape = 'B=%d E=%d (%.1f valid events a toy)' % (
+            B, n, float(valid.double().mean()))
     else:
         B = KERNEL_TOYS
         anchor = compiled.ps_tensor.reshape(G, S, -1).contiguous()
@@ -403,7 +413,13 @@ def kernel_rows(label, study, mods):
 
         def ll_scale(idx, t, m, ref_ll):
             return ref_ll.abs()
-        fns, extra_rows = binned_ops(label, compiled, mods)
+        fns, mc_rows = binned_ops(label, compiled, mods)
+
+        def costs(ids, lead):
+            rows = distinct_rows(ids)
+            return dict(row_floats=(S + mc_rows) * rows * n,
+                        data_bytes=B * n * 4, items=int(np.prod(lead)) * n,
+                        mc_rows=bool(mc_rows))
         shape = 'B=%d N=%d' % (B, n)
 
     meta = [dict(name=w, path=label, route='cuda', source=CSRC + src,
@@ -420,8 +436,7 @@ def kernel_rows(label, study, mods):
     ms = cuda_ms(lambda: call(vgh, idx, t, m))
     plain_ms = cuda_ms(lambda: call(vgh_plain, idx, t, m))
     ids = fused.corner_ids(strides, idx, G)
-    nbytes, flops = work('vgh', S, K, n, distinct_rows(ids, unbinned), (B,),
-                         extra_rows * distinct_rows(ids, False))
+    nbytes, flops = work('vgh', S, K, (B,), **costs(ids, (B,)))
     bound_ms, bound_by = bound(nbytes, flops)
     log("%s vgh kernel   %s: %s; %.4f ms vs plain %.4f ms; bound %.4f ms "
         "(%s: %.1f MB, %.3f GFLOP)" % (label, shape, detail, ms, plain_ms,
@@ -440,8 +455,7 @@ def kernel_rows(label, study, mods):
         ms = cuda_ms(lambda: call(value, idx, t, m))
         plain_ms = cuda_ms(lambda: call(value_plain, idx, t, m))
         ids = fused.corner_ids(strides, idx, G)
-        nbytes, flops = work('value', S, K, n, distinct_rows(ids, unbinned),
-                             (B, A), extra_rows * distinct_rows(ids, False))
+        nbytes, flops = work('value', S, K, (B, A), **costs(ids, (B, A)))
         bound_ms, bound_by = bound(nbytes, flops)
         log("%s value kernel %s A=%d: %s; %.4f ms vs plain %.4f ms; bound "
             "%.4f ms (%s: %.1f MB, %.3f GFLOP)"
@@ -538,71 +552,6 @@ def two_precisions(label, study, cls):
         raise AssertionError("%s: float32 fits disagree with float64" % label)
 
 
-def profile_account(label, study):
-    """torch.profiler over one warm profile_ts: the device's kernel events
-    by name, and their summed duration over the wall time (one stream, so
-    the kernels do not overlap: the rest of the wall time the card idles)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    _, target, n_toys, _, _ = PATHS[label]
-    study.profile_ts(1, n_toys=n_toys, target=target, hypothesis=1.0)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        study.profile_ts(1, n_toys=n_toys, target=target, hypothesis=1.0)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            total, count = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (total + e.time_range.elapsed_us(), count + 1)
-    busy_us = sum(total for total, _ in by_name.values())
-    log("%s profile (torch.profiler, one warm profile_ts on seed 1): wall "
-        "%.3f s; %d kernels on the device, %.1f ms in all (%.1f%% of the "
-        "wall time; the card idles the rest)"
-        % (label, wall, sum(c for _, c in by_name.values()), busy_us / 1e3,
-           100 * busy_us / 1e6 / wall))
-    for name, (total, count) in sorted(by_name.items(),
-                                       key=lambda kv: -kv[1][0])[:12]:
-        log("  %10.2f ms  %7d calls  %s" % (total / 1e3, count, name[:90]))
-    # The path's own kernels alone, without their wrappers' table set-up
-    # (which the CUDA-event times of phase 1 include)
-    for symbol in ('uvgh_kernel<', 'ull_kernel<'):
-        hits = [v for name, v in by_name.items() if '::' + symbol in name]
-        total = sum(us for us, _ in hits)
-        count = sum(n for _, n in hits)
-        log("%s %s> on the device: %.2f ms in %d calls, %.1f us per call"
-            % (label, symbol, total / 1e3, count,
-               total / count if count else 0.0))
-
-
-def engine_ab(label, study, cls):
-    """Warm profile_ts on seed 1 with engine 'fused' and 'analytic', in the
-    order f a a f f a, host clock around a synchronize."""
-    _, target, n_toys, _, _ = PATHS[label]
-    studies = {'fused': study,
-               'analytic': cls(study.lf, n_max=study.n_max, max_iter=96,
-                               tol=3e-4, engine='analytic')}
-    for s in studies.values():
-        s.profile_ts(1, n_toys=n_toys, target=target, hypothesis=1.0)
-    times = {'fused': [], 'analytic': []}
-    for engine in ('fused', 'analytic', 'analytic', 'fused', 'fused',
-                   'analytic'):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        t, free, cond = studies[engine].profile_ts(
-            1, n_toys=n_toys, target=target, hypothesis=1.0)
-        torch.cuda.synchronize()
-        times[engine].append(time.time() - t0)
-        log("%s A/B %s: %.3f s, median t %.5f, mean iterations %.2f / %.2f"
-            % (label, engine, times[engine][-1], np.median(t),
-               free.n_iter.mean(), cond.n_iter.mean()))
-    log("%s A/B medians: fused %.3f s, analytic %.3f s"
-        % (label, np.median(times['fused']), np.median(times['analytic'])))
-
-
 def check_on_card(label, compiled):
     """The study's defaults: float32 on the card."""
     if compiled.device.type != 'cuda' or compiled.dtype != torch.float32:
@@ -610,7 +559,7 @@ def check_on_card(label, compiled):
                              "the card" % label)
 
 
-def run_path(label, phases, opts, mods, api):
+def run_path(label, mods, api):
     model = PATHS[label][0]
     t0 = time.time()
     lf = build_model(label, api['xenon_like'], api['test_helpers'],
@@ -629,34 +578,13 @@ def run_path(label, phases, opts, mods, api):
             "%.1f s" % (label, tuple(study.compiled.ps_tensor.shape),
                         time.time() - t0))
     check_on_card(label, study.compiled)
-    rows = []
-    if 1 in phases:
-        rows = kernel_rows(label, study, mods)
-    if 2 in phases:
-        main_path(label, study, mods, rows)
-    if 3 in phases:
-        two_precisions(label, study, cls)
-    if not study.compiled.is_binned:
-        if opts.profile:
-            profile_account(label, study)
-        if opts.ab:
-            engine_ab(label, study, cls)
+    rows = kernel_rows(label, study, mods)
+    main_path(label, study, mods, rows)
+    two_precisions(label, study, cls)
     return rows
 
 
-def main(argv=None):
-    parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    parser.add_argument('--paths', default=','.join(PATHS))
-    parser.add_argument('--phases', default='1,2,3')
-    parser.add_argument('--profile', action='store_true')
-    parser.add_argument('--ab', action='store_true')
-    opts = parser.parse_args(argv)
-    paths = [p for p in opts.paths.split(',') if p]
-    phases = {int(p) for p in opts.phases.split(',') if p}
-    unknown = set(paths) - set(PATHS)
-    if unknown:
-        parser.error("unknown paths %s" % sorted(unknown))
-
+def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -690,8 +618,8 @@ def main(argv=None):
         log("ptxas " + line)
 
     rows = []
-    for label in paths:
-        rows += run_path(label, phases, opts, mods, api)
+    for label in PATHS:
+        rows += run_path(label, mods, api)
 
     log(card_line())
     print(json.dumps({'kernels': rows}))

@@ -6,6 +6,7 @@ import pkgutil
 import subprocess
 import sys
 import textwrap
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -49,6 +50,27 @@ def test_imports_without_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert 'imported' in out.stdout
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="runs without CUDA")
+@pytest.mark.parametrize('script', ['chip_smoke.py', 'measure_unbinned.py'])
+def test_chip_scripts_exit_without_cuda(script):
+    """The GPU scripts stop with code 2 and print no result line when CUDA
+    is missing, in a process that cannot import jax."""
+    root = Path(__file__).resolve().parents[1]
+    path = str(root / script)
+    code = textwrap.dedent("""
+        import runpy, sys
+        sys.modules['jax'] = None
+        sys.modules['blueice_tpu'] = None
+        sys.argv = [%r]
+        runpy.run_path(%r, run_name='__main__')
+    """ % (path, path))
+    out = subprocess.run([sys.executable, '-c', code], capture_output=True,
+                         text=True, timeout=120, cwd=root)
+    assert out.returncode == 2, out.stderr
+    assert 'CUDA is not available' in out.stderr
+    assert '"ok"' not in out.stdout
 
 
 @pytest.fixture(scope='module')
