@@ -25,6 +25,8 @@
 // and second derivatives in (lam, M), chained to (m, t) through the
 // corner-difference tables. The negative-expectation penalty (1e6 * lam in
 // value, 1e6 in d/dlam where lam < 0) is kept, as in the reference.
+// lite_parts lives in bt_perbin.cuh, shared with the op-mix probe
+// (op_mix.cu).
 //
 // What bounds them on an H100: the corner gathers, (S + 1) * 2^K rows per
 // bin, served from the 50 MB L2; neighbouring threads take neighbouring
@@ -38,42 +40,11 @@
 // entry points return cudaGetLastError().
 
 #include "bt_common.cuh"
+#include "bt_perbin.cuh"
 
 namespace {
 
 using namespace bt;
-
-__device__ __forceinline__ float xlogy_f(float x, float y) {
-  return x == 0.f ? 0.f : x * logf(y);
-}
-
-struct LiteParts {
-  float value, f_lam, f_M, H_ll, H_lM, H_MM;
-};
-
-// _per_bin_parts of blueice_tpu/ops/bb_lite.py.
-__device__ __forceinline__ LiteParts lite_parts(float lam, float M, float k) {
-  const float tiny = FLT_MIN;
-  LiteParts o;
-  const float lam_pos = fmaxf(lam, tiny);
-  const bool has_mc = M > 0.f;
-  const float den = fmaxf(lam_pos + M, tiny);
-  const float g = has_mc ? (k + M) / den : 1.f;
-  const float k_safe = k > 0.f ? k : 1.f;
-  o.value = xlogy_f(k, fmaxf(g * lam_pos, tiny) / k_safe) - (g * lam - k)
-            + xlogy_f(M, g) - M * (g - 1.f) + kPenalty * fminf(lam, 0.f);
-  const float inv_lam = 1.f / lam_pos;
-  o.f_lam = k * inv_lam - g + (lam < 0.f ? kPenalty : 0.f);
-  const float g_safe = has_mc ? g : 1.f;
-  o.f_M = has_mc ? logf(g_safe) - (g - 1.f) : 0.f;
-  const float inv_den = has_mc ? 1.f / den : 0.f;
-  const float g_lam = has_mc ? -g * inv_den : 0.f;
-  const float g_M = has_mc ? (lam_pos - k) * inv_den * inv_den : 0.f;
-  o.H_ll = -k * inv_lam * inv_lam - g_lam;
-  o.H_lM = -g_M;
-  o.H_MM = has_mc ? (1.f / g_safe - 1.f) * g_M : 0.f;
-  return o;
-}
 
 template <int S, int K>
 __global__ void __launch_bounds__(kThreads)

@@ -17,7 +17,9 @@ Both take the toy batch as a written-out leading dimension (the JAX entries'
 (:func:`binned_vgh_plain`, :func:`binned_ll_plain`: the batched closed form of
 :mod:`blueice_tpu_torch.ops.binned_vgh`) for CPU tensors, and for CUDA
 tensors launches its kernel or raises. Each wrapper counts its launches in a
-plain integer attribute, ``launches``.
+plain integer attribute, ``launches``. Its CUDA side is a ``*_launcher``
+function (checks, tables and outputs, once) and the ``launch()`` it returns,
+so a timer can time the launch alone.
 
 The kernels build at first use with ``nvcc`` for ``sm_90a`` into
 ``build/blueice_tpu_torch/`` beside the package and load with ``ctypes``;
@@ -40,7 +42,8 @@ from .binned_vgh import (corner_weight_tables, corner_offsets, binned_vgh,
                          _ll_from_P)
 
 __all__ = ['binned_vgh_fused', 'binned_ll_fused_multi', 'binned_vgh_plain',
-           'binned_ll_plain', 'corner_ids', 'build_library', 'build_libraries',
+           'binned_ll_plain', 'binned_vgh_launcher', 'binned_ll_launcher',
+           'corner_ids', 'build_library', 'build_libraries',
            'load_library', 'launch_counts', 'reset_launch_counts',
            'MAX_SOURCES', 'MAX_SHAPE_AXES']
 
@@ -189,6 +192,12 @@ def _check_kernel_inputs(anchor, K, S, tensors):
             raise ValueError("the CUDA kernels take contiguous tensors")
 
 
+def _check_cuda(x, name):
+    if x.device.type != 'cuda':
+        raise ValueError("%s runs on CPU or CUDA tensors, got %s"
+                         % (name, x.device))
+
+
 def _launch_check(code, what):
     if code != 0:
         raise RuntimeError("%s kernel launch failed: %s" % (
@@ -205,6 +214,36 @@ def binned_vgh_plain(anchor, strides, idx, t, m, observed):
     return binned_vgh(anchor[ids], m, t, observed)
 
 
+def binned_vgh_launcher(anchor, strides, idx, t, m, observed):
+    """The CUDA side of :func:`binned_vgh_fused`, split in two: checks the
+    inputs, builds the corner tables and allocates the outputs once, and
+    returns ``(launch, (ll, g, H))``, where each ``launch()`` launches the
+    kernel into those outputs (and counts it). The roofline timers time
+    ``launch`` alone."""
+    B = idx.shape[0]
+    G, S, N, K = _check_shapes(anchor, strides, idx, t, m, observed, (B,))
+    _check_cuda(anchor, 'binned_vgh_fused')
+    _check_kernel_inputs(anchor, K, S, (m, observed))
+    lib = load_library()
+    P = S + K
+    ids, w, wd, wx_pairs = vgh_tables(strides, idx, t, G)
+    ll = anchor.new_empty((B,))
+    g = anchor.new_empty((B, P))
+    H = anchor.new_empty((B, P, P))
+
+    def launch():
+        with torch.cuda.device(anchor.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            code = lib.bt_binned_vgh(
+                S, K, N, B, anchor.data_ptr(), ids.data_ptr(), w.data_ptr(),
+                wd.data_ptr(), wx_pairs.data_ptr(), m.data_ptr(),
+                observed.data_ptr(), ll.data_ptr(), g.data_ptr(),
+                H.data_ptr(), stream)
+        _launch_check(code, 'vgh')
+        binned_vgh_fused.launches += 1
+    return launch, (ll, g, H)
+
+
 def binned_vgh_fused(anchor, strides, idx, t, m, observed):
     """Deviance-form (ll, g, H) in (m, t) for a batch of toys, with each
     toy's corner templates gathered from the shared anchor tensor.
@@ -217,30 +256,12 @@ def binned_vgh_fused(anchor, strides, idx, t, m, observed):
     :param observed: (B, N) observed counts.
     :return: (ll (B,), g (B, S+K), H (B, S+K, S+K)).
     """
-    B = idx.shape[0]
-    G, S, N, K = _check_shapes(anchor, strides, idx, t, m, observed, (B,))
     if anchor.device.type == 'cpu':
+        _check_shapes(anchor, strides, idx, t, m, observed, (idx.shape[0],))
         return binned_vgh_plain(anchor, strides, idx, t, m, observed)
-    if anchor.device.type != 'cuda':
-        raise ValueError("binned_vgh_fused runs on CPU or CUDA tensors, "
-                         "got %s" % anchor.device)
-    _check_kernel_inputs(anchor, K, S, (m, observed))
-    lib = load_library()
-    P = S + K
-    ids, w, wd, wx_pairs = vgh_tables(strides, idx, t, G)
-    ll = anchor.new_empty((B,))
-    g = anchor.new_empty((B, P))
-    H = anchor.new_empty((B, P, P))
-    with torch.cuda.device(anchor.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.bt_binned_vgh(
-            S, K, N, B, anchor.data_ptr(), ids.data_ptr(), w.data_ptr(),
-            wd.data_ptr(), wx_pairs.data_ptr(), m.data_ptr(),
-            observed.data_ptr(), ll.data_ptr(), g.data_ptr(), H.data_ptr(),
-            stream)
-    _launch_check(code, 'vgh')
-    binned_vgh_fused.launches += 1
-    return ll, g, H
+    launch, out = binned_vgh_launcher(anchor, strides, idx, t, m, observed)
+    launch()
+    return out
 
 
 binned_vgh_fused.launches = 0
@@ -260,6 +281,30 @@ def binned_ll_plain(anchor, strides, idx, t, m, observed):
     return _ll_from_P(P, m, observed[:, None, :])
 
 
+def binned_ll_launcher(anchor, strides, idx, t, m, observed):
+    """The CUDA side of :func:`binned_ll_fused_multi`, split as
+    :func:`binned_vgh_launcher`: returns ``(launch, ll)``."""
+    B, A = idx.shape[:2]
+    G, S, N, K = _check_shapes(anchor, strides, idx, t, m, observed, (B, A))
+    _check_cuda(anchor, 'binned_ll_fused_multi')
+    _check_kernel_inputs(anchor, K, S, (m, observed))
+    lib = load_library()
+    ids = corner_ids(strides, idx, G).to(torch.int32).contiguous()
+    w = corner_weight_tables(t)[0].contiguous()
+    ll = anchor.new_empty((B, A))
+
+    def launch():
+        with torch.cuda.device(anchor.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            code = lib.bt_binned_ll_multi(
+                S, K, N, B, A, anchor.data_ptr(), ids.data_ptr(),
+                w.data_ptr(), m.data_ptr(), observed.data_ptr(),
+                ll.data_ptr(), stream)
+        _launch_check(code, 'value')
+        binned_ll_fused_multi.launches += 1
+    return launch, ll
+
+
 def binned_ll_fused_multi(anchor, strides, idx, t, m, observed):
     """Deviance-form LL at A parameter candidates per toy, each toy's
     candidates sharing its dataset.
@@ -268,25 +313,12 @@ def binned_ll_fused_multi(anchor, strides, idx, t, m, observed):
       m: (B, A, S) rates; observed: (B, N).
     :return: (B, A) log likelihoods (without the saturated-model constant).
     """
-    B, A = idx.shape[:2]
-    G, S, N, K = _check_shapes(anchor, strides, idx, t, m, observed, (B, A))
     if anchor.device.type == 'cpu':
+        _check_shapes(anchor, strides, idx, t, m, observed, tuple(
+            idx.shape[:2]))
         return binned_ll_plain(anchor, strides, idx, t, m, observed)
-    if anchor.device.type != 'cuda':
-        raise ValueError("binned_ll_fused_multi runs on CPU or CUDA tensors, "
-                         "got %s" % anchor.device)
-    _check_kernel_inputs(anchor, K, S, (m, observed))
-    lib = load_library()
-    ids = corner_ids(strides, idx, G).to(torch.int32).contiguous()
-    w = corner_weight_tables(t)[0].contiguous()
-    ll = anchor.new_empty((B, A))
-    with torch.cuda.device(anchor.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.bt_binned_ll_multi(
-            S, K, N, B, A, anchor.data_ptr(), ids.data_ptr(), w.data_ptr(),
-            m.data_ptr(), observed.data_ptr(), ll.data_ptr(), stream)
-    _launch_check(code, 'value')
-    binned_ll_fused_multi.launches += 1
+    launch, ll = binned_ll_launcher(anchor, strides, idx, t, m, observed)
+    launch()
     return ll
 
 

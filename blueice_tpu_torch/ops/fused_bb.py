@@ -36,7 +36,8 @@ from .bb_vgh import bb_ll_from_morphed, bb_vgh_from_corners
 from .binned_vgh import corner_weight_tables
 
 __all__ = ['binned_bb_vgh_fused', 'binned_bb_ll_fused_multi',
-           'binned_bb_vgh_plain', 'binned_bb_ll_plain', 'anchor_totals',
+           'binned_bb_vgh_plain', 'binned_bb_ll_plain',
+           'binned_bb_vgh_launcher', 'binned_bb_ll_launcher', 'anchor_totals',
            'load_library', 'launch_counts', 'reset_launch_counts']
 
 SOURCE = os.path.join(fused.CSRC_DIR, 'fused_bb.cu')
@@ -80,6 +81,37 @@ def binned_bb_vgh_plain(anchor, nme, strides, idx, t, m, observed, bb_i):
     return bb_vgh_from_corners(anchor[ids], nme[ids], m, t, observed, bb_i)
 
 
+def binned_bb_vgh_launcher(anchor, nme, strides, idx, t, m, observed, bb_i):
+    """The CUDA side of :func:`binned_bb_vgh_fused`, split in two (see
+    :func:`blueice_tpu_torch.ops.fused.binned_vgh_launcher`): returns
+    ``(launch, (ll, g, H))``."""
+    B = idx.shape[0]
+    G, S, N, K = _check_bb(anchor, nme, strides, idx, t, m, observed, bb_i,
+                           (B,))
+    fused._check_cuda(anchor, 'binned_bb_vgh_fused')
+    fused._check_kernel_inputs(anchor, K, S, (nme, m, observed))
+    totals = anchor_totals(nme)
+    lib = load_library()
+    P = S + K
+    ids, w, wd, wx_pairs = fused.vgh_tables(strides, idx, t, G)
+    ll = anchor.new_empty((B,))
+    g = anchor.new_empty((B, P))
+    H = anchor.new_empty((B, P, P))
+
+    def launch():
+        with torch.cuda.device(anchor.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            code = lib.bt_bb_vgh(
+                S, K, N, B, int(bb_i), anchor.data_ptr(), nme.data_ptr(),
+                totals.data_ptr(), ids.data_ptr(), w.data_ptr(),
+                wd.data_ptr(), wx_pairs.data_ptr(), m.data_ptr(),
+                observed.data_ptr(), ll.data_ptr(), g.data_ptr(),
+                H.data_ptr(), stream)
+        fused._launch_check(code, 'bb vgh')
+        binned_bb_vgh_fused.launches += 1
+    return launch, (ll, g, H)
+
+
 def binned_bb_vgh_fused(anchor, nme, strides, idx, t, m, observed, bb_i):
     """Beeston-Barlow (ll, g, H) in (m, t) for a batch of toys, with each
     toy's corner rows gathered from the shared anchor tensors.
@@ -92,33 +124,15 @@ def binned_bb_vgh_fused(anchor, nme, strides, idx, t, m, observed, bb_i):
     :param bb_i: index of the finite-MC source.
     :return: (ll (B,), g (B, S+K), H (B, S+K, S+K)).
     """
-    B = idx.shape[0]
-    G, S, N, K = _check_bb(anchor, nme, strides, idx, t, m, observed, bb_i,
-                           (B,))
     if anchor.device.type == 'cpu':
+        _check_bb(anchor, nme, strides, idx, t, m, observed, bb_i,
+                  (idx.shape[0],))
         return binned_bb_vgh_plain(anchor, nme, strides, idx, t, m, observed,
                                    bb_i)
-    if anchor.device.type != 'cuda':
-        raise ValueError("binned_bb_vgh_fused runs on CPU or CUDA tensors, "
-                         "got %s" % anchor.device)
-    fused._check_kernel_inputs(anchor, K, S, (nme, m, observed))
-    totals = anchor_totals(nme)
-    lib = load_library()
-    P = S + K
-    ids, w, wd, wx_pairs = fused.vgh_tables(strides, idx, t, G)
-    ll = anchor.new_empty((B,))
-    g = anchor.new_empty((B, P))
-    H = anchor.new_empty((B, P, P))
-    with torch.cuda.device(anchor.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.bt_bb_vgh(
-            S, K, N, B, int(bb_i), anchor.data_ptr(), nme.data_ptr(),
-            totals.data_ptr(), ids.data_ptr(), w.data_ptr(), wd.data_ptr(),
-            wx_pairs.data_ptr(), m.data_ptr(), observed.data_ptr(),
-            ll.data_ptr(), g.data_ptr(), H.data_ptr(), stream)
-    fused._launch_check(code, 'bb vgh')
-    binned_bb_vgh_fused.launches += 1
-    return ll, g, H
+    launch, out = binned_bb_vgh_launcher(anchor, nme, strides, idx, t, m,
+                                         observed, bb_i)
+    launch()
+    return out
 
 
 binned_bb_vgh_fused.launches = 0
@@ -140,6 +154,32 @@ def binned_bb_ll_plain(anchor, nme, strides, idx, t, m, observed, bb_i):
     return bb_ll_from_morphed(P, Nb, m, observed[:, None, :], bb_i)
 
 
+def binned_bb_ll_launcher(anchor, nme, strides, idx, t, m, observed, bb_i):
+    """The CUDA side of :func:`binned_bb_ll_fused_multi`, split in two:
+    returns ``(launch, ll)``."""
+    B, A = idx.shape[:2]
+    G, S, N, K = _check_bb(anchor, nme, strides, idx, t, m, observed, bb_i,
+                           (B, A))
+    fused._check_cuda(anchor, 'binned_bb_ll_fused_multi')
+    fused._check_kernel_inputs(anchor, K, S, (nme, m, observed))
+    totals = anchor_totals(nme)
+    lib = load_library()
+    ids = fused.corner_ids(strides, idx, G).to(torch.int32).contiguous()
+    w = corner_weight_tables(t)[0].contiguous()
+    ll = anchor.new_empty((B, A))
+
+    def launch():
+        with torch.cuda.device(anchor.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            code = lib.bt_bb_ll_multi(
+                S, K, N, B, A, int(bb_i), anchor.data_ptr(), nme.data_ptr(),
+                totals.data_ptr(), ids.data_ptr(), w.data_ptr(),
+                m.data_ptr(), observed.data_ptr(), ll.data_ptr(), stream)
+        fused._launch_check(code, 'bb value')
+        binned_bb_ll_fused_multi.launches += 1
+    return launch, ll
+
+
 def binned_bb_ll_fused_multi(anchor, nme, strides, idx, t, m, observed,
                              bb_i):
     """Beeston-Barlow deviance-form LL at A parameter candidates per toy,
@@ -150,29 +190,14 @@ def binned_bb_ll_fused_multi(anchor, nme, strides, idx, t, m, observed,
       :func:`binned_bb_vgh_fused`.
     :return: (B, A) log likelihoods (without the saturated-model constant).
     """
-    B, A = idx.shape[:2]
-    G, S, N, K = _check_bb(anchor, nme, strides, idx, t, m, observed, bb_i,
-                           (B, A))
     if anchor.device.type == 'cpu':
+        _check_bb(anchor, nme, strides, idx, t, m, observed, bb_i,
+                  tuple(idx.shape[:2]))
         return binned_bb_ll_plain(anchor, nme, strides, idx, t, m, observed,
                                   bb_i)
-    if anchor.device.type != 'cuda':
-        raise ValueError("binned_bb_ll_fused_multi runs on CPU or CUDA "
-                         "tensors, got %s" % anchor.device)
-    fused._check_kernel_inputs(anchor, K, S, (nme, m, observed))
-    totals = anchor_totals(nme)
-    lib = load_library()
-    ids = fused.corner_ids(strides, idx, G).to(torch.int32).contiguous()
-    w = corner_weight_tables(t)[0].contiguous()
-    ll = anchor.new_empty((B, A))
-    with torch.cuda.device(anchor.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.bt_bb_ll_multi(
-            S, K, N, B, A, int(bb_i), anchor.data_ptr(), nme.data_ptr(),
-            totals.data_ptr(), ids.data_ptr(), w.data_ptr(), m.data_ptr(),
-            observed.data_ptr(), ll.data_ptr(), stream)
-    fused._launch_check(code, 'bb value')
-    binned_bb_ll_fused_multi.launches += 1
+    launch, ll = binned_bb_ll_launcher(anchor, nme, strides, idx, t, m,
+                                       observed, bb_i)
+    launch()
     return ll
 
 

@@ -33,6 +33,7 @@ from .binned_vgh import corner_weight_tables
 
 __all__ = ['binned_bblite_vgh_fused', 'binned_bblite_ll_fused_multi',
            'binned_bblite_vgh_plain', 'binned_bblite_ll_plain',
+           'binned_bblite_vgh_launcher', 'binned_bblite_ll_launcher',
            'load_library', 'launch_counts', 'reset_launch_counts']
 
 SOURCE = os.path.join(fused.CSRC_DIR, 'fused_bb_lite.cu')
@@ -61,6 +62,35 @@ def binned_bblite_vgh_plain(anchor, nme, strides, idx, t, m, observed):
     return bblite_vgh_from_corners(anchor[ids], nme[ids], m, t, observed)
 
 
+def binned_bblite_vgh_launcher(anchor, nme, strides, idx, t, m, observed):
+    """The CUDA side of :func:`binned_bblite_vgh_fused`, split in two (see
+    :func:`blueice_tpu_torch.ops.fused.binned_vgh_launcher`): returns
+    ``(launch, (ll, g, H))``."""
+    B = idx.shape[0]
+    G, S, N, K = fused._check_shapes(anchor, strides, idx, t, m, observed,
+                                     (B,), nme=nme)
+    fused._check_cuda(anchor, 'binned_bblite_vgh_fused')
+    fused._check_kernel_inputs(anchor, K, S, (nme, m, observed))
+    lib = load_library()
+    P = S + K
+    ids, w, wd, wx_pairs = fused.vgh_tables(strides, idx, t, G)
+    ll = anchor.new_empty((B,))
+    g = anchor.new_empty((B, P))
+    H = anchor.new_empty((B, P, P))
+
+    def launch():
+        with torch.cuda.device(anchor.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            code = lib.bt_bblite_vgh(
+                S, K, N, B, anchor.data_ptr(), nme.data_ptr(),
+                ids.data_ptr(), w.data_ptr(), wd.data_ptr(),
+                wx_pairs.data_ptr(), m.data_ptr(), observed.data_ptr(),
+                ll.data_ptr(), g.data_ptr(), H.data_ptr(), stream)
+        fused._launch_check(code, 'bb-lite vgh')
+        binned_bblite_vgh_fused.launches += 1
+    return launch, (ll, g, H)
+
+
 def binned_bblite_vgh_fused(anchor, nme, strides, idx, t, m, observed):
     """Barlow-Beeston-lite (ll, g, H) in (m, t) for a batch of toys.
 
@@ -71,32 +101,15 @@ def binned_bblite_vgh_fused(anchor, nme, strides, idx, t, m, observed):
       m: (B, S) rates; observed: (B, N) observed counts.
     :return: (ll (B,), g (B, S+K), H (B, S+K, S+K)).
     """
-    B = idx.shape[0]
-    G, S, N, K = fused._check_shapes(anchor, strides, idx, t, m, observed,
-                                     (B,), nme=nme)
     if anchor.device.type == 'cpu':
+        fused._check_shapes(anchor, strides, idx, t, m, observed,
+                            (idx.shape[0],), nme=nme)
         return binned_bblite_vgh_plain(anchor, nme, strides, idx, t, m,
                                        observed)
-    if anchor.device.type != 'cuda':
-        raise ValueError("binned_bblite_vgh_fused runs on CPU or CUDA "
-                         "tensors, got %s" % anchor.device)
-    fused._check_kernel_inputs(anchor, K, S, (nme, m, observed))
-    lib = load_library()
-    P = S + K
-    ids, w, wd, wx_pairs = fused.vgh_tables(strides, idx, t, G)
-    ll = anchor.new_empty((B,))
-    g = anchor.new_empty((B, P))
-    H = anchor.new_empty((B, P, P))
-    with torch.cuda.device(anchor.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.bt_bblite_vgh(
-            S, K, N, B, anchor.data_ptr(), nme.data_ptr(), ids.data_ptr(),
-            w.data_ptr(), wd.data_ptr(), wx_pairs.data_ptr(), m.data_ptr(),
-            observed.data_ptr(), ll.data_ptr(), g.data_ptr(), H.data_ptr(),
-            stream)
-    fused._launch_check(code, 'bb-lite vgh')
-    binned_bblite_vgh_fused.launches += 1
-    return ll, g, H
+    launch, out = binned_bblite_vgh_launcher(anchor, nme, strides, idx, t, m,
+                                             observed)
+    launch()
+    return out
 
 
 binned_bblite_vgh_fused.launches = 0
@@ -117,6 +130,31 @@ def binned_bblite_ll_plain(anchor, nme, strides, idx, t, m, observed):
     return bblite_ll_from_morphed(P, Mn, m, observed[:, None, :])
 
 
+def binned_bblite_ll_launcher(anchor, nme, strides, idx, t, m, observed):
+    """The CUDA side of :func:`binned_bblite_ll_fused_multi`, split in two:
+    returns ``(launch, ll)``."""
+    B, A = idx.shape[:2]
+    G, S, N, K = fused._check_shapes(anchor, strides, idx, t, m, observed,
+                                     (B, A), nme=nme)
+    fused._check_cuda(anchor, 'binned_bblite_ll_fused_multi')
+    fused._check_kernel_inputs(anchor, K, S, (nme, m, observed))
+    lib = load_library()
+    ids = fused.corner_ids(strides, idx, G).to(torch.int32).contiguous()
+    w = corner_weight_tables(t)[0].contiguous()
+    ll = anchor.new_empty((B, A))
+
+    def launch():
+        with torch.cuda.device(anchor.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            code = lib.bt_bblite_ll_multi(
+                S, K, N, B, A, anchor.data_ptr(), nme.data_ptr(),
+                ids.data_ptr(), w.data_ptr(), m.data_ptr(),
+                observed.data_ptr(), ll.data_ptr(), stream)
+        fused._launch_check(code, 'bb-lite value')
+        binned_bblite_ll_fused_multi.launches += 1
+    return launch, ll
+
+
 def binned_bblite_ll_fused_multi(anchor, nme, strides, idx, t, m, observed):
     """Barlow-Beeston-lite deviance-form LL at A parameter candidates per
     toy, each toy's candidates sharing its dataset.
@@ -126,28 +164,14 @@ def binned_bblite_ll_fused_multi(anchor, nme, strides, idx, t, m, observed):
       :func:`binned_bblite_vgh_fused`.
     :return: (B, A) log likelihoods (without the saturated-model constant).
     """
-    B, A = idx.shape[:2]
-    G, S, N, K = fused._check_shapes(anchor, strides, idx, t, m, observed,
-                                     (B, A), nme=nme)
     if anchor.device.type == 'cpu':
+        fused._check_shapes(anchor, strides, idx, t, m, observed,
+                            tuple(idx.shape[:2]), nme=nme)
         return binned_bblite_ll_plain(anchor, nme, strides, idx, t, m,
                                       observed)
-    if anchor.device.type != 'cuda':
-        raise ValueError("binned_bblite_ll_fused_multi runs on CPU or CUDA "
-                         "tensors, got %s" % anchor.device)
-    fused._check_kernel_inputs(anchor, K, S, (nme, m, observed))
-    lib = load_library()
-    ids = fused.corner_ids(strides, idx, G).to(torch.int32).contiguous()
-    w = corner_weight_tables(t)[0].contiguous()
-    ll = anchor.new_empty((B, A))
-    with torch.cuda.device(anchor.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.bt_bblite_ll_multi(
-            S, K, N, B, A, anchor.data_ptr(), nme.data_ptr(), ids.data_ptr(),
-            w.data_ptr(), m.data_ptr(), observed.data_ptr(), ll.data_ptr(),
-            stream)
-    fused._launch_check(code, 'bb-lite value')
-    binned_bblite_ll_fused_multi.launches += 1
+    launch, ll = binned_bblite_ll_launcher(anchor, nme, strides, idx, t, m,
+                                           observed)
+    launch()
     return ll
 
 

@@ -39,7 +39,8 @@ from .binned_vgh import corner_weight_tables
 from .unbinned_vgh import _log_sum, vgh_parts
 
 __all__ = ['unbinned_vgh_fused', 'unbinned_ll_fused_multi',
-           'unbinned_vgh_plain', 'unbinned_ll_plain', 'load_library',
+           'unbinned_vgh_plain', 'unbinned_ll_plain', 'unbinned_vgh_launcher',
+           'unbinned_ll_launcher', 'load_library',
            'launch_counts', 'reset_launch_counts']
 
 SOURCE = os.path.join(fused.CSRC_DIR, 'fused_unbinned.cu')
@@ -90,13 +91,6 @@ def _check_shapes(ps, strides, lanes, idx, t, m, mask, inv_ref, moff, lead):
     return B, G, S, E, K
 
 
-def _check_device(ps, name):
-    if ps.device.type not in ('cpu', 'cuda'):
-        raise ValueError("%s runs on CPU or CUDA tensors, got %s"
-                         % (name, ps.device))
-    return ps.device.type == 'cuda'
-
-
 def unbinned_vgh_plain(ps, strides, lanes, idx, t, m, mask, inv_ref, moff,
                        outlier=0.0):
     """Plain PyTorch version of :func:`unbinned_vgh_fused`: gather each
@@ -107,6 +101,37 @@ def unbinned_vgh_plain(ps, strides, lanes, idx, t, m, mask, inv_ref, moff,
     log_sum, g, H = vgh_parts(corners, m, t, mask[lanes], outlier,
                               inv_ref[lanes])
     return log_sum - moff, g, H
+
+
+def unbinned_vgh_launcher(ps, strides, lanes, idx, t, m, mask, inv_ref, moff,
+                          outlier=0.0):
+    """The CUDA side of :func:`unbinned_vgh_fused`, split in two (see
+    :func:`blueice_tpu_torch.ops.fused.binned_vgh_launcher`): returns
+    ``(launch, (ll, g, H))``."""
+    L = lanes.shape[0]
+    B, G, S, E, K = _check_shapes(ps, strides, lanes, idx, t, m, mask,
+                                  inv_ref, moff, (L,))
+    fused._check_cuda(ps, 'unbinned_vgh_fused')
+    fused._check_kernel_inputs(ps, K, S, (lanes, m, mask, inv_ref, moff))
+    lib = load_library()
+    P = S + K
+    ids, w, wd, wx_pairs = fused.vgh_tables(strides, idx, t, G)
+    ll = ps.new_empty((L,))
+    g = ps.new_empty((L, P))
+    H = ps.new_empty((L, P, P))
+
+    def launch():
+        with torch.cuda.device(ps.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            code = lib.bt_unbinned_vgh(
+                S, K, G, E, L, float(outlier), ps.data_ptr(),
+                lanes.data_ptr(), ids.data_ptr(), w.data_ptr(),
+                wd.data_ptr(), wx_pairs.data_ptr(), m.data_ptr(),
+                mask.data_ptr(), inv_ref.data_ptr(), moff.data_ptr(),
+                ll.data_ptr(), g.data_ptr(), H.data_ptr(), stream)
+        fused._launch_check(code, 'unbinned vgh')
+        unbinned_vgh_fused.launches += 1
+    return launch, (ll, g, H)
 
 
 def unbinned_vgh_fused(ps, strides, lanes, idx, t, m, mask, inv_ref, moff,
@@ -125,30 +150,15 @@ def unbinned_vgh_fused(ps, strides, lanes, idx, t, m, mask, inv_ref, moff,
     :param outlier: density floor of events whose density is not positive.
     :return: (ll (L,), g (L, S+K), H (L, S+K, S+K)).
     """
-    L = lanes.shape[0]
-    B, G, S, E, K = _check_shapes(ps, strides, lanes, idx, t, m, mask,
-                                  inv_ref, moff, (L,))
-    if not _check_device(ps, 'unbinned_vgh_fused'):
+    if ps.device.type == 'cpu':
+        _check_shapes(ps, strides, lanes, idx, t, m, mask, inv_ref, moff,
+                      (lanes.shape[0],))
         return unbinned_vgh_plain(ps, strides, lanes, idx, t, m, mask,
                                   inv_ref, moff, outlier)
-    fused._check_kernel_inputs(ps, K, S, (lanes, m, mask, inv_ref, moff))
-    lib = load_library()
-    P = S + K
-    ids, w, wd, wx_pairs = fused.vgh_tables(strides, idx, t, G)
-    ll = ps.new_empty((L,))
-    g = ps.new_empty((L, P))
-    H = ps.new_empty((L, P, P))
-    with torch.cuda.device(ps.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.bt_unbinned_vgh(
-            S, K, G, E, L, float(outlier), ps.data_ptr(), lanes.data_ptr(),
-            ids.data_ptr(), w.data_ptr(), wd.data_ptr(), wx_pairs.data_ptr(),
-            m.data_ptr(), mask.data_ptr(), inv_ref.data_ptr(),
-            moff.data_ptr(), ll.data_ptr(), g.data_ptr(), H.data_ptr(),
-            stream)
-    fused._launch_check(code, 'unbinned vgh')
-    unbinned_vgh_fused.launches += 1
-    return ll, g, H
+    launch, out = unbinned_vgh_launcher(ps, strides, lanes, idx, t, m, mask,
+                                        inv_ref, moff, outlier)
+    launch()
+    return out
 
 
 unbinned_vgh_fused.launches = 0
@@ -171,6 +181,33 @@ def unbinned_ll_plain(ps, strides, lanes, idx, t, m, mask, inv_ref, moff,
                     inv_ref[lanes][:, None]) - moff
 
 
+def unbinned_ll_launcher(ps, strides, lanes, idx, t, m, mask, inv_ref, moff,
+                         outlier=0.0):
+    """The CUDA side of :func:`unbinned_ll_fused_multi`, split in two:
+    returns ``(launch, ll)``."""
+    L, A = idx.shape[:2]
+    B, G, S, E, K = _check_shapes(ps, strides, lanes, idx, t, m, mask,
+                                  inv_ref, moff, (L, A))
+    fused._check_cuda(ps, 'unbinned_ll_fused_multi')
+    fused._check_kernel_inputs(ps, K, S, (lanes, m, mask, inv_ref, moff))
+    lib = load_library()
+    ids = fused.corner_ids(strides, idx, G).to(torch.int32).contiguous()
+    w = corner_weight_tables(t)[0].contiguous()
+    ll = ps.new_empty((L, A))
+
+    def launch():
+        with torch.cuda.device(ps.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            code = lib.bt_unbinned_ll_multi(
+                S, K, G, E, L, A, float(outlier), ps.data_ptr(),
+                lanes.data_ptr(), ids.data_ptr(), w.data_ptr(),
+                m.data_ptr(), mask.data_ptr(), inv_ref.data_ptr(),
+                moff.data_ptr(), ll.data_ptr(), stream)
+        fused._launch_check(code, 'unbinned value')
+        unbinned_ll_fused_multi.launches += 1
+    return launch, ll
+
+
 def unbinned_ll_fused_multi(ps, strides, lanes, idx, t, m, mask, inv_ref,
                             moff, outlier=0.0):
     """Centered extended LL at A parameter candidates per lane, each lane's
@@ -181,26 +218,14 @@ def unbinned_ll_fused_multi(ps, strides, lanes, idx, t, m, mask, inv_ref,
       :func:`unbinned_vgh_fused`.
     :return: (L, A) log likelihoods.
     """
-    L, A = idx.shape[:2]
-    B, G, S, E, K = _check_shapes(ps, strides, lanes, idx, t, m, mask,
-                                  inv_ref, moff, (L, A))
-    if not _check_device(ps, 'unbinned_ll_fused_multi'):
+    if ps.device.type == 'cpu':
+        _check_shapes(ps, strides, lanes, idx, t, m, mask, inv_ref, moff,
+                      tuple(idx.shape[:2]))
         return unbinned_ll_plain(ps, strides, lanes, idx, t, m, mask,
                                  inv_ref, moff, outlier)
-    fused._check_kernel_inputs(ps, K, S, (lanes, m, mask, inv_ref, moff))
-    lib = load_library()
-    ids = fused.corner_ids(strides, idx, G).to(torch.int32).contiguous()
-    w = corner_weight_tables(t)[0].contiguous()
-    ll = ps.new_empty((L, A))
-    with torch.cuda.device(ps.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.bt_unbinned_ll_multi(
-            S, K, G, E, L, A, float(outlier), ps.data_ptr(),
-            lanes.data_ptr(), ids.data_ptr(), w.data_ptr(), m.data_ptr(),
-            mask.data_ptr(), inv_ref.data_ptr(), moff.data_ptr(),
-            ll.data_ptr(), stream)
-    fused._launch_check(code, 'unbinned value')
-    unbinned_ll_fused_multi.launches += 1
+    launch, ll = unbinned_ll_launcher(ps, strides, lanes, idx, t, m, mask,
+                                      inv_ref, moff, outlier)
+    launch()
     return ll
 
 

@@ -25,12 +25,16 @@ For each path:
 
 1. its two kernels vs their plain PyTorch versions on the card (ll relative
    1e-5; g and H within 1e-4 of each toy's largest entry), with warm times
-   (median of 20, CUDA events) beside the least time the card could take
-   for the same work (``bound_ms``: bytes over 3.35 TB/s or float32
-   operations over 67 TFLOP/s, whichever is larger, counted from this
-   run's inputs, see ``work``). Binned paths at the XENON shape (512 toys;
-   the value kernel at A = 12 and 20); unbinned paths on the study's own
-   scored event tensors (all toys of the path, A = 12 and 20);
+   (CUDA events) of a whole wrapper call (``ms``, median of 20) and of the
+   kernel alone (``kernel_ms``: the wrapper's tables built once, then 20
+   launches back to back between two events, median of 5 windows) beside
+   the least time the card could take for the same work (``bound_ms``:
+   bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s, whichever is
+   larger, counted from this run's inputs, see
+   ``blueice_tpu_torch.utils.roofline.work``). Binned paths at the XENON
+   shape (512 toys; the value kernel at A = 12 and 20); unbinned paths on
+   the study's own scored event tensors (all toys of the path, A = 12 and
+   20);
 2. the path itself, twice (seeds 0 and 1), with every launch counter set
    to 0 just before and read just after: the path's own two kernels must
    have launched, the others not; the profile statistic is checked against
@@ -39,6 +43,17 @@ For each path:
 3. the same toys (counts, or event sets) fitted on CUDA in float32 and on
    the CPU in float64 (plain versions): max |d max_ll| <= 0.05, median
    |d t| <= 0.01.
+
+Then the roofline part (``blueice_tpu_torch.utils.roofline``):
+
+4. the op-mix kernel (``csrc/op_mix.cu``) vs its plain version for each mix
+   (fma, bb, bblite, poisson), one loop trip at the mix's check nudge
+   (``MIXES``), within 1e-5 of the float64 scale of each element's terms
+   (``op_mix_scale``), over the elements that fill the card;
+5. the op-mix ceilings (``op_mix_record``) with every launch counter set to
+   0 just before and read just after: the op-mix kernel must have launched,
+   no fit kernel; then the vgh kernels' roofline verdicts
+   (``roofline_record``), printed as a table.
 
 It takes no options; ``measure_unbinned.py`` holds the torch.profiler
 account and the engine A/B of the unbinned paths.
@@ -51,6 +66,7 @@ with code 2 before doing anything. The last line of standard output is
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -62,8 +78,6 @@ KERNEL_TOYS = 512
 TIMED_RUNS = 20
 CSRC = 'blueice_tpu_torch/csrc/'
 TPU = 'blueice_tpu/ops/'
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
-FP32_FLOPS = 67e12               # float32 outside the tensor cores
 
 # label: (model, target, toys of the main path, toys compared between
 # float32 and float64, band of the median t)
@@ -109,13 +123,6 @@ def log(*args):
     print(*args, flush=True)
 
 
-def card_line():
-    out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'], capture_output=True,
-                         text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
 def cuda_ms(fn, runs=TIMED_RUNS, warmup=3):
     """Median warm time of fn() in ms, CUDA events around each call."""
     for _ in range(warmup):
@@ -142,7 +149,8 @@ def rel_to_toy_max(a, b):
 def ptxas_report(lib_paths):
     """The -Xptxas -v lines (registers, spills) of the instantiations the
     paths run: S = 6, K = 4 (XENON) and S = 2, K = 1 (Gaussian unbinned),
-    from the logs kept beside the libraries."""
+    and of the four op-mix kernels, from the logs kept beside the
+    libraries."""
     lines = []
     for path in lib_paths:
         with open(path[:-3] + '.log') as f:
@@ -150,69 +158,51 @@ def ptxas_report(lib_paths):
         for entry in text.split("Compiling entry function '")[1:]:
             name = entry.split("'", 1)[0]
             shape = re.search(r'([a-z_]+_kernel)ILi(\d)ELi(\d)E', name)
-            if not shape or shape.group(2, 3) not in (('6', '4'), ('2', '1')):
-                continue
-            if shape.group(2, 3) == ('2', '1') and 'unbinned' not in path:
+            mix = re.search(r'(op_mix_kernel)ILi(\d)E', name)
+            if mix:
+                label = '%s<%s>' % mix.groups()
+            elif shape and (shape.group(2, 3) == ('6', '4') or (
+                    shape.group(2, 3) == ('2', '1') and 'unbinned' in path)):
+                label = '%s<%s,%s>' % shape.groups()
+            else:
                 continue
             spills = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill '
                                r'loads', entry)
             regs = re.search(r'Used (\d+) registers', entry)
-            lines.append('%s<%s,%s>: %s registers, spill stores/loads %s/%s B'
-                         % (shape.group(1), shape.group(2), shape.group(3),
-                            regs.group(1) if regs else '?',
+            lines.append('%s: %s registers, spill stores/loads %s/%s B'
+                         % (label, regs.group(1) if regs else '?',
                             *(spills.groups() if spills else ('?', '?'))))
     return lines
 
 
+def sass_census(lib_path):
+    """Per op-mix kernel, its SASS instruction count and its FFMA and MUFU
+    instructions (``cuobjdump -sass``), where the toolkit has cuobjdump:
+    the fma kernel's 16-step body over 4 elements must hold at least 64
+    FFMA, or the compiler folded the mix. Returns the report lines."""
+    tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
+    if not os.path.exists(tool):
+        return ['cuobjdump not found: no SASS census']
+    out = subprocess.run([tool, '-sass', lib_path], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    lines = []
+    for block in out.split('Function : ')[1:]:
+        kind = re.search(r'op_mix_kernelILi(\d)E', block.split('\n', 1)[0])
+        if not kind:
+            continue
+        ops = re.findall(r'/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)',
+                         block)
+        ffma = sum(op.startswith('FFMA') for op in ops)
+        mufu = sum(op.startswith('MUFU') for op in ops)
+        lines.append('op_mix_kernel<%s>: %d SASS instructions, %d FFMA, %d '
+                     'MUFU' % (kind.group(1), len(ops), ffma, mufu))
+        if kind.group(1) == '0' and ffma < 64:
+            raise AssertionError("the fma mix compiled to %d FFMA (< 64): "
+                                 "its loop was folded" % ffma)
+    return lines
+
+
 # -- the least time the card could take ---------------------------------------
-
-def work(kind, S, K, lead, row_floats, data_bytes, items, mc_rows=False):
-    """(bytes, float32 operations) that one kernel call must move and do.
-
-    Bytes: each input read once and each output written once: the
-    ``row_floats`` floats of the distinct corner rows the call's toys touch,
-    the ``data_bytes`` of per-toy data (binned: the observed counts;
-    unbinned: the event mask and the valid events' inv_ref), the per-call
-    tables and the outputs. Operations: per bin or event (``items``, summed
-    over the call's toys and candidates; unbinned, the valid events only,
-    as the others add nothing) the corner combination (2 flops per FMA),
-    the rate sum and the g / H accumulation, as counted in the kernel
-    sources; the logarithm, division and Beeston-Barlow root are not
-    counted, so this is a lower bound.
-
-    :param kind: 'vgh' or 'value'; lead: (B,) or (B, A).
-    :param mc_rows: each corner also combines an MC-count row (bb, bb-lite).
-    """
-    C = 2 ** K
-    NP = K * (K - 1) // 2
-    P = S + K
-    NH = P * (P + 1) // 2
-    R = S + (1 if mc_rows else 0)          # rows combined per corner
-    B = lead[0]
-    calls = int(np.prod(lead))
-    if kind == 'vgh':
-        per = C * R * (2 + 2 * K + (1 + 2 * NP if NP else 0))
-        per += 2 * S * (1 + K) + 2 * P + 2 * NH + P + 2 * S * K + 2 * NP
-        tables = calls * (C * (1 + K + NP) + S) * 4
-        out = B * (1 + P + P * P) * 4
-    else:
-        per = C * R * 2 + 2 * S
-        tables = calls * (2 * C + S) * 4
-        out = calls * 4
-    return row_floats * 4 + data_bytes + tables + out, float(per) * items
-
-
-def bound(bytes_, flops):
-    t_mem = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
-    return (t_mem, 'bytes') if t_mem >= t_ops else (t_ops, 'operations')
-
-
-def distinct_rows(ids):
-    """Distinct anchor ids a binned call reads (one anchor tensor shared by
-    every toy)."""
-    return int(ids.unique().numel())
-
 
 def row_events(ids, events):
     """Events of the distinct corner rows an unbinned call reads: each
@@ -250,28 +240,34 @@ def build_model(label, xenon_like, test_helpers, likelihood):
 
 
 def binned_ops(label, compiled, mods):
-    """(vgh kernel, vgh plain, value kernel, value plain) of a binned path,
-    each called as f(anchor, strides, idx, t, m, observed), and the number
-    of MC-count rows per corner its kernels also read."""
+    """(vgh kernel, vgh plain, vgh launcher, value kernel, value plain,
+    value launcher) of a binned path, each called as f(anchor, strides,
+    idx, t, m, observed), and the number of MC-count rows per corner its
+    kernels also read."""
     fused, fused_bb, fused_bb_lite = mods['fused'], mods['fused_bb'], \
         mods['fused_bb_lite']
     if label == 'xenon':
         return (fused.binned_vgh_fused, fused.binned_vgh_plain,
-                fused.binned_ll_fused_multi, fused.binned_ll_plain), 0
+                fused.binned_vgh_launcher, fused.binned_ll_fused_multi,
+                fused.binned_ll_plain, fused.binned_ll_launcher), 0
     S = len(compiled.rate_names)
     G = compiled.mus_tensor.numel() // S
     nme = compiled.nme_tensor_host.reshape(G, S, -1)
     if label == 'bb':
         rows = nme[:, compiled.bb_source_i]
         fns = (fused_bb.binned_bb_vgh_fused, fused_bb.binned_bb_vgh_plain,
-               fused_bb.binned_bb_ll_fused_multi, fused_bb.binned_bb_ll_plain)
+               fused_bb.binned_bb_vgh_launcher,
+               fused_bb.binned_bb_ll_fused_multi, fused_bb.binned_bb_ll_plain,
+               fused_bb.binned_bb_ll_launcher)
         extra = (compiled.bb_source_i,)
     else:
         rows = nme.sum(axis=1)
         fns = (fused_bb_lite.binned_bblite_vgh_fused,
                fused_bb_lite.binned_bblite_vgh_plain,
+               fused_bb_lite.binned_bblite_vgh_launcher,
                fused_bb_lite.binned_bblite_ll_fused_multi,
-               fused_bb_lite.binned_bblite_ll_plain)
+               fused_bb_lite.binned_bblite_ll_plain,
+               fused_bb_lite.binned_bblite_ll_launcher)
         extra = ()
     rows = torch.as_tensor(rows, dtype=torch.float32,
                            device=compiled.device).contiguous()
@@ -356,8 +352,11 @@ def term_scale(ps, strides, lanes, idx, t, m, mask, inv_ref, moff, outlier):
 
 
 def kernel_rows(label, study, mods):
-    """Phase 1: each kernel of the path against its plain version, timed,
-    beside its bound. Returns the path's two kernel rows."""
+    """Phase 1: each kernel of the path against its plain version, timed
+    (a whole wrapper call, and the kernel alone), beside its bound. Returns
+    the path's two kernel rows."""
+    from blueice_tpu_torch.utils.roofline import (bound, distinct_rows,
+                                                  launch_elapsed_s, work)
     compiled = study.compiled
     K = len(compiled.shape_names)
     S = len(compiled.rate_names)
@@ -397,7 +396,8 @@ def kernel_rows(label, study, mods):
                         data_bytes=mask.numel() + 4 * int(valid.sum()),
                         items=per_lane * int(valid.sum()))
         fns = (fu.unbinned_vgh_fused, fu.unbinned_vgh_plain,
-               fu.unbinned_ll_fused_multi, fu.unbinned_ll_plain)
+               fu.unbinned_vgh_launcher, fu.unbinned_ll_fused_multi,
+               fu.unbinned_ll_plain, fu.unbinned_ll_launcher)
         shape = 'B=%d E=%d (%.1f valid events a toy)' % (
             B, n, float(valid.double().mean()))
     else:
@@ -426,7 +426,10 @@ def kernel_rows(label, study, mods):
                  replaces=TPU + rep, also_replaces=TPU + alt,
                  library_ms=None)
             for w, src, rep, alt in META[label]]
-    vgh, vgh_plain, value, value_plain = fns
+    vgh, vgh_plain, vgh_launcher, value, value_plain, value_launcher = fns
+
+    def kernel_ms(launcher, idx, t, m):
+        return 1e3 * launch_elapsed_s(call(launcher, idx, t, m)[0])
 
     idx, t, m = random_point(compiled, rng, (B,))
     out, ref = call(vgh, idx, t, m), call(vgh_plain, idx, t, m)
@@ -434,16 +437,18 @@ def kernel_rows(label, study, mods):
     abs_err, rel, detail = check_pair(label, 'vgh kernel', out, ref,
                                       ll_scale(idx, t, m, ref[0]))
     ms = cuda_ms(lambda: call(vgh, idx, t, m))
+    alone_ms = kernel_ms(vgh_launcher, idx, t, m)
     plain_ms = cuda_ms(lambda: call(vgh_plain, idx, t, m))
     ids = fused.corner_ids(strides, idx, G)
     nbytes, flops = work('vgh', S, K, (B,), **costs(ids, (B,)))
     bound_ms, bound_by = bound(nbytes, flops)
-    log("%s vgh kernel   %s: %s; %.4f ms vs plain %.4f ms; bound %.4f ms "
-        "(%s: %.1f MB, %.3f GFLOP)" % (label, shape, detail, ms, plain_ms,
-                                       bound_ms, bound_by, nbytes / 1e6,
-                                       flops / 1e9))
+    log("%s vgh kernel   %s: %s; wrapper %.4f ms, kernel alone %.4f ms vs "
+        "plain %.4f ms; bound %.4f ms (%s: %.1f MB, %.3f GFLOP)"
+        % (label, shape, detail, ms, alone_ms, plain_ms, bound_ms, bound_by,
+           nbytes / 1e6, flops / 1e9))
     rows = [dict(meta[0], max_abs_err=abs_err, max_rel_err=rel, ms=ms,
-                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)]
+                 kernel_ms=alone_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                 bound_by=bound_by)]
 
     row = dict(meta[1], max_abs_err=0.0, max_rel_err=0.0)
     for A in (12, 20):
@@ -453,18 +458,20 @@ def kernel_rows(label, study, mods):
         abs_err, rel, detail = check_pair(label, 'value kernel (A=%d)' % A,
                                           out, ref, ll_scale(idx, t, m, ref))
         ms = cuda_ms(lambda: call(value, idx, t, m))
+        alone_ms = kernel_ms(value_launcher, idx, t, m)
         plain_ms = cuda_ms(lambda: call(value_plain, idx, t, m))
         ids = fused.corner_ids(strides, idx, G)
         nbytes, flops = work('value', S, K, (B, A), **costs(ids, (B, A)))
         bound_ms, bound_by = bound(nbytes, flops)
-        log("%s value kernel %s A=%d: %s; %.4f ms vs plain %.4f ms; bound "
-            "%.4f ms (%s: %.1f MB, %.3f GFLOP)"
-            % (label, shape, A, detail, ms, plain_ms, bound_ms, bound_by,
-               nbytes / 1e6, flops / 1e9))
+        log("%s value kernel %s A=%d: %s; wrapper %.4f ms, kernel alone "
+            "%.4f ms vs plain %.4f ms; bound %.4f ms (%s: %.1f MB, %.3f "
+            "GFLOP)" % (label, shape, A, detail, ms, alone_ms, plain_ms,
+                        bound_ms, bound_by, nbytes / 1e6, flops / 1e9))
         row['max_abs_err'] = max(row['max_abs_err'], abs_err)
         row['max_rel_err'] = max(row['max_rel_err'], rel)
         suffix = '' if A == 12 else '_A%d' % A
-        row.update({'ms' + suffix: ms, 'plain_ms' + suffix: plain_ms,
+        row.update({'ms' + suffix: ms, 'kernel_ms' + suffix: alone_ms,
+                    'plain_ms' + suffix: plain_ms,
                     'bound_ms' + suffix: bound_ms,
                     'bound_by' + suffix: bound_by})
     rows.append(row)
@@ -584,6 +591,87 @@ def run_path(label, mods, api):
     return rows
 
 
+def roofline_part(mods):
+    """Parts 4 and 5: the op-mix kernel against its plain version, the
+    op-mix ceilings between reset and read of every counter, and the vgh
+    kernels' roofline verdicts. Returns the op-mix kernel rows (row 17)."""
+    roofline = mods['roofline']
+    rows = []
+    for kind, mix in roofline.MIXES.items():
+        x, aux = roofline.op_mix_inputs(kind, roofline.op_mix_elements(kind))
+        out = roofline.op_mix(kind, x, aux, 1, mix.check_eps)
+        ref = roofline.op_mix_plain(kind, x, aux, 1, mix.unroll,
+                                    mix.check_eps)
+        torch.cuda.synchronize()
+        scale = roofline.op_mix_scale(kind, x, aux, 1, mix.unroll,
+                                      mix.check_eps)
+        rel = float(((out.double() - ref.double()).abs() / scale).max())
+        if not (rel <= 1e-5 and bool(torch.isfinite(out).all())):
+            raise AssertionError("op mix %s disagrees with its plain version: "
+                                 "%.3g of its terms' scale" % (kind, rel))
+        log("roofline op-mix kernel %s, %d elements, one trip (%d steps) at "
+            "eps %g: err %.3g of its terms' scale" % (
+                kind, x.numel(), mix.unroll, mix.check_eps, rel))
+        rows.append(dict(name='op_mix:%s' % kind, path='roofline',
+                         route='cuda', source=CSRC + 'op_mix.cu',
+                         replaces='blueice_tpu/utils/roofline.py:338',
+                         library_ms=None,
+                         max_abs_err=float((out - ref).abs().max()),
+                         max_rel_err=rel))
+
+    for module in mods.values():
+        module.reset_launch_counts()
+    record = roofline.op_mix_record()
+    launches = {}
+    for module in mods.values():
+        launches.update(module.launch_counts())
+    log("roofline kernel launches in the op-mix part: %s" % launches)
+    if launches.pop('op_mix') != sum(
+            d['launches'] for d in record['detail'].values()) or not all(
+            d['launches'] > 0 for d in record['detail'].values()):
+        raise AssertionError("roofline: the op-mix launch counter did not "
+                             "count the op-mix part's launches")
+    if any(launches.values()):
+        raise AssertionError("roofline: a fit kernel launched in the op-mix "
+                             "part")
+
+    for row, (kind, mix) in zip(rows, roofline.MIXES.items()):
+        d = record['detail'][kind]
+        x, aux = roofline.op_mix_inputs(kind, d['elements'])
+        plain_ms = cuda_ms(lambda: roofline.op_mix_plain(
+            kind, x, aux, d['reps'], mix.unroll, d['eps']), runs=1, warmup=0)
+        flops = float(mix.charge * mix.unroll * d['elements'] * d['reps'])
+        nbytes = 4 * d['elements'] * (2 + mix.n_aux)
+        bound_ms, bound_by = roofline.bound(nbytes, flops)
+        row.update(launches=d['launches'], ms=1e3 * d['t_single_s'],
+                   ms_double=1e3 * d['t_double_s'], plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   gflops=d['gflops_achieved'],
+                   frac_of_fp32=d['frac_of_nominal_fp32'], reps=d['reps'],
+                   elements=d['elements'], threads=d['threads'])
+        log("roofline op mix %-7s %d elements (%d blocks of 256 threads, %d "
+            "each), %d trips x %d steps: t(r) %.4f ms, t(2r) %.4f ms, %.1f "
+            "GFLOP/s charged, %.4f of the fp32 peak; bound %.4f ms (%s: "
+            "%.3f GFLOP, %.1f MB); plain %.1f ms; %d launches"
+            % (kind, d['elements'], d['grid'], d['V'], d['reps'], mix.unroll,
+               row['ms'], row['ms_double'], d['gflops_achieved'],
+               d['frac_of_nominal_fp32'], bound_ms, bound_by, flops / 1e9,
+               nbytes / 1e6, plain_ms, d['launches']))
+    log("roofline op-mix record: %s" % json.dumps(
+        {k: v for k, v in record.items() if k != 'detail'}))
+
+    verdicts = roofline.roofline_record()['kernels']
+    for line in roofline.format_report(verdicts).splitlines():
+        log("roofline " + line)
+    for v in verdicts:
+        log("roofline %s: kernel alone %.4f ms, wrapper %.4f ms, bound %.4f "
+            "ms (%s), %.4f of the fp32 peak, %.4f of HBM" % (
+                v['kernel'], 1e3 * v['elapsed_s'], 1e3 * v['dispatch_s'],
+                1e3 * max(v['t_compute_s'], v['t_hbm_s']), v['binding'],
+                v['frac_of_compute_roof'], v['frac_of_hbm_roof']))
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -594,17 +682,17 @@ def main():
     from blueice_tpu_torch.ops import (fused, fused_bb, fused_bb_lite,
                                        fused_unbinned)
     from blueice_tpu_torch.parallel import BinnedToyStudy, UnbinnedToyStudy
-    from blueice_tpu_torch.utils import set_progress
+    from blueice_tpu_torch.utils import roofline, set_progress
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     set_progress(False)
-    log(card_line())
+    log(roofline.card_line())
     log("torch %s, CUDA %s, device %s" % (torch.__version__,
                                           torch.version.cuda,
                                           torch.cuda.get_device_name(0)))
     mods = dict(fused=fused, fused_bb=fused_bb, fused_bb_lite=fused_bb_lite,
-                fused_unbinned=fused_unbinned)
+                fused_unbinned=fused_unbinned, roofline=roofline)
     api = dict(xenon_like=xenon_like, test_helpers=test_helpers,
                likelihood=likelihood, BinnedToyStudy=BinnedToyStudy,
                UnbinnedToyStudy=UnbinnedToyStudy)
@@ -616,12 +704,17 @@ def main():
         % (len(libs), time.time() - t0))
     for line in ptxas_report(libs):
         log("ptxas " + line)
+    for line in sass_census(dict(zip(mods, libs))['roofline']):
+        log("sass " + line)
 
     rows = []
     for label in PATHS:
         rows += run_path(label, mods, api)
+    t0 = time.time()
+    rows += roofline_part(mods)
+    log("roofline part: %.1f s" % (time.time() - t0))
 
-    log(card_line())
+    log(roofline.card_line())
     print(json.dumps({'kernels': rows}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

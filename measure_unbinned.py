@@ -29,7 +29,7 @@ import time
 import numpy as np
 import torch
 
-from chip_smoke import PATHS, build_model, card_line, log
+from chip_smoke import PATHS, build_model, log
 
 UNBINNED = ('unbinned_xenon', 'unbinned')
 AB_ORDER = ('fused', 'analytic', 'analytic', 'fused', 'fused', 'analytic')
@@ -109,6 +109,7 @@ def main():
     from blueice_tpu_torch.ops import fused_unbinned
     from blueice_tpu_torch.parallel import UnbinnedToyStudy
     from blueice_tpu_torch.utils import set_progress
+    from blueice_tpu_torch.utils.roofline import card_line
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (the binned, Beeston-Barlow, bb-lite and
-unbinned contracts) against their plain PyTorch versions on the card.
+unbinned contracts, and the op-mix probe) against their plain PyTorch
+versions on the card.
 
 These need an NVIDIA GPU (a CUDA kernel has no CPU mode): they carry the
 ``cuda`` marker and skip where ``torch.cuda.is_available()`` is false. On a
@@ -7,7 +8,8 @@ GPU machine: ``python -m pytest tests/test_torch_cuda.py -m cuda``. This
 file imports no jax, so it runs where JAX is not installed.
 
 Tolerances (float32 on the card, different summation orders): ll relative
-1e-5; g and H within 1e-4 of each toy's largest entry.
+1e-5; g and H within 1e-4 of each toy's largest entry; op mixes within 1e-5
+of each element's term scale (``roofline.op_mix_scale``).
 """
 
 import numpy as np
@@ -15,6 +17,7 @@ import pytest
 import torch
 
 from blueice_tpu_torch.ops import fused, fused_bb, fused_bb_lite, fused_unbinned
+from blueice_tpu_torch.utils import roofline
 
 S, N, B, A = 3, 300, 16, 7
 BB_I = 1
@@ -267,3 +270,52 @@ def test_unbinned_kernels_refuse_bad_inputs(cuda_device):
     bad[0] = ll[0].transpose(2, 3).contiguous().transpose(2, 3)
     with pytest.raises(ValueError, match='contiguous'):
         fused_unbinned.unbinned_ll_fused_multi(*bad)
+
+
+# The op-mix probe: a ragged element count (three full blocks and a partial
+# one) checks the masked edge
+MIX_N = 256 * 4 * 3 + 17
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reps", [1, 3])
+@pytest.mark.parametrize("kind", sorted(roofline.MIXES))
+def test_op_mix_kernel_matches_plain(cuda_device, kind, reps):
+    mix = roofline.MIXES[kind]
+    x, aux = roofline.op_mix_inputs(kind, MIX_N, device=cuda_device)
+    roofline.reset_launch_counts()
+    out = roofline.op_mix(kind, x, aux, reps, mix.check_eps)
+    ref = roofline.op_mix_plain(kind, x, aux, reps, mix.unroll, mix.check_eps)
+    torch.cuda.synchronize()
+    assert roofline.launch_counts()['op_mix'] == 1
+    assert torch.isfinite(out).all()
+    scale = roofline.op_mix_scale(kind, x, aux, reps, mix.unroll,
+                                  mix.check_eps)
+    assert float(((out.double() - ref.double()).abs() / scale).max()) <= 1e-5
+    # the timing nudge leaves the values where they were
+    if kind != 'fma':
+        assert torch.equal(roofline.op_mix(kind, x, aux, reps, 1e-30), x)
+
+
+@pytest.mark.cuda
+def test_op_mix_refuses_bad_inputs(cuda_device):
+    x, aux = roofline.op_mix_inputs('bblite', MIX_N, device=cuda_device)
+    with pytest.raises(TypeError):
+        roofline.op_mix('bblite', x.double(), [a.double() for a in aux], 1,
+                        1.0)
+    strided = torch.stack([x, x], dim=1)[:, 0]
+    with pytest.raises(ValueError, match='contiguous'):
+        roofline.op_mix('bblite', strided, aux, 1, 1.0)
+    with pytest.raises(ValueError, match='aux'):
+        roofline.op_mix('bblite', x.cpu(), aux, 1, 1.0)
+    with pytest.raises(ValueError, match='unknown op mix'):
+        roofline.op_mix('exp', x, aux, 1, 1.0)
+
+
+@pytest.mark.cuda
+def test_measure_binned_kernel_times_the_kernel_alone(cuda_device):
+    v = roofline.measure_binned_kernel(G=4, S=2, N=128, K=2, B=8)
+    assert 0 < v['elapsed_s'] < v['dispatch_s']
+    assert v['binding'] in ('compute', 'hbm')
+    assert v['kernel'] == 'binned_vgh_fused(G=4,S=2,N=128,K=2)'
+    assert roofline.format_report([v]).count('\n') == 1

@@ -35,7 +35,8 @@ def test_imports_without_jax():
     modules = _modules()
     assert {'blueice_tpu_torch.ops.fused', 'blueice_tpu_torch.ops.fused_unbinned',
             'blueice_tpu_torch.ops.unbinned_vgh',
-            'blueice_tpu_torch.test_helpers'} <= set(modules)
+            'blueice_tpu_torch.test_helpers',
+            'blueice_tpu_torch.utils.roofline'} <= set(modules)
     code = textwrap.dedent("""
         import importlib, sys
         sys.modules['jax'] = None
