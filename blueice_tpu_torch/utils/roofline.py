@@ -43,7 +43,7 @@ __all__ = ['PEAKS', 'binned_vgh_cost', 'bb_vgh_cost', 'bblite_vgh_cost',
            'op_mix_plain', 'op_mix_scale', 'op_mix_inputs',
            'op_mix_elements', 'measure_op_mix', 'format_report',
            'roofline_record', 'op_mix_record', 'load_library',
-           'launch_counts', 'reset_launch_counts']
+           'launch_counts', 'reset_launch_counts', 'row_events']
 
 PEAKS = {
     'h100-sxm': dict(hbm_gbps=3.35e12, fp32=67e12, tf32_tc=495e12,
@@ -54,8 +54,17 @@ PEAKS = {
 }
 
 SOURCE = os.path.join(fused.CSRC_DIR, 'op_mix.cu')
-#: Launches between the two CUDA events of :func:`launch_elapsed_s`
+#: Launches in the CUDA graph that :func:`launch_elapsed_s` replays
 N_INNER = 20
+#: Timed runs (CUDA-event windows) a measurement takes the median of
+RUNS = 5
+#: The op-mix nudge when timing: below float32 resolution, so the values
+#: stay put, yet a runtime value the compiler cannot fold
+TIMING_EPS = 1e-30
+#: The least time of one op-mix launch at the ``reps`` it is timed at (s)
+TARGET_S = 0.01
+#: The reference's op-mix block, which the probe's inputs tile
+BLOCK = (64, 512)
 
 
 def _pairs(K):
@@ -243,12 +252,13 @@ def _require_cuda(what):
                            % what)
 
 
-def _event_s(fn, runs=5, warmup=2):
-    """Median seconds of fn(), CUDA events around each call."""
+def _event_s(fn, warmup=2):
+    """Median seconds of fn() over :data:`RUNS` calls, CUDA events around
+    each call."""
     for _ in range(warmup):
         fn()
     times = []
-    for _ in range(runs):
+    for _ in range(RUNS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -259,25 +269,22 @@ def _event_s(fn, runs=5, warmup=2):
     return float(np.median(times))
 
 
-def launch_elapsed_s(launch, n_inner=N_INNER, repeats=5):
+def launch_elapsed_s(launch, n_inner=N_INNER):
     """Seconds per launch of a kernel alone: ``n_inner`` calls of
     ``launch()`` (a launch on prepared tables and outputs, see the
-    ``*_launcher`` functions of the ops modules) back to back on the current
-    stream between two CUDA events, the window over ``n_inner``; the median
-    of ``repeats`` windows. The launches queue faster than the fit kernels
-    run, so the window holds device time."""
-    launch()
-    times = []
-    for _ in range(repeats):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    ``*_launcher`` functions of the ops modules) captured once in a CUDA
+    graph, whose replay runs them back to back with no host work between
+    them; the median over :data:`RUNS` replays of the replay's CUDA-event
+    window over ``n_inner``. (Python launches between two events would time
+    the host's launch rate for a kernel under ~30 us.) The capture adds
+    ``n_inner`` to the wrapper's launch count; the replays add nothing."""
+    launch()                    # loads the kernel before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
         for _ in range(n_inner):
             launch()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / 1e3 / n_inner)
-    return float(np.median(times))
+    return _event_s(graph.replay, warmup=1) / n_inner
 
 
 # -- the verdict ------------------------------------------------------------
@@ -397,37 +404,58 @@ def measure_bblite_kernel(G=81, S=6, N=3200, K=3, B=256, chip='h100-sxm',
                     _anchor_bytes(strides, idx, G, N, S + 1))
 
 
+def row_events(ids, events):
+    """Events of the distinct corner rows an unbinned call reads: each
+    (lane, anchor id) pair is a row of that lane's own toy, of which only
+    the lane's ``events`` (L,) valid events are needed."""
+    ids = ids.reshape(ids.shape[0], -1)
+    G = int(ids.max()) + 1
+    lane = torch.arange(ids.shape[0], device=ids.device)
+    pairs = (lane[:, None] * G + ids).unique()
+    return int(events[pairs // G].sum())
+
+
 def measure_unbinned_kernel(G=3, S=2, E=2304, K=1, B=256, chip='h100-sxm',
                             n_inner=None):
     """As :func:`measure_binned_kernel`, for ``unbinned_vgh_fused`` on
-    per-toy densities (B, G, S, E), every event valid, uncentered (inv_ref
-    ones, the rate term sum m)."""
+    per-toy densities (B, G, S, E) over a K-dimensional grid of G^(1/K)
+    anchors an axis (its true strides, random lower corners, as the
+    reference's ``measure_unbinned_jnp`` builds them), every event valid,
+    uncentered (inv_ref ones, the rate term sum m).
+
+    The reference's per-toy bytes stream all G anchor rows of a toy (its
+    dense engine did); this kernel gathers each toy's corner rows, so the
+    verdict counts the distinct (toy, corner row) pairs the call reads
+    (``call_bytes``) in place of the G rows."""
     _require_cuda('measure_unbinned_kernel')
     from ..ops import fused_unbinned
+    g = max(2, int(round(G ** (1 / K)))) if K else 1
+    if K and g ** K != G:
+        raise ValueError("G=%d is not a K=%d-dim grid" % (G, K))
+    strides = tuple(g ** (K - 1 - d) for d in range(K))
     rng = np.random.default_rng(2)
     dev = torch.device('cuda')
 
     def f32(x):
         return torch.as_tensor(x, dtype=torch.float32, device=dev)
     ps = f32(rng.uniform(0.001, 0.4, (B, G, S, E)))
-    idx = torch.zeros((B, K), dtype=torch.int64, device=dev)
     t = f32(rng.uniform(0, 1, (B, K)))
     m = f32(rng.uniform(100, 2000, (B, S)))
+    idx = torch.as_tensor(rng.integers(0, max(g - 1, 1), (B, K)), device=dev)
     mask = torch.ones((B, E), dtype=torch.bool, device=dev)
-    strides = tuple(1 for _ in range(K))
     lanes = torch.arange(B, device=dev)
     inv_ref = torch.ones((B, E), dtype=torch.float32, device=dev)
     args = (ps, strides, lanes, idx, t, m, mask, inv_ref,
             m.sum(-1).contiguous())
-    v = _measure(fused_unbinned.unbinned_vgh_fused,
-                 fused_unbinned.unbinned_vgh_launcher, args,
-                 unbinned_vgh_cost(G, S, E, K), B, chip, n_inner,
-                 'unbinned_vgh_fused(G=%d,S=%d,E=%d,K=%d)' % (G, S, E, K))
-    if G > 2 ** K:
-        v['note'] = ('the per-toy bytes count all G anchor rows (the '
-                     'reference streams them); the kernel reads the 2^K '
-                     'corner rows, so frac_of_hbm_roof may exceed 1')
-    return v
+    cost = unbinned_vgh_cost(G, S, E, K)
+    cost['hbm_bytes'] -= 4 * G * S * E
+    rows = row_events(fused.corner_ids(strides, idx, G),
+                      torch.full((B,), E, device=dev))
+    return _measure(fused_unbinned.unbinned_vgh_fused,
+                    fused_unbinned.unbinned_vgh_launcher, args, cost, B, chip,
+                    n_inner,
+                    'unbinned_vgh_fused(G=%d,S=%d,E=%d,K=%d)' % (G, S, E, K),
+                    4.0 * S * rows)
 
 
 def measure_unbinned_jnp(G=81, S=6, E=2048, K=4, B=64, chip='h100-sxm',
@@ -444,13 +472,13 @@ def measure_unbinned_jnp(G=81, S=6, E=2048, K=4, B=64, chip='h100-sxm',
 
 Mix = collections.namedtuple('Mix', 'id unroll charge n_aux check_eps')
 #: kind -> its id in op_mix.cu, unroll, the flops the reference's cost
-#: models charge per element-step, the aux arrays it reads, and the largest
-#: nudge at which its chain on :func:`op_mix_inputs` stays in its domain for
-#: two loop trips (the bb-lite chain drives lam below 0 at 1e-2 and its
-#: penalty branch then overflows to NaN, in float64 as in float32), used to
-#: hold the kernel to the plain version with the mix's terms in the output.
+#: models charge per element-step, the aux arrays it reads, and the nudge
+#: at which the kernel is held to the plain version on the check inputs
+#: (``op_mix_inputs(check=True)``): there every term of the mix moves the
+#: result well above the float32 check, and the chain stays in its domain
+#: for three loop trips (the bb-lite chain leaves it at a nudge of 1e-2).
 MIXES = {'fma': Mix(0, 16, 2, 0, 1.0), 'bb': Mix(1, 1, 200, 5, 1.0),
-         'bblite': Mix(2, 4, 40, 2, 1e-4), 'poisson': Mix(3, 4, 16, 1, 1.0)}
+         'bblite': Mix(2, 4, 40, 2, 3e-3), 'poisson': Mix(3, 4, 16, 1, 1.0)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -533,21 +561,26 @@ def op_mix_scale(kind, x, aux, reps, unroll, eps):
     return torch.maximum(scale, x.abs())
 
 
-def _step_magnitude(kind, x, aux, eps):
-    if kind == 'fma':
-        return 1.0001 * x.abs() + 0.0001
+def _mix_terms(kind, x, aux):
+    """The summands that a step of mix ``kind`` (not 'fma') scales by eps
+    and adds to x, each with its sign."""
     if kind == 'bb':
         from ..ops.bb_vgh import bb_lam_parts
         lam, dlam, om = bb_lam_parts(x, *aux)
-        terms = [lam, *dlam, *om.values()]
-    elif kind == 'bblite':
+        return [lam, *dlam, *(om[k] for k in sorted(om))]
+    if kind == 'bblite':
         from ..ops.bb_lite import _per_bin_parts
-        terms = list(_per_bin_parts(x, aux[0], aux[1]))
-    else:
-        pos, d = x > 0, aux[0]
-        lam_safe = torch.where(pos, x, 1.0)
-        terms = [torch.where(pos, t, 0.0) for t in (
-            d * torch.log(lam_safe), x, d / lam_safe, d / lam_safe ** 2)]
+        return list(_per_bin_parts(x, aux[0], aux[1]))
+    pos, d = x > 0, aux[0]
+    lam_safe = torch.where(pos, x, 1.0)
+    return [torch.where(pos, t, 0.0) for t in (
+        d * torch.log(lam_safe), -x, d / lam_safe, d / lam_safe ** 2)]
+
+
+def _step_magnitude(kind, x, aux, eps):
+    if kind == 'fma':
+        return 1.0001 * x.abs() + 0.0001
+    terms = _mix_terms(kind, x, aux)
     return x.abs() + abs(eps) * sum(t.abs() for t in terms)
 
 
@@ -604,19 +637,25 @@ def reset_launch_counts():
     op_mix.launches = 0
 
 
-def op_mix_inputs(kind, n, device='cuda', block=(64, 512)):
-    """x and the aux arrays of mix ``kind``: the reference's pools (same
-    generator, seed 9, and draws), tiled to n float32 elements."""
+def op_mix_inputs(kind, n, device='cuda', check=False):
+    """x and the aux arrays of mix ``kind``, tiled to n float32 elements:
+    the reference's pools (same generator, seed 9, and draws), or with
+    ``check`` the pools the kernel is checked on. These differ for 'bblite'
+    alone: the reference's MC totals (10-240) dwarf its lam (0.5-2), so
+    f_M, H_lM and H_MM are ~1e-4 of a step and lie under a float32 check;
+    totals of 0.1-3 and lam of 1-4 make every part count."""
     rng = np.random.default_rng(9)
     pools = dict(
-        bb=[rng.uniform(1, 40, block), rng.uniform(0.0, 5.0, block),
-            rng.uniform(10, 100, block), rng.uniform(100, 1000, block),
-            rng.poisson(3.0, block).astype(np.float32)],
-        bblite=[rng.uniform(10, 240, block),
-                rng.poisson(3.0, block).astype(np.float32)],
-        poisson=[rng.poisson(3.0, block).astype(np.float32)],
+        bb=[rng.uniform(1, 40, BLOCK), rng.uniform(0.0, 5.0, BLOCK),
+            rng.uniform(10, 100, BLOCK), rng.uniform(100, 1000, BLOCK),
+            rng.poisson(3.0, BLOCK).astype(np.float32)],
+        bblite=[rng.uniform(10, 240, BLOCK),
+                rng.poisson(3.0, BLOCK).astype(np.float32)],
+        poisson=[rng.poisson(3.0, BLOCK).astype(np.float32)],
         fma=[])
-    raw = [rng.uniform(0.5, 2.0, block)] + pools[kind]
+    raw = [rng.uniform(0.5, 2.0, BLOCK)] + pools[kind]
+    if check and kind == 'bblite':
+        raw[:2] = [rng.uniform(1.0, 4.0, BLOCK), rng.uniform(0.1, 3.0, BLOCK)]
     out = [torch.as_tensor(np.resize(v.ravel(), n), dtype=torch.float32,
                            device=device) for v in raw]
     return out[0], out[1:]
@@ -634,17 +673,16 @@ def op_mix_elements(kind):
     return sms * blocks * 256 * lib.bt_op_mix_elements_per_thread()
 
 
-def measure_op_mix(kind, chip='h100-sxm', reps=None, eps=1e-30,
-                   target_s=0.01, runs=5):
+def measure_op_mix(kind, chip='h100-sxm', reps=None):
     """Achievable float32 rate of mix ``kind`` with memory out of play: the
     register-resident loop of ``csrc/op_mix.cu`` over enough elements to
-    fill the card, timed at ``reps`` and ``2 * reps`` loop trips (median of
-    ``runs`` CUDA-event runs each; the difference cancels the launch).
-    ``reps`` defaults to the trip count that makes one launch last at
-    least ``target_s``. The rate counts the flops the reference charges
-    (:data:`MIXES`); a kernel near its mix's rate is done: the gap to the
-    nominal roof is the price of its math (logs, divisions, square roots,
-    selects), not of its schedule.
+    fill the card, at the nudge :data:`TIMING_EPS`, timed at ``reps`` and
+    ``2 * reps`` loop trips (median of :data:`RUNS` CUDA-event runs each;
+    the difference cancels the launch). ``reps`` defaults to the trip count
+    that makes one launch last at least :data:`TARGET_S`. The rate counts
+    the flops the reference charges (:data:`MIXES`); a kernel near its
+    mix's rate is done: the gap to the nominal roof is the price of its
+    math (logs, divisions, square roots, selects), not of its schedule.
 
     :return: dict(kind, gflops_achieved, frac_of_nominal_fp32, ...)
     """
@@ -658,12 +696,12 @@ def measure_op_mix(kind, chip='h100-sxm', reps=None, eps=1e-30,
     count0 = op_mix.launches
 
     def timed(r):
-        return _event_s(op_mix_launcher(kind, x, aux, r, eps)[0], runs=runs,
+        return _event_s(op_mix_launcher(kind, x, aux, r, TIMING_EPS)[0],
                         warmup=1)
 
     if reps is None:
         probe = 64
-        reps = max(probe, math.ceil(probe * 1.2 * target_s / timed(probe)))
+        reps = max(probe, math.ceil(probe * 1.2 * TARGET_S / timed(probe)))
     t1, t2 = timed(reps), timed(2 * reps)
     elapsed = t2 - t1
     if not elapsed > 0:
@@ -676,7 +714,7 @@ def measure_op_mix(kind, chip='h100-sxm', reps=None, eps=1e-30,
                 frac_of_nominal_fp32=gflops * 1e9 / PEAKS[chip]['fp32'],
                 reps=reps, unroll=unroll, grid=n // (256 * V), block=256,
                 t_single_s=t1, t_double_s=t2, flops_per_elem=charge,
-                elements=n, threads=n // V, V=V, eps=eps,
+                elements=n, threads=n // V, V=V, eps=TIMING_EPS,
                 launches=op_mix.launches - count0, card=card_line())
 
 

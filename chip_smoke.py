@@ -27,7 +27,7 @@ For each path:
    1e-5; g and H within 1e-4 of each toy's largest entry), with warm times
    (CUDA events) of a whole wrapper call (``ms``, median of 20) and of the
    kernel alone (``kernel_ms``: the wrapper's tables built once, then 20
-   launches back to back between two events, median of 5 windows) beside
+   launches captured in a CUDA graph, its replay timed, median of 5) beside
    the least time the card could take for the same work (``bound_ms``:
    bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s, whichever is
    larger, counted from this run's inputs, see
@@ -47,8 +47,9 @@ For each path:
 Then the roofline part (``blueice_tpu_torch.utils.roofline``):
 
 4. the op-mix kernel (``csrc/op_mix.cu``) vs its plain version for each mix
-   (fma, bb, bblite, poisson), one loop trip at the mix's check nudge
-   (``MIXES``), within 1e-5 of the float64 scale of each element's terms
+   (fma, bb, bblite, poisson), one loop trip on the check inputs
+   (``op_mix_inputs(check=True)``) at the mix's check nudge (``MIXES``),
+   within 1e-5 of the float64 scale of each element's terms
    (``op_mix_scale``), over the elements that fill the card;
 5. the op-mix ceilings (``op_mix_record``) with every launch counter set to
    0 just before and read just after: the op-mix kernel must have launched,
@@ -202,19 +203,6 @@ def sass_census(lib_path):
     return lines
 
 
-# -- the least time the card could take ---------------------------------------
-
-def row_events(ids, events):
-    """Events of the distinct corner rows an unbinned call reads: each
-    (lane, anchor id) pair is a row of that lane's own toy, of which only
-    the lane's ``events`` (L,) valid events are needed."""
-    ids = ids.reshape(ids.shape[0], -1)
-    G = int(ids.max()) + 1
-    lane = torch.arange(ids.shape[0], device=ids.device)
-    pairs = (lane[:, None] * G + ids).unique()
-    return int(events[pairs // G].sum())
-
-
 # -- the paths ---------------------------------------------------------------
 
 def build_model(label, xenon_like, test_helpers, likelihood):
@@ -356,7 +344,8 @@ def kernel_rows(label, study, mods):
     (a whole wrapper call, and the kernel alone), beside its bound. Returns
     the path's two kernel rows."""
     from blueice_tpu_torch.utils.roofline import (bound, distinct_rows,
-                                                  launch_elapsed_s, work)
+                                                  launch_elapsed_s,
+                                                  row_events, work)
     compiled = study.compiled
     K = len(compiled.shape_names)
     S = len(compiled.rate_names)
@@ -598,7 +587,8 @@ def roofline_part(mods):
     roofline = mods['roofline']
     rows = []
     for kind, mix in roofline.MIXES.items():
-        x, aux = roofline.op_mix_inputs(kind, roofline.op_mix_elements(kind))
+        x, aux = roofline.op_mix_inputs(kind, roofline.op_mix_elements(kind),
+                                        check=True)
         out = roofline.op_mix(kind, x, aux, 1, mix.check_eps)
         ref = roofline.op_mix_plain(kind, x, aux, 1, mix.unroll,
                                     mix.check_eps)

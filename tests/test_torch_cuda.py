@@ -282,7 +282,8 @@ MIX_N = 256 * 4 * 3 + 17
 @pytest.mark.parametrize("kind", sorted(roofline.MIXES))
 def test_op_mix_kernel_matches_plain(cuda_device, kind, reps):
     mix = roofline.MIXES[kind]
-    x, aux = roofline.op_mix_inputs(kind, MIX_N, device=cuda_device)
+    x, aux = roofline.op_mix_inputs(kind, MIX_N, device=cuda_device,
+                                    check=True)
     roofline.reset_launch_counts()
     out = roofline.op_mix(kind, x, aux, reps, mix.check_eps)
     ref = roofline.op_mix_plain(kind, x, aux, reps, mix.unroll, mix.check_eps)
@@ -319,3 +320,14 @@ def test_measure_binned_kernel_times_the_kernel_alone(cuda_device):
     assert v['binding'] in ('compute', 'hbm')
     assert v['kernel'] == 'binned_vgh_fused(G=4,S=2,N=128,K=2)'
     assert roofline.format_report([v]).count('\n') == 1
+
+
+@pytest.mark.cuda
+def test_measure_unbinned_kernel_counts_the_rows_it_reads(cuda_device):
+    # a 3^4 grid: each toy reads its 16 corner rows, not all 81
+    v = roofline.measure_unbinned_kernel(G=81, S=6, E=256, K=4, B=8)
+    assert 0 < v['elapsed_s'] < v['dispatch_s']
+    cost = roofline.unbinned_vgh_cost(81, 6, 256, 4)
+    per_toy = cost['hbm_bytes'] - 4 * 81 * 6 * 256 + 4 * 16 * 6 * 256
+    assert v['gbps_hbm_achieved'] == pytest.approx(
+        8 * per_toy / v['elapsed_s'] / 1e9)

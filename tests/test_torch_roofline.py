@@ -4,8 +4,10 @@ cost models, verdict, report, the op-mix plain versions and the refusal of
 every measuring function without a CUDA device.
 
 The op-mix kernel itself runs only on the card (tests/test_torch_cuda.py,
-chip_smoke.py). Tolerances of the plain mixes against JAX steps: float64
-1e-12, float32 1e-5, relative to each element's term scale
+chip_smoke.py); here the inputs it is checked on are shown to make every
+term of each mix count in that check. Tolerances of the plain mixes
+against JAX steps: float64 1e-12, float32 1e-5, relative to each
+element's term scale
 (``op_mix_scale``: the magnitudes of the summands that formed it, as
 chip_smoke.py holds the kernel). The two frameworks' log and division may
 differ in the last bit, and a chain carries that through reps x unroll
@@ -100,6 +102,9 @@ def test_bound_and_work():
                                      + 12) * 512 * 3100)
     ids = torch.tensor([[0, 1, 3, 4], [1, 2, 4, 5]])
     assert roofline.distinct_rows(ids) == 6
+    # unbinned: rows are per lane, each read at its lane's valid events
+    ids = torch.tensor([[0, 1, 1, 2], [0, 0, 3, 3]])
+    assert roofline.row_events(ids, torch.tensor([10, 7])) == 3 * 10 + 2 * 7
 
 
 def test_common_setup_draws_the_reference_inputs():
@@ -170,18 +175,40 @@ def test_op_mix_plain_matches_jax_steps(kind, eps, dtype):
         np.testing.assert_array_equal(got, x.numpy())
 
 
+@pytest.mark.parametrize('dtype', sorted(DTYPES))
+@pytest.mark.parametrize('kind', sorted(roofline.MIXES))
+def test_op_mix_plain_matches_jax_on_check_inputs(kind, dtype):
+    """Three loop trips on the inputs the kernel is checked on, at the
+    mix's check nudge."""
+    tdt, jdt, rtol = DTYPES[dtype]
+    mix = roofline.MIXES[kind]
+    x, aux = roofline.op_mix_inputs(kind, 3000, device='cpu', check=True)
+    x, aux = x.to(tdt), [a.to(tdt) for a in aux]
+    got = roofline.op_mix_plain(kind, x, aux, 3, mix.unroll, mix.check_eps)
+    xj, auxj = jnp.asarray(x.numpy()), [jnp.asarray(a.numpy()) for a in aux]
+    for _ in range(3 * mix.unroll):
+        xj = _jax_step(kind, xj, auxj, mix.check_eps, jdt)
+    scale = roofline.op_mix_scale(kind, x, aux, 3, mix.unroll, mix.check_eps)
+    assert np.isfinite(got.numpy()).all()
+    assert (np.abs(got.numpy() - np.asarray(xj)) <= rtol * scale.numpy()).all()
+
+
 @pytest.mark.parametrize('kind', sorted(roofline.MIXES))
 def test_op_mix_inputs_and_check_nudge(kind):
     mix = roofline.MIXES[kind]
-    x, aux = roofline.op_mix_inputs(kind, 70000, device='cpu')
+    x, aux = roofline.op_mix_inputs(kind, 70000, device='cpu', check=True)
     assert x.shape == (70000,) and len(aux) == mix.n_aux
     assert all(a.dtype == torch.float32 and a.shape == x.shape for a in aux)
     # the inputs tile the reference's (64, 512) block
     torch.testing.assert_close(x[:5000], x[32768:37768], rtol=0, atol=0)
-    # at its check nudge each chain stays finite for two trips, and the
+    # only the bb-lite check inputs differ from the reference's pools
+    xr, auxr = roofline.op_mix_inputs(kind, 70000, device='cpu')
+    same = all(torch.equal(a, b) for a, b in zip([x, *aux], [xr, *auxr]))
+    assert same == (kind != 'bblite')
+    # at its check nudge each chain stays finite for three trips, and the
     # terms move the values well above float32 resolution
     out = roofline.op_mix_plain(kind, x.double(), [a.double() for a in aux],
-                                2, mix.unroll, mix.check_eps)
+                                3, mix.unroll, mix.check_eps)
     assert torch.isfinite(out).all()
     moved = ((out - x.double()).abs() / x.double().abs()).median()
     assert moved > 1e-4
@@ -189,6 +216,51 @@ def test_op_mix_inputs_and_check_nudge(kind):
     one = roofline.op_mix_plain(kind, x.double(), [a.double() for a in aux],
                                 1, mix.unroll, mix.check_eps)
     assert (scale >= one.abs()).all() and (scale >= x.double().abs()).all()
+
+
+def _chain(kind, x, aux, steps, eps, term=None, factor=1.0):
+    """The mix's chain from its signed terms, one term (or, with term None,
+    their sum) scaled by ``factor``."""
+    for _ in range(steps):
+        terms = roofline._mix_terms(kind, x, aux)
+        if term is None:
+            x = x + eps * factor * sum(terms)
+        else:
+            terms[term] = factor * terms[term]
+            x = x + eps * sum(terms)
+    return x
+
+
+@pytest.mark.parametrize('reps', [1, 3])
+@pytest.mark.parametrize('kind', ['bb', 'bblite', 'poisson'])
+def test_op_mix_check_sees_every_term(kind, reps):
+    """The kernel's check (float32, within 1e-5 of each element's term scale,
+    at the check nudge on the check inputs) would catch a kernel that
+    dropped any term of the mix, or summed the terms 1% wrong: each moves
+    the result by more than ten times that tolerance somewhere."""
+    mix, tol = roofline.MIXES[kind], 1e-5
+    x, aux = roofline.op_mix_inputs(kind, 3000, device='cpu', check=True)
+    x, aux = x.double(), [a.double() for a in aux]
+    steps, eps = reps * mix.unroll, mix.check_eps
+    base = roofline.op_mix_plain(kind, x, aux, reps, mix.unroll, eps)
+    scale = roofline.op_mix_scale(kind, x, aux, reps, mix.unroll, eps)
+    # the signed terms are the step's summands
+    assert ((_chain(kind, x, aux, steps, eps) - base).abs()
+            <= 1e-12 * scale).all()
+
+    def moved(**kw):
+        return float(((_chain(kind, x, aux, steps, eps, **kw) - base).abs()
+                      / scale).max())
+    assert moved(factor=1.01) > 10 * tol
+    terms = roofline._mix_terms(kind, x, aux)
+    live = [j for j, t in enumerate(terms) if bool((t != 0).any())]
+    assert len(live) >= 3
+    for j in live:
+        assert moved(term=j, factor=0.0) > 10 * tol, j
+    if kind == 'bblite':
+        # here each part alone also counts at 1%
+        for j in live:
+            assert moved(term=j, factor=1.01) > 10 * tol, j
 
 
 def test_op_mix_cpu_runs_the_plain_version_and_checks_inputs():
