@@ -284,6 +284,30 @@ class BinnedToyStudy(_ToyStudy):
     def _run_profile(self, counts, target, hypothesis, fixed):
         return self._profile(self._counts(counts), target, hypothesis, fixed)
 
+    # The reference's grid, scan and map surface. Methods (not attributes
+    # that fail): the reference's statistics tell a binned study from an
+    # unbinned one by ``hasattr(study, 'observed_counts')``.
+
+    def profile_ts_grid(self, *args, **kwargs):
+        raise NotImplementedError(
+            "BinnedToyStudy.profile_ts_grid is not ported yet (ROADMAP "
+            "queue 1 item 16a)")
+
+    def profile_ts_scan(self, *args, **kwargs):
+        raise NotImplementedError(
+            "BinnedToyStudy.profile_ts_scan is not ported yet (ROADMAP "
+            "queue 1 item 16a)")
+
+    def observed_counts(self, *args, **kwargs):
+        raise NotImplementedError(
+            "BinnedToyStudy.observed_counts is not ported yet (ROADMAP "
+            "queue 1 item 16a)")
+
+    def profile_map(self, *args, **kwargs):
+        raise NotImplementedError(
+            "BinnedToyStudy.profile_map is not ported yet (ROADMAP queue 1 "
+            "item 16a)")
+
 
 class UnbinnedToyStudy(_ToyStudy):
     """Batched unbinned-likelihood toy fits on one device.

@@ -43,7 +43,8 @@ __all__ = ['PEAKS', 'binned_vgh_cost', 'bb_vgh_cost', 'bblite_vgh_cost',
            'op_mix_plain', 'op_mix_scale', 'op_mix_inputs',
            'op_mix_elements', 'measure_op_mix', 'format_report',
            'roofline_record', 'op_mix_record', 'load_library',
-           'launch_counts', 'reset_launch_counts', 'row_events']
+           'launch_counts', 'reset_launch_counts', 'row_events',
+           'L2_BYTES', 'l2_copies', 'cold_launches']
 
 PEAKS = {
     'h100-sxm': dict(hbm_gbps=3.35e12, fp32=67e12, tf32_tc=495e12,
@@ -56,6 +57,8 @@ PEAKS = {
 SOURCE = os.path.join(fused.CSRC_DIR, 'op_mix.cu')
 #: Launches in the CUDA graph that :func:`launch_elapsed_s` replays
 N_INNER = 20
+#: The H100's L2 cache (bytes), which :func:`l2_copies` outgrows
+L2_BYTES = 50 * 2 ** 20
 #: Timed runs (CUDA-event windows) a measurement takes the median of
 RUNS = 5
 #: The op-mix nudge when timing: below float32 resolution, so the values
@@ -277,14 +280,46 @@ def launch_elapsed_s(launch, n_inner=N_INNER):
     them; the median over :data:`RUNS` replays of the replay's CUDA-event
     window over ``n_inner``. (Python launches between two events would time
     the host's launch rate for a kernel under ~30 us.) The capture adds
-    ``n_inner`` to the wrapper's launch count; the replays add nothing."""
-    launch()                    # loads the kernel before the capture
+    ``n_inner`` to the wrapper's launch count; the replays add nothing.
+
+    ``launch`` may be a list of launches: the graph then cycles over them
+    in order (launch ``i`` is ``launch[i % len(launch)]``). One launch per
+    copy of the inputs (:func:`cold_launches`) times the kernel on inputs
+    that are out of the L2 cache; one launch per recorded call times a
+    sequence of calls (``n_inner = len(launch)``)."""
+    _require_cuda('launch_elapsed_s')
+    launches = list(launch) if isinstance(launch, (list, tuple)) else [launch]
+    for fn in launches:         # loads the kernels before the capture
+        fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(n_inner):
-            launch()
+        for i in range(n_inner):
+            launches[i % len(launches)]()
     return _event_s(graph.replay, warmup=1) / n_inner
+
+
+def l2_copies(nbytes):
+    """Copies of a kernel's inputs (``nbytes`` each) that a cycle over them
+    needs so that each launch finds its inputs evicted from the L2 cache:
+    the other copies together move at least twice the cache. Inputs of
+    that size or more evict themselves: one copy."""
+    if nbytes >= 2 * L2_BYTES:
+        return 1
+    return 1 + int(math.ceil(2 * L2_BYTES / max(nbytes, 1)))
+
+
+def cold_launches(launcher, args):
+    """``[launch, ...]`` of ``launcher(*args)`` (a ``*_launcher`` of the ops
+    modules), one per copy of ``args`` (its tensors cloned, the first copy
+    ``args`` itself), :func:`l2_copies` copies in all: hand it to
+    :func:`launch_elapsed_s` for the kernel's time on inputs out of L2."""
+    nbytes = sum(x.numel() * x.element_size() for x in args
+                 if torch.is_tensor(x))
+    copies = [tuple(args)] + [
+        tuple(x.clone() if torch.is_tensor(x) else x for x in args)
+        for _ in range(l2_copies(nbytes) - 1)]
+    return [launcher(*c)[0] for c in copies]
 
 
 # -- the verdict ------------------------------------------------------------
@@ -340,13 +375,24 @@ def _common_setup(G, S, N, K, B, seed=0, device='cuda'):
 def _measure(wrapper, launcher, args, cost, batch, chip, n_inner, label,
              call_bytes=0.0):
     """Verdict of one kernel: ``dispatch_s`` a whole wrapper call,
-    ``elapsed_s`` the kernel alone (see :func:`launch_elapsed_s`)."""
+    ``elapsed_s`` the kernel alone (see :func:`launch_elapsed_s`) on one
+    input that stays in L2 between launches, and ``elapsed_cold_s`` on
+    inputs out of L2 (:func:`cold_launches`), with the shares of the roofs
+    that the cold time reaches (``*_cold``)."""
     dispatch_s = _event_s(lambda: wrapper(*args))
     launch, _ = launcher(*args)
     n_inner = n_inner or N_INNER
     elapsed = launch_elapsed_s(launch, n_inner)
+    cold = cold_launches(launcher, args)
+    elapsed_cold = launch_elapsed_s(cold, max(n_inner, len(cold)))
     v = roofline_verdict(cost, elapsed, batch, chip, call_bytes=call_bytes)
-    v.update(dispatch_s=dispatch_s, n_inner=n_inner, kernel=label)
+    vc = roofline_verdict(cost, elapsed_cold, batch, chip,
+                          call_bytes=call_bytes)
+    v.update(dispatch_s=dispatch_s, n_inner=n_inner, kernel=label,
+             elapsed_cold_s=elapsed_cold, copies=len(cold),
+             **{k + '_cold': vc[k] for k in ('frac_of_binding_roof',
+                                             'frac_of_compute_roof',
+                                             'frac_of_hbm_roof')})
     return v
 
 

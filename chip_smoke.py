@@ -27,7 +27,9 @@ For each path:
    1e-5; g and H within 1e-4 of each toy's largest entry), with warm times
    (CUDA events) of a whole wrapper call (``ms``, median of 20) and of the
    kernel alone (``kernel_ms``: the wrapper's tables built once, then 20
-   launches captured in a CUDA graph, its replay timed, median of 5) beside
+   launches captured in a CUDA graph, its replay timed, median of 5; and
+   ``kernel_ms_cold``, the launches cycling over copies of the path's data
+   that together outgrow the 50 MB L2, ``roofline.cold_launches``) beside
    the least time the card could take for the same work (``bound_ms``:
    bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s, whichever is
    larger, counted from this run's inputs, see
@@ -39,7 +41,9 @@ For each path:
    to 0 just before and read just after: the path's own two kernels must
    have launched, the others not; the profile statistic is checked against
    the reference's statistics (median t band, mean fitted target in
-   (0.7, 1.3));
+   (0.7, 1.3)); on xenon, then, the value kernel over one profile's own
+   calls (``replay_value_calls``: every call recorded, their launches
+   replayed from CUDA graphs, summed time beside summed bound);
 3. the same toys (counts, or event sets) fitted on CUDA in float32 and on
    the CPU in float64 (plain versions): max |d max_ll| <= 0.05, median
    |d t| <= 0.01.
@@ -54,7 +58,8 @@ Then the roofline part (``blueice_tpu_torch.utils.roofline``):
 5. the op-mix ceilings (``op_mix_record``) with every launch counter set to
    0 just before and read just after: the op-mix kernel must have launched,
    no fit kernel; then the vgh kernels' roofline verdicts
-   (``roofline_record``), printed as a table.
+   (``roofline_record``), printed as a table, and per kernel warm and
+   L2-cold (an L2-cold HBM share above 100% fails).
 
 It takes no options; ``measure_unbinned.py`` holds the torch.profiler
 account and the engine A/B of the unbinned paths.
@@ -148,10 +153,10 @@ def rel_to_toy_max(a, b):
 
 
 def ptxas_report(lib_paths):
-    """The -Xptxas -v lines (registers, spills) of the instantiations the
-    paths run: S = 6, K = 4 (XENON) and S = 2, K = 1 (Gaussian unbinned),
-    and of the four op-mix kernels, from the logs kept beside the
-    libraries."""
+    """The -Xptxas -v lines (registers, spills, static shared memory) of the
+    instantiations the paths run: S = 6, K = 4 (XENON) and S = 2, K = 1
+    (Gaussian unbinned), and of the four op-mix kernels, from the logs kept
+    beside the libraries."""
     lines = []
     for path in lib_paths:
         with open(path[:-3] + '.log') as f:
@@ -170,9 +175,12 @@ def ptxas_report(lib_paths):
             spills = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill '
                                r'loads', entry)
             regs = re.search(r'Used (\d+) registers', entry)
-            lines.append('%s: %s registers, spill stores/loads %s/%s B'
+            smem = re.search(r'(\d+) bytes smem', entry)
+            lines.append('%s: %s registers, spill stores/loads %s/%s B, %s '
+                         'B static shared memory'
                          % (label, regs.group(1) if regs else '?',
-                            *(spills.groups() if spills else ('?', '?'))))
+                            *(spills.groups() if spills else ('?', '?')),
+                            smem.group(1) if smem else '0'))
     return lines
 
 
@@ -229,15 +237,16 @@ def build_model(label, xenon_like, test_helpers, likelihood):
 
 def binned_ops(label, compiled, mods):
     """(vgh kernel, vgh plain, vgh launcher, value kernel, value plain,
-    value launcher) of a binned path, each called as f(anchor, strides,
-    idx, t, m, observed), and the number of MC-count rows per corner its
-    kernels also read."""
+    value launcher) of a binned path, the MC-count rows (G, N) its kernels
+    also read (None on xenon) and their trailing arguments: each is called
+    as f(anchor, strides, idx, t, m, observed) on xenon, else as
+    f(anchor, rows, strides, idx, t, m, observed, *extra)."""
     fused, fused_bb, fused_bb_lite = mods['fused'], mods['fused_bb'], \
         mods['fused_bb_lite']
     if label == 'xenon':
         return (fused.binned_vgh_fused, fused.binned_vgh_plain,
                 fused.binned_vgh_launcher, fused.binned_ll_fused_multi,
-                fused.binned_ll_plain, fused.binned_ll_launcher), 0
+                fused.binned_ll_plain, fused.binned_ll_launcher), None, ()
     S = len(compiled.rate_names)
     G = compiled.mus_tensor.numel() // S
     nme = compiled.nme_tensor_host.reshape(G, S, -1)
@@ -259,11 +268,7 @@ def binned_ops(label, compiled, mods):
         extra = ()
     rows = torch.as_tensor(rows, dtype=torch.float32,
                            device=compiled.device).contiguous()
-
-    def bind(fn):
-        return lambda anchor, strides, idx, t, m, obs: fn(
-            anchor, rows, strides, idx, t, m, obs, *extra)
-    return tuple(bind(fn) for fn in fns), 1
+    return fns, rows, extra
 
 
 def random_point(compiled, rng, lead):
@@ -343,7 +348,9 @@ def kernel_rows(label, study, mods):
     """Phase 1: each kernel of the path against its plain version, timed
     (a whole wrapper call, and the kernel alone), beside its bound. Returns
     the path's two kernel rows."""
-    from blueice_tpu_torch.utils.roofline import (bound, distinct_rows,
+    from blueice_tpu_torch.utils.roofline import (N_INNER, bound,
+                                                  cold_launches,
+                                                  distinct_rows,
                                                   launch_elapsed_s,
                                                   row_events, work)
     compiled = study.compiled
@@ -367,8 +374,10 @@ def kernel_rows(label, study, mods):
         def moff_of(m):
             return (m.sum(-1) - (ref_msum[lanes] if m.dim() == 2
                                  else ref_msum[lanes][:, None])).contiguous()
+        data = (ps, mask, inv_ref)
 
-        def call(fn, idx, t, m):
+        def call(fn, idx, t, m, data=data):
+            ps, mask, inv_ref = data
             return fn(ps, strides, lanes, idx, t, m, mask, inv_ref,
                       moff_of(m), compiled.outlier_likelihood)
 
@@ -396,19 +405,23 @@ def kernel_rows(label, study, mods):
         expected = compiled.expected_counts(compiled.defaults).cpu().numpy()
         obs = torch.as_tensor(rng.poisson(expected.ravel(), (B, n)),
                               dtype=torch.float32, device=compiled.device)
+        fns, mc, extra = binned_ops(label, compiled, mods)
+        data = (anchor, obs, mc)
 
-        def call(fn, idx, t, m):
-            return fn(anchor, strides, idx, t, m, obs)
+        def call(fn, idx, t, m, data=data):
+            anchor, obs, mc = data
+            if mc is None:
+                return fn(anchor, strides, idx, t, m, obs)
+            return fn(anchor, mc, strides, idx, t, m, obs, *extra)
 
         def ll_scale(idx, t, m, ref_ll):
             return ref_ll.abs()
-        fns, mc_rows = binned_ops(label, compiled, mods)
 
         def costs(ids, lead):
             rows = distinct_rows(ids)
-            return dict(row_floats=(S + mc_rows) * rows * n,
+            return dict(row_floats=(S + (mc is not None)) * rows * n,
                         data_bytes=B * n * 4, items=int(np.prod(lead)) * n,
-                        mc_rows=bool(mc_rows))
+                        mc_rows=mc is not None)
         shape = 'B=%d N=%d' % (B, n)
 
     meta = [dict(name=w, path=label, route='cuda', source=CSRC + src,
@@ -418,7 +431,15 @@ def kernel_rows(label, study, mods):
     vgh, vgh_plain, vgh_launcher, value, value_plain, value_launcher = fns
 
     def kernel_ms(launcher, idx, t, m):
-        return 1e3 * launch_elapsed_s(call(launcher, idx, t, m)[0])
+        """(warm, cold) ms of the kernel alone: on one input that stays in
+        L2 between launches (the path's condition for the shared anchor
+        tensor), and cycling over copies of the path's data that together
+        outgrow L2 (``roofline.cold_launches``)."""
+        warm = 1e3 * launch_elapsed_s(call(launcher, idx, t, m)[0])
+        cold = cold_launches(lambda *d: call(launcher, idx, t, m, d), data)
+        cold_ms = 1e3 * launch_elapsed_s(cold, max(N_INNER, len(cold)))
+        del cold
+        return warm, cold_ms
 
     idx, t, m = random_point(compiled, rng, (B,))
     out, ref = call(vgh, idx, t, m), call(vgh_plain, idx, t, m)
@@ -426,18 +447,18 @@ def kernel_rows(label, study, mods):
     abs_err, rel, detail = check_pair(label, 'vgh kernel', out, ref,
                                       ll_scale(idx, t, m, ref[0]))
     ms = cuda_ms(lambda: call(vgh, idx, t, m))
-    alone_ms = kernel_ms(vgh_launcher, idx, t, m)
+    alone_ms, cold_ms = kernel_ms(vgh_launcher, idx, t, m)
     plain_ms = cuda_ms(lambda: call(vgh_plain, idx, t, m))
     ids = fused.corner_ids(strides, idx, G)
     nbytes, flops = work('vgh', S, K, (B,), **costs(ids, (B,)))
     bound_ms, bound_by = bound(nbytes, flops)
-    log("%s vgh kernel   %s: %s; wrapper %.4f ms, kernel alone %.4f ms vs "
-        "plain %.4f ms; bound %.4f ms (%s: %.1f MB, %.3f GFLOP)"
-        % (label, shape, detail, ms, alone_ms, plain_ms, bound_ms, bound_by,
-           nbytes / 1e6, flops / 1e9))
+    log("%s vgh kernel   %s: %s; wrapper %.4f ms, kernel alone %.4f ms "
+        "(L2-cold %.4f) vs plain %.4f ms; bound %.4f ms (%s: %.1f MB, %.3f "
+        "GFLOP)" % (label, shape, detail, ms, alone_ms, cold_ms, plain_ms,
+                    bound_ms, bound_by, nbytes / 1e6, flops / 1e9))
     rows = [dict(meta[0], max_abs_err=abs_err, max_rel_err=rel, ms=ms,
-                 kernel_ms=alone_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                 bound_by=bound_by)]
+                 kernel_ms=alone_ms, kernel_ms_cold=cold_ms,
+                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)]
 
     row = dict(meta[1], max_abs_err=0.0, max_rel_err=0.0)
     for A in (12, 20):
@@ -447,19 +468,21 @@ def kernel_rows(label, study, mods):
         abs_err, rel, detail = check_pair(label, 'value kernel (A=%d)' % A,
                                           out, ref, ll_scale(idx, t, m, ref))
         ms = cuda_ms(lambda: call(value, idx, t, m))
-        alone_ms = kernel_ms(value_launcher, idx, t, m)
+        alone_ms, cold_ms = kernel_ms(value_launcher, idx, t, m)
         plain_ms = cuda_ms(lambda: call(value_plain, idx, t, m))
         ids = fused.corner_ids(strides, idx, G)
         nbytes, flops = work('value', S, K, (B, A), **costs(ids, (B, A)))
         bound_ms, bound_by = bound(nbytes, flops)
         log("%s value kernel %s A=%d: %s; wrapper %.4f ms, kernel alone "
-            "%.4f ms vs plain %.4f ms; bound %.4f ms (%s: %.1f MB, %.3f "
-            "GFLOP)" % (label, shape, A, detail, ms, alone_ms, plain_ms,
-                        bound_ms, bound_by, nbytes / 1e6, flops / 1e9))
+            "%.4f ms (L2-cold %.4f) vs plain %.4f ms; bound %.4f ms (%s: "
+            "%.1f MB, %.3f GFLOP)" % (label, shape, A, detail, ms, alone_ms,
+                                      cold_ms, plain_ms, bound_ms, bound_by,
+                                      nbytes / 1e6, flops / 1e9))
         row['max_abs_err'] = max(row['max_abs_err'], abs_err)
         row['max_rel_err'] = max(row['max_rel_err'], rel)
         suffix = '' if A == 12 else '_A%d' % A
         row.update({'ms' + suffix: ms, 'kernel_ms' + suffix: alone_ms,
+                    'kernel_ms_cold' + suffix: cold_ms,
                     'plain_ms' + suffix: plain_ms,
                     'bound_ms' + suffix: bound_ms,
                     'bound_by' + suffix: bound_by})
@@ -515,6 +538,92 @@ def main_path(label, study, mods, rows):
                                   free.n_iter.mean(), cond.n_iter.mean()))
     for row in rows:
         row['launches'] = launches[row['name']]
+
+
+def distinct_per_row(x):
+    """Distinct values of each row of an integer tensor (R, M), -1 not
+    counted (padding)."""
+    s = x.sort(-1).values
+    return 1 + (s[:, 1:] != s[:, :-1]).sum(-1) - (s[:, 0] < 0).long()
+
+
+def replay_value_calls(study, mods, rows):
+    """The xenon value kernel over the profile's own calls: every call of
+    ``fused.binned_ll_fused_multi`` in one 512-toy ``profile_ts`` (seed 0,
+    a fresh study whose fitters take the wrapper through a recorder; the
+    kernels are built and loaded) is recorded with its inputs cloned; each
+    call's launcher is then built once, the launches of each candidate
+    count A captured in one CUDA graph in call order, and the replays timed
+    (``roofline.launch_elapsed_s``). Prints the calls, their mean lanes L,
+    candidates A and distinct corner rows U per toy (and per group of 8
+    candidates, what one CTA stages), the summed kernel time and the summed
+    bound; adds them to the value kernel's row."""
+    from blueice_tpu_torch.utils.roofline import (bound, distinct_rows,
+                                                  launch_elapsed_s, work)
+    fused = mods['fused']
+    _, target, n_toys, _, _ = PATHS['xenon']
+    wrapper, calls = fused.binned_ll_fused_multi, []
+
+    def recorder(anchor, strides, idx, t, m, observed):
+        calls.append((anchor, strides, idx.clone(), t.clone(), m.clone(),
+                      observed.clone()))
+        return wrapper(anchor, strides, idx, t, m, observed)
+    recorder.launches = 0
+    fused.binned_ll_fused_multi = recorder      # read when fitters are built
+    try:
+        fresh = type(study)(study.lf, dtype=study.compiled.dtype,
+                            device=study.device, max_iter=study.max_iter,
+                            tol=study.tol, engine=study.engine)
+        fresh.profile_ts(0, n_toys=n_toys, target=target, hypothesis=1.0)
+        torch.cuda.synchronize()
+    finally:
+        fused.binned_ll_fused_multi = wrapper
+
+    if not calls:
+        raise AssertionError("xenon: the profile made no value-kernel call")
+    compiled = study.compiled
+    K, S = len(compiled.shape_names), len(compiled.rate_names)
+    G = compiled.mus_tensor.numel() // S
+    by_A, stats = {}, dict(lanes=0, cands=0, toy_rows=0, groups=0,
+                           group_rows=0, bound_ms=0.0)
+    for anchor, strides, idx, t, m, obs in calls:
+        L, A = idx.shape[:2]
+        N = anchor.shape[-1]
+        by_A.setdefault(A, []).append(fused.binned_ll_launcher(
+            anchor, strides, idx, t, m, obs)[0])
+        ids = fused.corner_ids(strides, idx, G)                 # (L, A, C)
+        n_grp = -(-A // 8)
+        grouped = torch.nn.functional.pad(ids, (0, 0, 0, 8 * n_grp - A),
+                                          value=-1)
+        stats['toy_rows'] += int(distinct_per_row(ids.reshape(L, -1)).sum())
+        stats['group_rows'] += int(distinct_per_row(
+            grouped.reshape(L * n_grp, -1)).sum())
+        stats['groups'] += L * n_grp
+        stats['lanes'] += L
+        stats['cands'] += L * A
+        nbytes, flops = work('value', S, K, (L, A),
+                             row_floats=S * distinct_rows(ids) * N,
+                             data_bytes=L * N * 4, items=L * A * N)
+        stats['bound_ms'] += bound(nbytes, flops)[0]
+    per_A = {A: 1e3 * len(fns) * launch_elapsed_s(fns, len(fns))
+             for A, fns in sorted(by_A.items())}
+    n = len(calls)
+    out = dict(replay_calls=n, replay_ms=sum(per_A.values()),
+               replay_bound_ms=stats['bound_ms'],
+               replay_mean_lanes=stats['lanes'] / n,
+               replay_mean_A=stats['cands'] / stats['lanes'],
+               replay_mean_U_toy=stats['toy_rows'] / stats['lanes'],
+               replay_mean_U_group=stats['group_rows'] / stats['groups'])
+    log("xenon value kernel over one profile's own calls: %d calls, mean "
+        "lanes L %.1f, mean A %.2f (lane-weighted), mean distinct corner "
+        "rows U %.2f a toy, %.2f a group of 8 candidates; kernel time "
+        "summed %.4f ms (%s), bound summed %.4f ms"
+        % (n, out['replay_mean_lanes'], out['replay_mean_A'],
+           out['replay_mean_U_toy'], out['replay_mean_U_group'],
+           out['replay_ms'], ', '.join('A=%d: %d calls %.4f ms' % (
+               A, len(by_A[A]), ms) for A, ms in per_A.items()),
+           out['replay_bound_ms']))
+    next(r for r in rows if r['name'] == 'binned_ll_fused_multi').update(out)
 
 
 def two_precisions(label, study, cls):
@@ -576,6 +685,8 @@ def run_path(label, mods, api):
     check_on_card(label, study.compiled)
     rows = kernel_rows(label, study, mods)
     main_path(label, study, mods, rows)
+    if label == 'xenon':
+        replay_value_calls(study, mods, rows)
     two_precisions(label, study, cls)
     return rows
 
@@ -654,11 +765,18 @@ def roofline_part(mods):
     for line in roofline.format_report(verdicts).splitlines():
         log("roofline " + line)
     for v in verdicts:
-        log("roofline %s: kernel alone %.4f ms, wrapper %.4f ms, bound %.4f "
-            "ms (%s), %.4f of the fp32 peak, %.4f of HBM" % (
-                v['kernel'], 1e3 * v['elapsed_s'], 1e3 * v['dispatch_s'],
+        log("roofline %s: kernel alone %.4f ms (L2-cold %.4f, %d input "
+            "copies), wrapper %.4f ms, bound %.4f ms (%s), %.4f (cold %.4f) "
+            "of the fp32 peak, %.4f (cold %.4f) of HBM" % (
+                v['kernel'], 1e3 * v['elapsed_s'], 1e3 * v['elapsed_cold_s'],
+                v['copies'], 1e3 * v['dispatch_s'],
                 1e3 * max(v['t_compute_s'], v['t_hbm_s']), v['binding'],
-                v['frac_of_compute_roof'], v['frac_of_hbm_roof']))
+                v['frac_of_compute_roof'], v['frac_of_compute_roof_cold'],
+                v['frac_of_hbm_roof'], v['frac_of_hbm_roof_cold']))
+        if v['frac_of_hbm_roof_cold'] > 1.0:
+            raise AssertionError("roofline %s: an L2-cold HBM share above "
+                                 "100%%: its inputs stayed in L2"
+                                 % v['kernel'])
     return rows
 
 

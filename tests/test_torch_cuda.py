@@ -84,6 +84,83 @@ def test_value_kernel_matches_plain(cuda_device, K):
     np.testing.assert_allclose(out.cpu(), ref.cpu(), rtol=1e-5)
 
 
+#: The value kernel's cases: name -> (S, K, N, B, A, candidates). It loads
+#: a grid cell's corner rows once for all of the toy's candidates in that
+#: cell (equal corner-id tuples, clamped ones included), splits a toy's
+#: bins over a cluster of up to 8 blocks and, with few toys, its candidates
+#: over several blocks.
+VALUE_CASES = {
+    'shared_corners': (6, 4, 3100, 16, 12, 'shared'),
+    'rate_only': (6, 4, 3100, 16, 20, 'rate_only'),
+    'clamped_duplicates': (6, 4, 300, 16, 12, 'edge'),
+    'union_all_rows_K4': (6, 4, 3100, 8, 16, 'all_cells'),
+    'union_all_rows_K2': (3, 2, 300, 8, 4, 'all_cells'),
+    'A1': (6, 4, 3100, 64, 1, 'random'),
+    'A20': (6, 4, 3100, 64, 20, 'random'),
+    'A33': (6, 4, 3100, 16, 33, 'random'),
+    'B1_many_ranges': (6, 4, 3100, 1, 12, 'random'),
+    'K0': (6, 0, 3100, 16, 12, 'random'),
+    'S8_K4': (8, 4, 1000, 16, 12, 'random'),
+    'N_odd': (6, 4, 301, 16, 12, 'random'),
+}
+
+
+def _value_case(S_, K, N_, B_, A_, kind, device, seed=0):
+    rng = np.random.default_rng(seed)
+    grid = (3,) * K
+    G = int(np.prod(grid)) if K else 1
+    strides = tuple(int(np.prod(grid[d + 1:])) for d in range(K))
+    anchor = rng.random((G, S_, N_)) + 0.01
+    observed = rng.poisson(30.0, (B_, N_))
+    idx = rng.integers(0, 2, (B_, A_, K))
+    t = rng.random((B_, A_, K))
+    m = rng.random((B_, A_, S_)) * 10 + 1
+    if kind in ('shared', 'rate_only'):
+        idx[:] = idx[:, :1]
+        if kind == 'rate_only':
+            t[:] = t[:, :1]
+    elif kind == 'edge':
+        # lower corners on the grid's last cell: corner_ids clamps the
+        # corners past the end onto the last row, so a candidate names it
+        # several times
+        idx[:, ::2] = 2
+        idx[:, 1::2, 0] = 2
+    elif kind == 'all_cells':
+        # every cell of the grid: the toy's union is all G rows
+        idx[:] = np.array(list(np.ndindex((2,) * K)))[None]
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+    return (f32(anchor), strides, torch.as_tensor(idx, device=device),
+            f32(t), f32(m), f32(observed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(VALUE_CASES))
+def test_value_kernel_cases(cuda_device, case):
+    S_, K, N_, B_, A_, kind = VALUE_CASES[case]
+    args = _value_case(S_, K, N_, B_, A_, kind, cuda_device)
+    anchor, strides, idx = args[:3]
+    ids = fused.corner_ids(strides, idx, anchor.shape[0])
+    if kind == 'edge':
+        srt = ids.sort(-1).values
+        assert bool((srt[..., 1:] == srt[..., :-1]).any())
+    if kind == 'all_cells':
+        for toy in ids:
+            assert toy.unique().numel() == anchor.shape[0]
+    fused.reset_launch_counts()
+    out = fused.binned_ll_fused_multi(*args)
+    ref = fused.binned_ll_plain(*args)
+    torch.cuda.synchronize()
+    assert fused.launch_counts()['binned_ll_fused_multi'] == 1
+    assert out.shape == (B_, A_)
+    np.testing.assert_allclose(out.cpu(), ref.cpu(), rtol=1e-5)
+    # fixed-order sums, no float atomics: a rerun is bit-identical
+    again = fused.binned_ll_fused_multi(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+
+
 @pytest.mark.cuda
 def test_kernels_refuse_float64_and_out_of_range(cuda_device):
     anchor, strides, observed, (idx, t, m), _ = _inputs(2, cuda_device)

@@ -107,6 +107,34 @@ def test_bound_and_work():
     assert roofline.row_events(ids, torch.tensor([10, 7])) == 3 * 10 + 2 * 7
 
 
+@pytest.mark.parametrize('nbytes, copies', [
+    (6 * 2 ** 20, 1 + 17), (25 * 2 ** 20, 1 + 4), (100 * 2 ** 20, 1),
+    (2 ** 30, 1)])
+def test_l2_copies_outgrow_the_cache(nbytes, copies):
+    """The other copies of a cycle move at least twice the 50 MB L2
+    between two uses of one copy; inputs that big evict themselves."""
+    n = roofline.l2_copies(nbytes)
+    assert n == copies
+    assert n == 1 or (n - 1) * nbytes >= 2 * roofline.L2_BYTES
+
+
+def test_cold_launches_clone_the_tensors():
+    seen = []
+
+    def launcher(x, k, y):
+        seen.append((x, k, y))
+        return (lambda: None), None
+    x, y = torch.zeros(2 ** 20), torch.ones(3, dtype=torch.int64)
+    launches = roofline.cold_launches(launcher, (x, 7, y))
+    n = roofline.l2_copies(x.numel() * 4 + y.numel() * 8)
+    assert len(launches) == len(seen) == n
+    assert seen[0][0] is x and seen[0][2] is y
+    for cx, k, cy in seen[1:]:
+        assert k == 7 and torch.equal(cx, x) and torch.equal(cy, y)
+        assert cx.data_ptr() != x.data_ptr()
+        assert cy.data_ptr() != y.data_ptr()
+
+
 def test_common_setup_draws_the_reference_inputs():
     got = roofline._common_setup(81, 6, 200, 3, 16, device='cpu')
     rng = np.random.default_rng(0)
@@ -295,6 +323,7 @@ MEASURING = {
     'op_mix_elements': lambda: roofline.op_mix_elements('bb'),
     'roofline_record': roofline.roofline_record,
     'op_mix_record': roofline.op_mix_record,
+    'launch_elapsed_s': lambda: roofline.launch_elapsed_s(lambda: None),
 }
 
 

@@ -140,3 +140,20 @@ def test_monte_carlo_templates_match():
         builds.append(lf._builds)
     for name in ('mus', 'ps'):
         np.testing.assert_array_equal(builds[1][name][2], builds[0][name][2])
+
+
+@pytest.mark.parametrize("name", ['profile_ts_grid', 'profile_ts_scan',
+                                  'observed_counts', 'profile_map'])
+def test_binned_study_grid_surface_raises(name):
+    """The reference's grid, scan and map methods exist on the port's
+    binned study, as methods (the reference's statistics tell binned from
+    unbinned by ``hasattr(study, 'observed_counts')``), and raise naming
+    their ROADMAP item instead of failing with an AttributeError."""
+    set_progress(False)
+    tlf = _likelihood(BinnedLogLikelihood, txenon.GaussianBlobSource,
+                      NormalPrior, 0)
+    study = BinnedToyStudy(tlf, device='cpu')
+    assert callable(getattr(JaxStudy, name))
+    assert callable(getattr(BinnedToyStudy, name))
+    with pytest.raises(NotImplementedError, match='item 16a'):
+        getattr(study, name)()
