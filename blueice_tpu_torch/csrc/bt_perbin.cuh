@@ -9,25 +9,31 @@
 namespace bt {
 
 // bb_lambda of blueice_tpu/ops/bb_vgh.py: the adjusted expected count.
+// The reference's selects are branches here, so a bin evaluates only the
+// root it takes (inert: none; U == 0: the special root; else the general
+// root on the side of b's sign), each with the reference's operations: two
+// divisions fewer a bin. The last step keeps its multiply and add apart,
+// as the select between them kept them apart.
 __device__ __forceinline__ float bb_lambda(float P, float N, float U, float M,
                                            float T, float d) {
   const float tiny = FLT_MIN;
   const bool has_mc = N > 0.f;
   const float N_safe = has_mc ? N : 1.f;
   const float pw = has_mc ? M * P / N_safe : 0.f;
-  const float pw_safe = pw > 0.f ? pw : 1.f;
-  const float b_lin = U * (pw_safe + 1.f) - pw_safe * (N + d);
-  const float disc =
-      b_lin * b_lin + 4.f * pw_safe * (pw_safe + 1.f) * (U * N);
-  const float root = sqrtf(fmaxf(disc, tiny));
-  const bool sel_hi = b_lin >= 0.f;
-  const float den_hi = fmaxf(sel_hi ? b_lin + root : 1.f, tiny);
-  const float den_lo = sel_hi ? 1.f : 2.f * pw_safe * (pw_safe + 1.f);
-  const float A_general =
-      sel_hi ? 2.f * U * N / den_hi : (root - b_lin) / den_lo;
-  const float A_special = (d + N) / (1.f + M / T);
-  const float A = U == 0.f ? A_special : A_general;
-  return U + (pw > 0.f ? pw * A : 0.f);
+  if (!(pw > 0.f)) return __fadd_rn(U, 0.f);
+  float A;
+  if (U == 0.f) {
+    A = (d + N) / (1.f + M / T);
+  } else {
+    const float b_lin = U * (pw + 1.f) - pw * (N + d);
+    const float disc = b_lin * b_lin + 4.f * pw * (pw + 1.f) * (U * N);
+    const float root = sqrtf(fmaxf(disc, tiny));
+    if (b_lin >= 0.f)
+      A = 2.f * U * N / fmaxf(b_lin + root, tiny);
+    else
+      A = (root - b_lin) / (2.f * pw * (pw + 1.f));
+  }
+  return __fadd_rn(U, __fmul_rn(pw, A));
 }
 
 // bb_lam_parts of blueice_tpu/ops/bb_vgh.py: lam, its gradient g[5] in

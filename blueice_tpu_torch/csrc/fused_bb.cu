@@ -11,8 +11,10 @@
 //                  Pallas kernels _bb_vgh_kernel (blueice_tpu/ops/
 //                  fused_bb.py:191, gather flavor) and _bb_vgh_kernel_dense
 //                  (fused_bb.py:458, dense flavor).
-//   bb_ll_kernel   the same ll at one line-search candidate, one (toy,
-//                  candidate) pair per block. Replaces _bb_ll_kernel
+//   bb_ll_kernel   the same ll at A line-search candidates per toy, in the
+//                  cell layout of bt_cells.cuh (one block per toy and bin
+//                  range, the candidates of one grid cell sharing each load
+//                  of its corner rows). Replaces _bb_ll_kernel
 //                  (fused_bb.py:227) and _bb_ll_kernel_dense (fused_bb.py:605).
 //
 // Per bin the kernels combine the 2^K corner rows of the pmf anchors
@@ -42,15 +44,20 @@
 // and its 5 + 14 partials plus the (S+K)(S+K+1)/2 Hessian updates; the
 // Jacobian of the five inputs is sparse (the M row is one-hot at bb, the T
 // row carries only SN on the t columns, the Pb and Nb rows only the t
-// columns), and the kernel multiplies only its nonzero blocks.
+// columns), and the kernel multiplies only its nonzero blocks. The value
+// kernel reads a cell's rows once per bin for all of the toy's candidates
+// in that cell, so where they share cells the per-candidate combine and
+// root set its pace.
 //
-// Reductions: per-thread register accumulators, then bt::block_sum in a
-// fixed order: reruns are bit-identical.
+// Reductions: fixed order everywhere (per-thread register accumulators and
+// bt::block_sum for the vgh; bt::cell_sums for the value kernel), no float
+// atomics: reruns are bit-identical.
 //
 // Built by blueice_tpu_torch/ops/fused.py (nvcc -gencode
 // arch=compute_90a,code=sm_90a -O3 -shared) and loaded with ctypes; the C
 // entry points return cudaGetLastError().
 
+#include "bt_cells.cuh"
 #include "bt_common.cuh"
 #include "bt_perbin.cuh"
 
@@ -287,71 +294,60 @@ bb_vgh_kernel(const float* __restrict__ anchor, const float* __restrict__ nme,
   store_vgh<P>(s_tot, b, ll_out, g_out, h_out);
 }
 
+// The value kernel, in the cell layout of bt_cells.cuh: one CTA per (toy,
+// bin range[, candidate group]), a toy's ranges one cluster, candidates
+// grouped by cell; per bin and cell the cell's C x (S+1) corner values
+// (pmf rows and the MC-count row) are read once for all of its
+// candidates (bt::mc_cell_pass). T is per candidate, summed in the
+// prologue (c ascending, as the CTA-per-candidate kernel summed it).
 template <int S, int K>
-__global__ void __launch_bounds__(kThreads)
-bb_ll_kernel(const float* __restrict__ anchor, const float* __restrict__ nme,
-             const float* __restrict__ tot, int N, int A, int bb,
-             const int* __restrict__ ids, const float* __restrict__ w,
-             const float* __restrict__ m, const float* __restrict__ obs,
-             float* __restrict__ ll_out) {
+__global__ void __launch_bounds__(kMcThreads, 3)
+bb_ll_kernel(int N, int A, int Acta, const float* __restrict__ anchor,
+             const float* __restrict__ nme, const float* __restrict__ tot,
+             int bb, const int* __restrict__ ids,
+             const float* __restrict__ w, const float* __restrict__ m,
+             const float* __restrict__ obs, float* __restrict__ ll_out) {
   constexpr int C = 1 << K;
+  const CellBlock cb = cell_block(N, A, Acta);
+  const int t = threadIdx.x;
 
-  __shared__ int s_ids[C];
-  __shared__ float s_w[C];
-  __shared__ float s_m[S];
-  __shared__ float s_glob[1];
-  __shared__ float s_red[kWarps];
-  __shared__ float s_tot[1];
-
-  const int ba = blockIdx.x;   // (toy, candidate), candidate fastest
-  const int b = ba / A;
-  for (int i = threadIdx.x; i < C; i += kThreads) {
-    s_ids[i] = ids[(size_t)ba * C + i];
-    s_w[i] = w[(size_t)ba * C + i];
-  }
-  for (int i = threadIdx.x; i < S; i += kThreads) s_m[i] = m[(size_t)ba * S + i];
-  __syncthreads();
-  if (threadIdx.x == 0) {   // T = sum_c w_c tot[id_c], in a fixed order
+  extern __shared__ float4 dyn4[];
+  float* s_dev = reinterpret_cast<float*>(dyn4);  // [Acta][kMcThreads]
+  __shared__ __align__(16) float s_w[kMaxActa * C];
+  __shared__ float s_m[kMaxActa * S];
+  __shared__ int s_ids[kMaxActa * C];
+  __shared__ int s_lead[kMaxActa];
+  __shared__ int s_order[kMaxActa];
+  __shared__ float s_T[kMaxActa];
+  __shared__ float s_tot[kMaxActa];
+  stage_cells<S, C, kMcThreads>(cb, ids, w, m, s_ids, s_w, s_m, s_dev,
+                                s_lead, s_order);
+  if (t < cb.Aq) {   // T = sum_c w_c tot[id_c], in a fixed order
     float T = 0.f;
-    for (int c = 0; c < C; ++c) T = fmaf(s_w[c], tot[s_ids[c]], T);
-    s_glob[0] = T;
+    for (int c = 0; c < C; ++c)
+      T = fmaf(s_w[t * C + c], tot[s_ids[t * C + c]], T);
+    s_T[t] = T;
   }
   __syncthreads();
-  const float T = s_glob[0];
-  const float M = s_m[bb];
 
-  float acc[1] = {0.f};
-  const float* obs_b = obs + (size_t)b * N;
-  const size_t row = (size_t)S * N;
-  for (int n = threadIdx.x; n < N; n += kThreads) {
-    float Pv[S];
+  mc_cell_pass<S, K>(
+      cb, anchor, nme, N, obs + (size_t)cb.b * N, s_ids, s_w, s_lead, s_order,
+      s_dev, [&](int a, const float (&P)[S], float Nb, float k) {
+        // Pb = P[bb] by a one-hot FMA chain (exact: the other terms add
+        // zeros), which keeps P in registers where a select chain on the
+        // runtime index went through local memory
+        float Pb = 0.f, U = 0.f;
 #pragma unroll
-    for (int s = 0; s < S; ++s) Pv[s] = 0.f;
-    float Nb = 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const size_t gid = (size_t)s_ids[c];
-      const float* a = anchor + gid * row + n;
-      const float wc = s_w[c];
-      Nb = fmaf(wc, __ldg(nme + gid * N + n), Nb);
-#pragma unroll
-      for (int s = 0; s < S; ++s) Pv[s] = fmaf(wc, __ldg(a + (size_t)s * N), Pv[s]);
-    }
-    float Pb = 0.f, U = 0.f;
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      Pb = s == bb ? Pv[s] : Pb;
-      U = s == bb ? U : fmaf(s_m[s], Pv[s], U);
-    }
-    const float k = obs_b[n];
-    const float lam = bb_lambda(Pb, Nb, U, M, T, k);
-    const float lam_safe = fmaxf(lam, FLT_MIN);
-    const float k_safe = k > 0.f ? k : 1.f;
-    acc[0] += k * logf(lam_safe / k_safe) - (lam - k);
-  }
-
-  block_sum<1>(acc, s_red, s_tot);
-  if (threadIdx.x == 0) ll_out[ba] = s_tot[0];
+        for (int s = 0; s < S; ++s) {
+          Pb = __fmaf_rn(s == bb ? 1.f : 0.f, P[s], Pb);
+          U = s == bb ? U : fmaf(s_m[a * S + s], P[s], U);
+        }
+        const float lam = bb_lambda(Pb, Nb, U, s_m[a * S + bb], s_T[a], k);
+        const float lam_safe = fmaxf(lam, FLT_MIN);
+        const float k_safe = k > 0.f ? k : 1.f;
+        return k * logf(lam_safe / k_safe) - (lam - k);
+      });
+  cell_sums<kMcThreads>(cb, s_dev, s_tot, ll_out);
 }
 
 }  // namespace
@@ -389,18 +385,20 @@ int bt_bb_ll_multi(int S, int K, int N, int B, int A, int bb,
   if (B <= 0 || A <= 0) return 0;
   if (bb < 0 || bb >= S) return -1;
   cudaGetLastError();
+  if (S < 1 || S > 8 || K < 0 || K > 4) return -1;
+  if (N <= 0)
+    return (int)cudaMemsetAsync(ll, 0, sizeof(float) * B * A, stream);
+  cudaError_t err = cudaSuccess;
 #define BT_LL_CASE(S_, K_)                                                 \
   case (S_) * 8 + (K_):                                                    \
-    bb_ll_kernel<S_, K_><<<B * A, kThreads, 0, stream>>>(                  \
-        anchor, nme, tot, N, A, bb, ids, w, m, obs, ll);                   \
+    err = launch_cells<bb_ll_kernel<S_, K_>, kMcThreads>(                   \
+        N, B, A, stream, anchor, nme, tot, bb, ids, w, m, obs, ll);        \
     break;
   switch (S * 8 + K) {
     BT_FOR_SK(BT_LL_CASE)
-    default:
-      return -1;
   }
 #undef BT_LL_CASE
-  return (int)cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // extern "C"

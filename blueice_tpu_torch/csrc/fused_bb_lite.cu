@@ -13,10 +13,12 @@
 //                      (blueice_tpu/ops/fused_bb_lite.py:154, gather flavor)
 //                      and _bblite_vgh_kernel_dense (fused_bb_lite.py:417,
 //                      dense flavor).
-//   bblite_ll_kernel   the same ll at one line-search candidate, one (toy,
-//                      candidate) pair per block. Replaces _bblite_ll_kernel
-//                      (fused_bb_lite.py:189) and _bblite_ll_kernel_dense
-//                      (fused_bb_lite.py:511).
+//   bblite_ll_kernel   the same ll at A line-search candidates per toy, in
+//                      the cell layout of bt_cells.cuh (one block per toy
+//                      and bin range, the candidates of one grid cell
+//                      sharing each load of its corner rows). Replaces
+//                      _bblite_ll_kernel (fused_bb_lite.py:189) and
+//                      _bblite_ll_kernel_dense (fused_bb_lite.py:511).
 //
 // Per bin: the 2^K corner rows of the pmf anchors (G, S, N) and of the
 // total MC counts (G, N) (summed over sources on the host) combine into
@@ -30,15 +32,20 @@
 //
 // What bounds them on an H100: the corner gathers, (S + 1) * 2^K rows per
 // bin, served from the 50 MB L2; neighbouring threads take neighbouring
-// bins, so every gather is a coalesced row read. No global sums are needed.
+// bins, so every gather is a coalesced row read. The value kernel reads a
+// cell's rows once per bin for all of the toy's candidates in that cell, so
+// where they share cells the per-candidate combine and lite_parts set its
+// pace. No global sums are needed.
 //
-// Reductions: per-thread register accumulators, then bt::block_sum in a
-// fixed order: reruns are bit-identical.
+// Reductions: fixed order everywhere (per-thread register accumulators and
+// bt::block_sum for the vgh; bt::cell_sums for the value kernel), no float
+// atomics: reruns are bit-identical.
 //
 // Built by blueice_tpu_torch/ops/fused.py (nvcc -gencode
 // arch=compute_90a,code=sm_90a -O3 -shared) and loaded with ctypes; the C
 // entry points return cudaGetLastError().
 
+#include "bt_cells.cuh"
 #include "bt_common.cuh"
 #include "bt_perbin.cuh"
 
@@ -192,55 +199,40 @@ bblite_vgh_kernel(const float* __restrict__ anchor,
   store_vgh<P>(s_tot, b, ll_out, g_out, h_out);
 }
 
+// The value kernel, in the cell layout of bt_cells.cuh: one CTA per (toy,
+// bin range[, candidate group]), a toy's ranges one cluster, candidates
+// grouped by cell; per bin and cell the cell's C x (S+1) corner values
+// (pmf rows and the MC-total row) are read once for all of its
+// candidates (bt::mc_cell_pass).
 template <int S, int K>
-__global__ void __launch_bounds__(kThreads)
-bblite_ll_kernel(const float* __restrict__ anchor,
-                 const float* __restrict__ nme, int N, int A,
-                 const int* __restrict__ ids, const float* __restrict__ w,
-                 const float* __restrict__ m, const float* __restrict__ obs,
-                 float* __restrict__ ll_out) {
+__global__ void __launch_bounds__(kMcThreads, 3)
+bblite_ll_kernel(int N, int A, int Acta, const float* __restrict__ anchor,
+                 const float* __restrict__ nme, const int* __restrict__ ids,
+                 const float* __restrict__ w, const float* __restrict__ m,
+                 const float* __restrict__ obs, float* __restrict__ ll_out) {
   constexpr int C = 1 << K;
+  const CellBlock cb = cell_block(N, A, Acta);
 
-  __shared__ int s_ids[C];
-  __shared__ float s_w[C];
-  __shared__ float s_m[S];
-  __shared__ float s_red[kWarps];
-  __shared__ float s_tot[1];
+  extern __shared__ float4 dyn4[];
+  float* s_dev = reinterpret_cast<float*>(dyn4);  // [Acta][kMcThreads]
+  __shared__ __align__(16) float s_w[kMaxActa * C];
+  __shared__ float s_m[kMaxActa * S];
+  __shared__ int s_ids[kMaxActa * C];
+  __shared__ int s_lead[kMaxActa];
+  __shared__ int s_order[kMaxActa];
+  __shared__ float s_tot[kMaxActa];
+  stage_cells<S, C, kMcThreads>(cb, ids, w, m, s_ids, s_w, s_m, s_dev,
+                                s_lead, s_order);
 
-  const int ba = blockIdx.x;   // (toy, candidate), candidate fastest
-  const int b = ba / A;
-  for (int i = threadIdx.x; i < C; i += kThreads) {
-    s_ids[i] = ids[(size_t)ba * C + i];
-    s_w[i] = w[(size_t)ba * C + i];
-  }
-  for (int i = threadIdx.x; i < S; i += kThreads) s_m[i] = m[(size_t)ba * S + i];
-  __syncthreads();
-
-  float acc[1] = {0.f};
-  const float* obs_b = obs + (size_t)b * N;
-  const size_t row = (size_t)S * N;
-  for (int n = threadIdx.x; n < N; n += kThreads) {
-    float Pv[S];
+  mc_cell_pass<S, K>(
+      cb, anchor, nme, N, obs + (size_t)cb.b * N, s_ids, s_w, s_lead, s_order,
+      s_dev, [&](int a, const float (&P)[S], float Mn, float k) {
+        float lam = 0.f;
 #pragma unroll
-    for (int s = 0; s < S; ++s) Pv[s] = 0.f;
-    float Mn = 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const size_t gid = (size_t)s_ids[c];
-      const float* a = anchor + gid * row + n;
-      const float wc = s_w[c];
-      Mn = fmaf(wc, __ldg(nme + gid * N + n), Mn);
-#pragma unroll
-      for (int s = 0; s < S; ++s) Pv[s] = fmaf(wc, __ldg(a + (size_t)s * N), Pv[s]);
-    }
-    float lam = 0.f;
-#pragma unroll
-    for (int s = 0; s < S; ++s) lam = fmaf(s_m[s], Pv[s], lam);
-    acc[0] += lite_parts(lam, Mn, obs_b[n]).value;
-  }
-
-  block_sum<1>(acc, s_red, s_tot);
-  if (threadIdx.x == 0) ll_out[ba] = s_tot[0];
+        for (int s = 0; s < S; ++s) lam = fmaf(s_m[a * S + s], P[s], lam);
+        return lite_parts(lam, Mn, k).value;
+      });
+  cell_sums<kMcThreads>(cb, s_dev, s_tot, ll_out);
 }
 
 }  // namespace
@@ -276,18 +268,20 @@ int bt_bblite_ll_multi(int S, int K, int N, int B, int A,
                        float* ll, cudaStream_t stream) {
   if (B <= 0 || A <= 0) return 0;
   cudaGetLastError();
+  if (S < 1 || S > 8 || K < 0 || K > 4) return -1;
+  if (N <= 0)
+    return (int)cudaMemsetAsync(ll, 0, sizeof(float) * B * A, stream);
+  cudaError_t err = cudaSuccess;
 #define BT_LL_CASE(S_, K_)                                                 \
   case (S_) * 8 + (K_):                                                    \
-    bblite_ll_kernel<S_, K_><<<B * A, kThreads, 0, stream>>>(              \
-        anchor, nme, N, A, ids, w, m, obs, ll);                            \
+    err = launch_cells<bblite_ll_kernel<S_, K_>, kMcThreads>(               \
+        N, B, A, stream, anchor, nme, ids, w, m, obs, ll);                 \
     break;
   switch (S * 8 + K) {
     BT_FOR_SK(BT_LL_CASE)
-    default:
-      return -1;
   }
 #undef BT_LL_CASE
-  return (int)cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // extern "C"

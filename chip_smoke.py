@@ -41,9 +41,10 @@ For each path:
    to 0 just before and read just after: the path's own two kernels must
    have launched, the others not; the profile statistic is checked against
    the reference's statistics (median t band, mean fitted target in
-   (0.7, 1.3)); on xenon, then, the value kernel over one profile's own
-   calls (``replay_value_calls``: every call recorded, their launches
-   replayed from CUDA graphs, summed time beside summed bound);
+   (0.7, 1.3)); on the binned paths (xenon, bb, bb-lite), then, the value
+   kernel over one profile's own calls (``replay_value_calls``: every call
+   recorded, their launches replayed from CUDA graphs, summed time beside
+   summed bound);
 3. the same toys (counts, or event sets) fitted on CUDA in float32 and on
    the CPU in float64 (plain versions): max |d max_ll| <= 0.05, median
    |d t| <= 0.01.
@@ -61,7 +62,10 @@ Then the roofline part (``blueice_tpu_torch.utils.roofline``):
    (``roofline_record``), printed as a table, and per kernel warm and
    L2-cold (an L2-cold HBM share above 100% fails).
 
-It takes no options; ``measure_unbinned.py`` holds the torch.profiler
+Run with no arguments, as above, it is the smoke test. Path names as
+arguments (``python3 chip_smoke.py bb bblite``) run those paths alone and
+no roofline part: a quicker measurement of their kernels, which prints the
+same lines for them. ``measure_unbinned.py`` holds the torch.profiler
 account and the engine A/B of the unbinned paths.
 
 Any failure raises (exit code != 0, no result line). Without CUDA it exits
@@ -547,50 +551,88 @@ def distinct_per_row(x):
     return 1 + (s[:, 1:] != s[:, :-1]).sum(-1) - (s[:, 0] < 0).long()
 
 
-def replay_value_calls(study, mods, rows):
-    """The xenon value kernel over the profile's own calls: every call of
-    ``fused.binned_ll_fused_multi`` in one 512-toy ``profile_ts`` (seed 0,
-    a fresh study whose fitters take the wrapper through a recorder; the
-    kernels are built and loaded) is recorded with its inputs cloned; each
-    call's launcher is then built once, the launches of each candidate
-    count A captured in one CUDA graph in call order, and the replays timed
-    (``roofline.launch_elapsed_s``). Prints the calls, their mean lanes L,
-    candidates A and distinct corner rows U per toy (and per group of 8
-    candidates, what one CTA stages), the summed kernel time and the summed
-    bound; adds them to the value kernel's row."""
-    from blueice_tpu_torch.utils.roofline import (bound, distinct_rows,
-                                                  launch_elapsed_s, work)
-    fused = mods['fused']
-    _, target, n_toys, _, _ = PATHS['xenon']
-    wrapper, calls = fused.binned_ll_fused_multi, []
+# The binned value wrappers a profile's calls are recorded from: label ->
+# (module, wrapper, launcher, leading arguments shared by every call: the
+# anchor tensor and, on bb and bb-lite, the MC-count rows)
+VALUE_CALLS = {
+    'xenon': ('fused', 'binned_ll_fused_multi', 'binned_ll_launcher', 1),
+    'bb': ('fused_bb', 'binned_bb_ll_fused_multi', 'binned_bb_ll_launcher',
+           2),
+    'bblite': ('fused_bb_lite', 'binned_bblite_ll_fused_multi',
+               'binned_bblite_ll_launcher', 2),
+}
 
-    def recorder(anchor, strides, idx, t, m, observed):
-        calls.append((anchor, strides, idx.clone(), t.clone(), m.clone(),
-                      observed.clone()))
-        return wrapper(anchor, strides, idx, t, m, observed)
+
+def record_value_calls(label, study, mods, seed=0, n_toys=None):
+    """Every call of the path's value wrapper (``VALUE_CALLS``) in one
+    ``profile_ts`` of ``n_toys`` toys (default: the path's; a fresh study
+    like ``study``, whose
+    fitters take the wrapper through a recorder; the wrapper is put back
+    after): a list of each call's arguments, the per-call inputs cloned
+    and the anchor tensor and MC-count rows shared, as on the path."""
+    mod_name, name, _, shared = VALUE_CALLS[label]
+    module = mods[mod_name]
+    _, target, path_toys, _, _ = PATHS[label]
+    wrapper, calls = getattr(module, name), []
+
+    def recorder(*args):
+        calls.append(args[:shared] + tuple(
+            a.clone() if torch.is_tensor(a) else a for a in args[shared:]))
+        return wrapper(*args)
     recorder.launches = 0
-    fused.binned_ll_fused_multi = recorder      # read when fitters are built
+    setattr(module, name, recorder)             # read when fitters are built
     try:
         fresh = type(study)(study.lf, dtype=study.compiled.dtype,
                             device=study.device, max_iter=study.max_iter,
                             tol=study.tol, engine=study.engine)
-        fresh.profile_ts(0, n_toys=n_toys, target=target, hypothesis=1.0)
-        torch.cuda.synchronize()
+        fresh.profile_ts(seed, n_toys=n_toys or path_toys, target=target,
+                         hypothesis=1.0)
     finally:
-        fused.binned_ll_fused_multi = wrapper
+        setattr(module, name, wrapper)
+    return calls
 
+
+def time_value_calls(launcher, calls, shared):
+    """{A: summed ms} of recorded value calls (``record_value_calls``; the
+    first ``shared`` arguments are the shared tensors): one launcher built
+    per call, the launches of each candidate count A captured in one CUDA
+    graph in call order, and the replays timed
+    (``roofline.launch_elapsed_s``)."""
+    from blueice_tpu_torch.utils.roofline import launch_elapsed_s
+    by_A = {}
+    for args in calls:
+        A = args[shared + 1].shape[1]
+        by_A.setdefault(A, []).append(launcher(*args)[0])
+    return {A: 1e3 * len(fns) * launch_elapsed_s(fns, len(fns))
+            for A, fns in sorted(by_A.items())}
+
+
+def replay_value_calls(label, study, mods, rows):
+    """The binned value kernel over the profile's own calls
+    (``record_value_calls``, seed 0; the kernels are built and loaded),
+    replayed from CUDA graphs (``time_value_calls``). Prints the calls,
+    their mean lanes L, candidates A and distinct corner rows U per toy
+    (and per group of 8 candidates), the summed kernel time and the summed
+    bound (the MC-count row counted among the rows a corner reads); adds
+    them to the value kernel's row."""
+    from blueice_tpu_torch.utils.roofline import bound, distinct_rows, work
+    mod_name, name, launcher_name, shared = VALUE_CALLS[label]
+    calls = record_value_calls(label, study, mods)
+    torch.cuda.synchronize()
     if not calls:
-        raise AssertionError("xenon: the profile made no value-kernel call")
+        raise AssertionError("%s: the profile made no value-kernel call"
+                             % label)
+    fused = mods['fused']
     compiled = study.compiled
     K, S = len(compiled.shape_names), len(compiled.rate_names)
     G = compiled.mus_tensor.numel() // S
-    by_A, stats = {}, dict(lanes=0, cands=0, toy_rows=0, groups=0,
-                           group_rows=0, bound_ms=0.0)
-    for anchor, strides, idx, t, m, obs in calls:
+    R = S + (shared > 1)                        # rows a corner reads
+    stats = dict(lanes=0, cands=0, toy_rows=0, groups=0, group_rows=0,
+                 bound_ms=0.0)
+    for args in calls:
+        anchor, (strides, idx) = args[0], args[shared:shared + 2]
         L, A = idx.shape[:2]
         N = anchor.shape[-1]
-        by_A.setdefault(A, []).append(fused.binned_ll_launcher(
-            anchor, strides, idx, t, m, obs)[0])
         ids = fused.corner_ids(strides, idx, G)                 # (L, A, C)
         n_grp = -(-A // 8)
         grouped = torch.nn.functional.pad(ids, (0, 0, 0, 8 * n_grp - A),
@@ -602,11 +644,12 @@ def replay_value_calls(study, mods, rows):
         stats['lanes'] += L
         stats['cands'] += L * A
         nbytes, flops = work('value', S, K, (L, A),
-                             row_floats=S * distinct_rows(ids) * N,
-                             data_bytes=L * N * 4, items=L * A * N)
+                             row_floats=R * distinct_rows(ids) * N,
+                             data_bytes=L * N * 4, items=L * A * N,
+                             mc_rows=R > S)
         stats['bound_ms'] += bound(nbytes, flops)[0]
-    per_A = {A: 1e3 * len(fns) * launch_elapsed_s(fns, len(fns))
-             for A, fns in sorted(by_A.items())}
+    per_A = time_value_calls(getattr(mods[mod_name], launcher_name), calls,
+                             shared)
     n = len(calls)
     out = dict(replay_calls=n, replay_ms=sum(per_A.values()),
                replay_bound_ms=stats['bound_ms'],
@@ -614,16 +657,17 @@ def replay_value_calls(study, mods, rows):
                replay_mean_A=stats['cands'] / stats['lanes'],
                replay_mean_U_toy=stats['toy_rows'] / stats['lanes'],
                replay_mean_U_group=stats['group_rows'] / stats['groups'])
-    log("xenon value kernel over one profile's own calls: %d calls, mean "
+    log("%s value kernel over one profile's own calls: %d calls, mean "
         "lanes L %.1f, mean A %.2f (lane-weighted), mean distinct corner "
         "rows U %.2f a toy, %.2f a group of 8 candidates; kernel time "
         "summed %.4f ms (%s), bound summed %.4f ms"
-        % (n, out['replay_mean_lanes'], out['replay_mean_A'],
+        % (label, n, out['replay_mean_lanes'], out['replay_mean_A'],
            out['replay_mean_U_toy'], out['replay_mean_U_group'],
            out['replay_ms'], ', '.join('A=%d: %d calls %.4f ms' % (
-               A, len(by_A[A]), ms) for A, ms in per_A.items()),
+               A, sum(a[shared + 1].shape[1] == A for a in calls), ms)
+               for A, ms in per_A.items()),
            out['replay_bound_ms']))
-    next(r for r in rows if r['name'] == 'binned_ll_fused_multi').update(out)
+    next(r for r in rows if r['name'] == name).update(out)
 
 
 def two_precisions(label, study, cls):
@@ -685,8 +729,8 @@ def run_path(label, mods, api):
     check_on_card(label, study.compiled)
     rows = kernel_rows(label, study, mods)
     main_path(label, study, mods, rows)
-    if label == 'xenon':
-        replay_value_calls(study, mods, rows)
+    if label in VALUE_CALLS:
+        replay_value_calls(label, study, mods, rows)
     two_precisions(label, study, cls)
     return rows
 
@@ -780,9 +824,14 @@ def roofline_part(mods):
     return rows
 
 
-def main():
+def main(labels):
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    unknown = [label for label in labels if label not in PATHS]
+    if unknown:
+        print("chip_smoke: unknown path %s (paths: %s)"
+              % (', '.join(unknown), ', '.join(PATHS)), file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from blueice_tpu_torch import likelihood, test_helpers
@@ -816,11 +865,12 @@ def main():
         log("sass " + line)
 
     rows = []
-    for label in PATHS:
+    for label in labels or PATHS:
         rows += run_path(label, mods, api)
-    t0 = time.time()
-    rows += roofline_part(mods)
-    log("roofline part: %.1f s" % (time.time() - t0))
+    if not labels:
+        t0 = time.time()
+        rows += roofline_part(mods)
+        log("roofline part: %.1f s" % (time.time() - t0))
 
     log(roofline.card_line())
     print(json.dumps({'kernels': rows}))
@@ -831,4 +881,4 @@ def main():
 
 
 if __name__ == '__main__':
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -84,11 +84,12 @@ def test_value_kernel_matches_plain(cuda_device, K):
     np.testing.assert_allclose(out.cpu(), ref.cpu(), rtol=1e-5)
 
 
-#: The value kernel's cases: name -> (S, K, N, B, A, candidates). It loads
-#: a grid cell's corner rows once for all of the toy's candidates in that
-#: cell (equal corner-id tuples, clamped ones included), splits a toy's
-#: bins over a cluster of up to 8 blocks and, with few toys, its candidates
-#: over several blocks.
+#: The value kernels' cases: name -> (S, K, N, B, A, candidates[, bb
+#: source]). The three binned value kernels (binned, bb, bb-lite) load a
+#: grid cell's corner rows once for all of the toy's candidates in that
+#: cell (equal corner-id tuples, clamped ones included), split a toy's bins
+#: over a cluster of up to 8 blocks and, with few toys or more than 64
+#: candidates, its candidates over several blocks.
 VALUE_CASES = {
     'shared_corners': (6, 4, 3100, 16, 12, 'shared'),
     'rate_only': (6, 4, 3100, 16, 20, 'rate_only'),
@@ -98,11 +99,18 @@ VALUE_CASES = {
     'A1': (6, 4, 3100, 64, 1, 'random'),
     'A20': (6, 4, 3100, 64, 20, 'random'),
     'A33': (6, 4, 3100, 16, 33, 'random'),
+    'A65_two_groups': (6, 4, 3100, 8, 65, 'random'),
     'B1_many_ranges': (6, 4, 3100, 1, 12, 'random'),
     'K0': (6, 0, 3100, 16, 12, 'random'),
     'S8_K4': (8, 4, 1000, 16, 12, 'random'),
     'N_odd': (6, 4, 301, 16, 12, 'random'),
 }
+#: Beeston-Barlow only: the finite source first and last (a runtime index)
+BB_VALUE_CASES = {
+    'bb_first_source': (6, 4, 3100, 16, 12, 'shared', 0),
+    'bb_last_source': (6, 4, 3100, 16, 12, 'shared', 5),
+}
+VALUE_MODES = ('binned', 'bb', 'bblite')
 
 
 def _value_case(S_, K, N_, B_, A_, kind, device, seed=0):
@@ -115,6 +123,7 @@ def _value_case(S_, K, N_, B_, A_, kind, device, seed=0):
     idx = rng.integers(0, 2, (B_, A_, K))
     t = rng.random((B_, A_, K))
     m = rng.random((B_, A_, S_)) * 10 + 1
+    nme = rng.uniform(0.5, 40.0, (G, N_))
     if kind in ('shared', 'rate_only'):
         idx[:] = idx[:, :1]
         if kind == 'rate_only':
@@ -132,15 +141,37 @@ def _value_case(S_, K, N_, B_, A_, kind, device, seed=0):
     def f32(x):
         return torch.as_tensor(x, dtype=torch.float32, device=device)
     return (f32(anchor), strides, torch.as_tensor(idx, device=device),
-            f32(t), f32(m), f32(observed))
+            f32(t), f32(m), f32(observed), f32(nme))
+
+
+def _value_ops(mode, nme, bb_i):
+    """(module, wrapper name, kernel, plain) of a binned value contract,
+    each called as f(anchor, strides, idx, t, m, observed)."""
+    if mode == 'binned':
+        return (fused, 'binned_ll_fused_multi', fused.binned_ll_fused_multi,
+                fused.binned_ll_plain)
+    module = fused_bb if mode == 'bb' else fused_bb_lite
+    name = 'binned_%s_ll_fused_multi' % mode
+    extra = (bb_i,) if mode == 'bb' else ()
+
+    def bind(fn):
+        return lambda anchor, *rest: fn(anchor, nme, *rest, *extra)
+    return (module, name, bind(getattr(module, name)),
+            bind(getattr(module, 'binned_%s_ll_plain' % mode)))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(VALUE_CASES))
-def test_value_kernel_cases(cuda_device, case):
-    S_, K, N_, B_, A_, kind = VALUE_CASES[case]
-    args = _value_case(S_, K, N_, B_, A_, kind, cuda_device)
-    anchor, strides, idx = args[:3]
+@pytest.mark.parametrize("mode,case", [
+    (mode, case) for mode in VALUE_MODES for case in sorted(VALUE_CASES)]
+    + [('bb', case) for case in sorted(BB_VALUE_CASES)])
+def test_value_kernel_cases(cuda_device, mode, case):
+    S_, K, N_, B_, A_, kind, *bb = (VALUE_CASES.get(case)
+                                    or BB_VALUE_CASES[case])
+    anchor, strides, idx, t, m, observed, nme = _value_case(
+        S_, K, N_, B_, A_, kind, cuda_device)
+    args = (anchor, strides, idx, t, m, observed)
+    module, name, kernel, plain = _value_ops(mode, nme,
+                                             bb[0] if bb else BB_I)
     ids = fused.corner_ids(strides, idx, anchor.shape[0])
     if kind == 'edge':
         srt = ids.sort(-1).values
@@ -148,15 +179,15 @@ def test_value_kernel_cases(cuda_device, case):
     if kind == 'all_cells':
         for toy in ids:
             assert toy.unique().numel() == anchor.shape[0]
-    fused.reset_launch_counts()
-    out = fused.binned_ll_fused_multi(*args)
-    ref = fused.binned_ll_plain(*args)
+    module.reset_launch_counts()
+    out = kernel(*args)
+    ref = plain(*args)
     torch.cuda.synchronize()
-    assert fused.launch_counts()['binned_ll_fused_multi'] == 1
+    assert module.launch_counts()[name] == 1
     assert out.shape == (B_, A_)
     np.testing.assert_allclose(out.cpu(), ref.cpu(), rtol=1e-5)
     # fixed-order sums, no float atomics: a rerun is bit-identical
-    again = fused.binned_ll_fused_multi(*args)
+    again = kernel(*args)
     torch.cuda.synchronize()
     assert torch.equal(out, again)
 

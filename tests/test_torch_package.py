@@ -54,7 +54,8 @@ def test_imports_without_jax():
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="runs without CUDA")
-@pytest.mark.parametrize('script', ['chip_smoke.py', 'measure_unbinned.py'])
+@pytest.mark.parametrize('script', ['chip_smoke.py', 'measure_unbinned.py',
+                                    'measure_value_replay.py'])
 def test_chip_scripts_exit_without_cuda(script):
     """The GPU scripts stop with code 2 and print no result line when CUDA
     is missing, in a process that cannot import jax."""
@@ -167,3 +168,61 @@ def test_kernel_inputs_are_checked():
     with pytest.raises(ValueError, match='anchor'):
         fused.binned_ll_fused_multi(anchor[0], (3, 1), idx[:, None], t[:, None],
                                     torch.ones((3, 1, 2)), torch.ones((3, 5)))
+
+
+@pytest.mark.parametrize('label', ['xenon', 'bb', 'bblite'])
+def test_chip_smoke_records_a_profiles_value_calls(label):
+    """chip_smoke.py's recorder (what its value-kernel replay times) sees
+    every call of the path's value wrapper in one profile, with the shared
+    anchor tensor (and MC-count rows) passed through and the per-call
+    inputs cloned, and puts the wrapper back."""
+    import runpy
+    from blueice_tpu_torch.ops import fused_bb, fused_bb_lite
+    from blueice_tpu_torch.utils import roofline
+    smoke = runpy.run_path(str(Path(__file__).resolve().parents[1]
+                               / 'chip_smoke.py'))
+    set_progress(False)
+    mods = dict(fused=fused, fused_bb=fused_bb, fused_bb_lite=fused_bb_lite,
+                fused_unbinned=fused_unbinned, roofline=roofline)
+    mod_name, name, launcher, shared = smoke['VALUE_CALLS'][label]
+    module = mods[mod_name]
+    wrapper = getattr(module, name)
+    assert callable(getattr(module, launcher))
+    lf = build_likelihood('binned', bb={'xenon': False, 'bb': True,
+                                        'bblite': 'bb_lite'}[label], **SIZE)
+    study = BinnedToyStudy(lf, device='cpu', max_iter=30, engine='fused')
+    calls = smoke['record_value_calls'](label, study, mods, n_toys=3)
+    assert getattr(module, name) is wrapper
+    assert len(calls) >= 2
+    # the anchor tensor and MC-count rows are the fitters' own (one set for
+    # the free fit, one for the conditional one), never copies a call
+    for i in range(shared):
+        assert len({args[i].data_ptr() for args in calls}) <= 2
+    for args in calls:
+        anchor = args[0]
+        assert len(args) == {'xenon': 6, 'bb': 8, 'bblite': 7}[label]
+        strides, idx, t, m, observed = args[shared:shared + 5]
+        L, A = idx.shape[:2]
+        assert t.shape == (L, A, len(strides)) and m.shape[:2] == (L, A)
+        assert observed.shape == (L, anchor.shape[-1])
+        # the recorded call reproduces what the wrapper computed
+        assert wrapper(*args).shape == (L, A)
+    assert len({args[shared + 1].data_ptr() for args in calls}) == len(calls)
+
+
+def test_value_replay_ab_finds_the_baselines_sources(tmp_path):
+    """measure_value_replay.py builds the baseline checkout's copy of each
+    value kernel's source, at the same place under its root."""
+    import runpy
+    from blueice_tpu_torch.ops import fused_bb, fused_bb_lite
+    script = runpy.run_path(str(Path(__file__).resolve().parents[1]
+                                / 'measure_value_replay.py'))
+    for module in (fused, fused_bb, fused_bb_lite):
+        name = Path(module.SOURCE).name
+        with pytest.raises(FileNotFoundError):
+            script['baseline_source'](module, str(tmp_path))
+        (tmp_path / 'blueice_tpu_torch' / 'csrc').mkdir(parents=True,
+                                                        exist_ok=True)
+        (tmp_path / 'blueice_tpu_torch' / 'csrc' / name).write_text('')
+        assert script['baseline_source'](module, str(tmp_path)) == str(
+            tmp_path / 'blueice_tpu_torch' / 'csrc' / name)
