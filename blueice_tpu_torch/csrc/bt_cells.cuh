@@ -29,25 +29,20 @@
 //
 // launch_cells sizes the grid to about two waves of the card: up to 8 bin
 // ranges a toy (one cluster), and with few lanes left the candidates split
-// over more CTAs. Its queries (SM count, occupancy, the dynamic shared
-// memory limit) run once a device and kernel, at the first launch: the
-// first launch of a shape must come before any CUDA-graph capture. The CTA
-// size is the kernel's: ll_kernel 256 threads (128 registers, two CTAs an
-// SM), the Beeston-Barlow kernels 128 (about 160 registers, three an SM).
+// over more CTAs. The bin ranges, the cluster's rank-ordered sum and the
+// launch queries (once a device and kernel, at the first launch: the first
+// launch of a shape must come before any CUDA-graph capture) are
+// bt_ranges.cuh's, shared with the Beeston-Barlow vgh kernels. The CTA size
+// is the kernel's: ll_kernel 256 threads (128 registers, two CTAs an SM),
+// the Beeston-Barlow kernels 128 (about 160 registers, three an SM).
 
 #pragma once
 
-#include <algorithm>
-
-#include <cooperative_groups.h>
-
-#include "bt_common.cuh"
+#include "bt_ranges.cuh"
 
 namespace bt {
 
 constexpr int kMaxActa = 64;                    // candidates a CTA, max
-constexpr int kMaxCluster = 8;                  // portable cluster size
-constexpr int kMaxDevices = 64;
 
 // A value CTA's place: its toy b, its candidates [cand0, cand0 + Aq) of the
 // (B, A) output, and its bins [lo, hi), range `range` of the toy's T
@@ -57,19 +52,16 @@ struct CellBlock {
 };
 
 __device__ __forceinline__ CellBlock cell_block(int N, int A, int Acta) {
-  namespace cg = cooperative_groups;
-  const cg::cluster_group cluster = cg::this_cluster();
+  const BinRange r = bin_range(N);
   CellBlock cb;
-  cb.T = (int)cluster.num_blocks();
-  cb.range = (int)cluster.block_rank();
+  cb.T = r.T;
+  cb.range = r.range;
   cb.b = blockIdx.x / cb.T;
   const int c0 = blockIdx.y * Acta;
   cb.Aq = min(Acta, A - c0);
   cb.cand0 = (size_t)cb.b * A + c0;
-  // The range's bins, split evenly over T in whole warps' worth
-  const int chunks32 = (N + 31) / 32;
-  cb.lo = (int)((long long)cb.range * chunks32 / cb.T) * 32;
-  cb.hi = min(N, (int)((long long)(cb.range + 1) * chunks32 / cb.T) * 32);
+  cb.lo = r.lo;
+  cb.hi = r.hi;
   return cb;
 }
 
@@ -140,36 +132,8 @@ __device__ inline void cell_sums(const CellBlock& cb, const float* s_dev,
     if (lane == 0) s_tot[a] = x;
   }
   cluster.sync();
-  if (cb.range == 0 && t < cb.Aq) {
-    float x = 0.f;
-    for (int r = 0; r < cb.T; ++r) x += cluster.map_shared_rank(s_tot, r)[t];
-    out[cb.cand0 + t] = x;
-  }
+  if (cb.range == 0 && t < cb.Aq) out[cb.cand0 + t] = rank_sum(s_tot, t);
   cluster.sync();   // the ranges' s_tot stay alive until rank 0 has read
-}
-
-// The CTAs of NT threads one SM holds, once per (device, kernel, Acta),
-// and the dynamic shared memory limit, once per (device, kernel), both set
-// up at the first launch (outside any CUDA-graph capture)
-template <auto Kernel, int NT>
-cudaError_t cell_occupancy(int device, int Acta, int* per_sm) {
-  static int cache[kMaxDevices][kMaxActa + 1];
-  static bool ready[kMaxDevices];
-  if (!ready[device]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)(sizeof(float) * kMaxActa * NT));
-    if (err != cudaSuccess) return err;
-    ready[device] = true;
-  }
-  int& slot = cache[device][Acta];
-  if (slot == 0) {
-    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &slot, Kernel, NT, sizeof(float) * Acta * NT);
-    if (err != cudaSuccess) return err;
-  }
-  *per_sm = slot;
-  return cudaSuccess;
 }
 
 // Launches Kernel(N, A, Acta, args...) in CTAs of NT threads for B toys of
@@ -178,16 +142,10 @@ cudaError_t cell_occupancy(int device, int Acta, int* per_sm) {
 template <auto Kernel, int NT, typename... Args>
 cudaError_t launch_cells(int N, int B, int A, cudaStream_t stream,
                          Args... args) {
-  static int sms_of[kMaxDevices];
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  int device = 0, sms = 0;
+  cudaError_t err = current_device(&device);
+  if (err == cudaSuccess) err = sm_count(device, &sms);
   if (err != cudaSuccess) return err;
-  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (sms_of[device] == 0) {
-    err = cudaDeviceGetAttribute(&sms_of[device],
-                                 cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return err;
-  }
   // A CTA takes all of a toy's candidates (up to kMaxActa); while even
   // kMaxCluster bin ranges a toy would leave the card under two waves, the
   // candidates split over twice as many CTAs, down to one a CTA. Then as
@@ -197,30 +155,18 @@ cudaError_t launch_cells(int N, int B, int A, cudaStream_t stream,
   for (;;) {
     Acta = (A + groups - 1) / groups;
     groups = (A + Acta - 1) / Acta;
-    err = cell_occupancy<Kernel, NT>(device, Acta, &per_sm);
+    err = occupancy<Kernel, NT, kMaxActa + 1>(
+        device, Acta, sizeof(float) * Acta * NT,
+        sizeof(float) * kMaxActa * NT, &per_sm);
     if (err != cudaSuccess) return err;
-    wave2 = 2LL * sms_of[device] * (per_sm > 0 ? per_sm : 1);
+    wave2 = 2LL * sms * (per_sm > 0 ? per_sm : 1);
     ctas = (long long)B * groups;
     if (ctas * kMaxCluster >= wave2 || Acta == 1) break;
     groups *= 2;
   }
-  const int T = (int)std::min<long long>(
-      std::min(kMaxCluster, (N + 31) / 32),
-      std::max(1LL, (wave2 + ctas - 1) / ctas));
-
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(B * T), (unsigned)groups, 1);
-  cfg.blockDim = dim3(NT, 1, 1);
-  cfg.dynamicSmemBytes = sizeof(float) * Acta * NT;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)T;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, Kernel, N, A, Acta, args...);
+  return launch_cluster<Kernel>(B, groups, ranges_for(ctas, wave2, N), NT,
+                                sizeof(float) * Acta * NT, stream, N, A,
+                                Acta, args...);
 }
 
 

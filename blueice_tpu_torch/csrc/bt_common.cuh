@@ -13,13 +13,15 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr float kPenalty = 1e6f;
 
-// Sum each of NV per-thread values over the block in a fixed order (warp
-// shuffles, then the warps' partials in shared memory); the totals land in
-// tot[0..NV) (shared memory), visible after the call. No float atomics, so
-// a rerun on the same inputs is bit-identical.
-template <int NV>
+// Sum each of NV per-thread values over the block of NT threads in a fixed
+// order (warp shuffles, then the warps' partials in shared memory, red
+// holding NT / 32 * NV floats); the totals land in tot[0..NV) (shared
+// memory), visible after the call. No float atomics, so a rerun on the same
+// inputs is bit-identical.
+template <int NV, int NT = kThreads>
 __device__ __forceinline__ void block_sum(float (&v)[NV], float* red,
                                           float* tot) {
+  constexpr int kNW = NT / 32;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
@@ -31,10 +33,10 @@ __device__ __forceinline__ void block_sum(float (&v)[NV], float* red,
     if (lane == 0) red[warp * NV + i] = x;
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < NV; i += kThreads) {
+  for (int i = threadIdx.x; i < NV; i += NT) {
     float s = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += red[w * NV + i];
+    for (int w = 0; w < kNW; ++w) s += red[w * NV + i];
     tot[i] = s;
   }
   __syncthreads();
@@ -46,15 +48,16 @@ __host__ __device__ constexpr int tri(int P, int i, int j) {
   return i * P - i * (i - 1) / 2 + (j - i);
 }
 
-// Writes the block's reduced (ll, g, packed upper H) totals of one toy.
-template <int P>
+// Writes the block's reduced (ll, g, packed upper H) totals of one toy
+// (a block of NT threads).
+template <int P, int NT = kThreads>
 __device__ __forceinline__ void store_vgh(const float* tot, int b,
                                           float* ll_out, float* g_out,
                                           float* h_out) {
   if (threadIdx.x == 0) ll_out[b] = tot[0];
-  for (int i = threadIdx.x; i < P; i += kThreads)
+  for (int i = threadIdx.x; i < P; i += NT)
     g_out[(size_t)b * P + i] = tot[1 + i];
-  for (int ij = threadIdx.x; ij < P * P; ij += kThreads) {
+  for (int ij = threadIdx.x; ij < P * P; ij += NT) {
     const int i = ij / P, j = ij % P;
     const int lo = i < j ? i : j, hi = i < j ? j : i;
     h_out[(size_t)b * P * P + ij] = tot[1 + P + tri(P, lo, hi)];

@@ -7,7 +7,9 @@
 //   bb_vgh_kernel  deviance-form ll, gradient g (P) and Hessian H (P x P) in
 //                  (m, t), P = S + K, of the likelihood with source bb's
 //                  per-bin expectation profiled by the closed-form
-//                  Beeston-Barlow root; one toy per block. Replaces the
+//                  Beeston-Barlow root, in the bin ranges of
+//                  bt_ranges.cuh (one block per toy and bin range, a toy's
+//                  ranges one cluster). Replaces the
 //                  Pallas kernels _bb_vgh_kernel (blueice_tpu/ops/
 //                  fused_bb.py:191, gather flavor) and _bb_vgh_kernel_dense
 //                  (fused_bb.py:458, dense flavor).
@@ -33,25 +35,33 @@
 // Global sums: T = sum_n Nb and its t-derivatives enter every bin, so they
 // are needed before the per-bin pass. They are linear in the corner rows,
 // so the wrapper passes per-anchor totals tot[g] = sum_n nme[g, n] (summed
-// in float64) and each block combines them with its corner weights:
+// in float64) and each block (every range) combines them with its corner
+// weights:
 // T = sum_c w_c tot[id_c], SN_k = sum_c wd_kc tot[id_c], SXN_de =
 // sum_c wx_dec tot[id_c]. No pre-pass over the bins, no extra traffic.
 //
-// What bounds them on an H100: the corner gathers, (S + 1) * 2^K rows per
-// bin, served from the 50 MB L2 (the 6 MB pmf anchors and 1 MB count rows
-// fit it many times over); neighbouring threads take neighbouring bins, so
-// every gather is a coalesced row read. The vgh's per-bin work is the root
-// and its 5 + 14 partials plus the (S+K)(S+K+1)/2 Hessian updates; the
-// Jacobian of the five inputs is sparse (the M row is one-hot at bb, the T
-// row carries only SN on the t columns, the Pb and Nb rows only the t
-// columns), and the kernel multiplies only its nonzero blocks. The value
-// kernel reads a cell's rows once per bin for all of the toy's candidates
-// in that cell, so where they share cells the per-candidate combine and
-// root set its pace.
+// What bounds them on an H100: float32 issue and the latency of the corner
+// gathers, (S + 1) * 2^K rows per bin, served from the 50 MB L2 (the 6 MB
+// pmf anchors and 1 MB count rows fit it many times over); neighbouring
+// threads take neighbouring bins, so every gather is a coalesced row read.
+// The vgh's per-bin work is the combine (bt::corner_tree: value, K
+// differences and K(K-1)/2 cross differences of each row by K lerp steps),
+// the root and its 5 + 14 partials, and the (S+K)(S+K+1)/2 Hessian updates;
+// the Jacobian of the five inputs is sparse (the M row is one-hot at bb,
+// the T row carries only SN on the t columns, the Pb and Nb rows only the t
+// columns), and the kernel multiplies only its nonzero blocks. The Newton
+// loop calls it on its live lanes only, often under 132 toys: a toy's bins
+// split over up to 8 blocks (launch_ranges, as many as the batch needs to
+// fill the card), 128-thread blocks whose ~66 accumulators, combine and
+// root fit the registers of two blocks an SM.
+// The value kernel reads a cell's rows once per bin for all of the toy's
+// candidates in that cell, so where they share cells the per-candidate
+// combine and root set its pace.
 //
-// Reductions: fixed order everywhere (per-thread register accumulators and
-// bt::block_sum for the vgh; bt::cell_sums for the value kernel), no float
-// atomics: reruns are bit-identical.
+// Reductions: fixed order everywhere (per-thread register accumulators,
+// bt::block_sum and the cluster's ranges in rank order,
+// bt::cluster_vgh_sum, for the vgh; bt::cell_sums for the value kernel),
+// no float atomics: reruns are bit-identical.
 //
 // Built by blueice_tpu_torch/ops/fused.py (nvcc -gencode
 // arch=compute_90a,code=sm_90a -O3 -shared) and loaded with ctypes; the C
@@ -65,12 +75,11 @@ namespace {
 
 using namespace bt;
 
-// The block's global sums from per-anchor MC totals (see the header):
-// glob = [T, SN_0..SN_{K-1}, SXN_0..SXN_{NP-1}], computed by thread 0 in a
-// fixed order.
+// The block's global sums from the per-anchor MC totals of its corners
+// (s_tc, see the header): glob = [T, SN_0..SN_{K-1}, SXN_0..SXN_{NP-1}],
+// computed by thread 0 in a fixed order.
 template <int K>
-__device__ __forceinline__ void global_sums(const float* __restrict__ tot,
-                                            const int* s_ids,
+__device__ __forceinline__ void global_sums(const float* s_tc,
                                             const float* s_w,
                                             const float* s_wd,
                                             const float* s_wx, float* glob) {
@@ -80,8 +89,9 @@ __device__ __forceinline__ void global_sums(const float* __restrict__ tot,
     float acc[1 + K + NP];
 #pragma unroll
     for (int i = 0; i < 1 + K + NP; ++i) acc[i] = 0.f;
+#pragma unroll
     for (int c = 0; c < C; ++c) {
-      const float tc = tot[s_ids[c]];
+      const float tc = s_tc[c];
       acc[0] = fmaf(s_w[c], tc, acc[0]);
 #pragma unroll
       for (int d = 0; d < K; ++d) acc[1 + d] = fmaf(s_wd[d * C + c], tc, acc[1 + d]);
@@ -95,7 +105,7 @@ __device__ __forceinline__ void global_sums(const float* __restrict__ tot,
 }
 
 template <int S, int K>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kVghThreads, kVghBlocks)
 bb_vgh_kernel(const float* __restrict__ anchor, const float* __restrict__ nme,
               const float* __restrict__ tot, int N, int bb,
               const int* __restrict__ ids, const float* __restrict__ w,
@@ -110,104 +120,96 @@ bb_vgh_kernel(const float* __restrict__ anchor, const float* __restrict__ nme,
   constexpr int NV = 1 + P + NH;      // ll, g, packed upper H
   constexpr int KD = K > 0 ? K : 1;   // no zero-length arrays
   constexpr int NPD = NP > 0 ? NP : 1;
+  constexpr int NT = kVghThreads;
 
   __shared__ int s_ids[C];
-  __shared__ float s_w[C];
+  __shared__ float s_w[C], s_tc[C];
   __shared__ float s_wd[KD * C];
   __shared__ float s_wx[NPD * C];
   __shared__ float s_m[S];
+  __shared__ int s_rid[C], s_flip;
+  __shared__ float s_lw[KD];
   __shared__ float s_glob[1 + KD + NPD];
-  __shared__ float s_red[kWarps * NV];
+  __shared__ float s_red[NT / 32 * NV];
+  __shared__ float s_part[NV];
   __shared__ float s_tot[NV];
 
-  const int b = blockIdx.x;
-  for (int i = threadIdx.x; i < C; i += kThreads) {
+  const BinRange rg = bin_range(N);
+  const int b = blockIdx.x / rg.T;
+  for (int i = threadIdx.x; i < C; i += NT) {
     s_ids[i] = ids[(size_t)b * C + i];
     s_w[i] = w[(size_t)b * C + i];
+    s_tc[i] = tot[s_ids[i]];
   }
-  for (int i = threadIdx.x; i < K * C; i += kThreads)
+  for (int i = threadIdx.x; i < K * C; i += NT)
     s_wd[i] = wd[(size_t)b * K * C + i];
-  for (int i = threadIdx.x; i < NP * C; i += kThreads)
+  for (int i = threadIdx.x; i < NP * C; i += NT)
     s_wx[i] = wx[(size_t)b * NP * C + i];
-  for (int i = threadIdx.x; i < S; i += kThreads) s_m[i] = m[(size_t)b * S + i];
+  for (int i = threadIdx.x; i < S; i += NT) s_m[i] = m[(size_t)b * S + i];
   __syncthreads();
-  global_sums<K>(tot, s_ids, s_w, s_wd, s_wx, s_glob);
+  tree_cell<K>(s_ids, s_w, s_rid, s_lw, &s_flip);
+  if (threadIdx.x == 0) {
+    global_sums<K>(s_tc, s_w, s_wd, s_wx, s_glob);
+    flip_sums<K>(s_glob, s_flip);
+  }
   __syncthreads();
   const float T = s_glob[0];
   const float M = s_m[bb];
+  float lw[KD];
+#pragma unroll
+  for (int d = 0; d < KD; ++d) lw[d] = d < K ? s_lw[d] : 0.f;
 
   float acc[NV];
 #pragma unroll
   for (int i = 0; i < NV; ++i) acc[i] = 0.f;
+  float gb = 0.f, hbb = 0.f, hbm[S], hbt[KD];   // source bb's row, apart
+#pragma unroll
+  for (int i = 0; i < S; ++i) hbm[i] = 0.f;
+#pragma unroll
+  for (int d = 0; d < KD; ++d) hbt[d] = 0.f;
 
   const float* obs_b = obs + (size_t)b * N;
-  const size_t row = (size_t)S * N;
-  for (int n = threadIdx.x; n < N; n += kThreads) {
-    // Corner combination: per-source P and D, the other sources'
-    // m-weighted and the bb source's cross-pair second differences, and
-    // the bb MC-count row's value and differences
+  for (int n = rg.lo + threadIdx.x; n < rg.hi; n += NT) {
+    // Corner combination (bt::tree_rows): per-source P and D; source bb's
+    // value Pb, differences Dpb and cross differences Xp by a one-hot FMA
+    // chain (exact: the other terms add zeros; a select on the runtime
+    // index went through local memory); the other sources' m-weighted U,
+    // DU, Xu; and the bb MC-count row's Nb, DN, XN
     float Pv[S];
     float Dv[KD][S];
-    float Xu[NPD], Xp[NPD], DN[KD], XN[NPD];
-    float Nb = 0.f;
+    float Pb = 0.f, U = 0.f, Nb = 0.f;
+    float Dpb[KD], DU[KD], DN[KD], Xp[NPD], Xu[NPD], XN[NPD];
 #pragma unroll
-    for (int s = 0; s < S; ++s) {
-      Pv[s] = 0.f;
+    for (int d = 0; d < KD; ++d) Dpb[d] = DU[d] = DN[d] = 0.f;
 #pragma unroll
-      for (int d = 0; d < KD; ++d) Dv[d][s] = 0.f;
-    }
+    for (int p = 0; p < NPD; ++p) Xp[p] = Xu[p] = XN[p] = 0.f;
+    tree_rows<S, K>(
+        anchor, nme, N, n, s_rid, lw,
+        [&](const auto& a) {
+          Nb = a[0][0];
 #pragma unroll
-    for (int d = 0; d < KD; ++d) DN[d] = 0.f;
+          for (int d = 0; d < K; ++d) DN[d] = a[1 + d][0];
 #pragma unroll
-    for (int p = 0; p < NPD; ++p) Xu[p] = Xp[p] = XN[p] = 0.f;
-
+          for (int p = 0; p < NP; ++p) XN[p] = a[1 + K + p][0];
+        },
+        [&](int s, const auto& a) {
+          const float oh = s == bb ? 1.f : 0.f;
+          const float mo = s == bb ? 0.f : s_m[s];
+          Pv[s] = a[0][0];
+          Pb = __fmaf_rn(oh, a[0][0], Pb);
+          U = fmaf(mo, a[0][0], U);
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const size_t gid = (size_t)s_ids[c];
-      const float* a = anchor + gid * row + n;
-      const float wc = s_w[c];
-      const float nx = __ldg(nme + gid * N + n);
-      Nb = fmaf(wc, nx, Nb);
+          for (int d = 0; d < K; ++d) {
+            Dv[d][s] = a[1 + d][0];
+            Dpb[d] = __fmaf_rn(oh, a[1 + d][0], Dpb[d]);
+            DU[d] = fmaf(mo, a[1 + d][0], DU[d]);
+          }
 #pragma unroll
-      for (int d = 0; d < K; ++d) DN[d] = fmaf(s_wd[d * C + c], nx, DN[d]);
-#pragma unroll
-      for (int p = 0; p < NP; ++p) XN[p] = fmaf(s_wx[p * C + c], nx, XN[p]);
-      float xb = 0.f;
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        const float x = __ldg(a + (size_t)s * N);
-        Pv[s] = fmaf(wc, x, Pv[s]);
-#pragma unroll
-        for (int d = 0; d < K; ++d) Dv[d][s] = fmaf(s_wd[d * C + c], x, Dv[d][s]);
-        if (NP > 0) {
-          const float xo = s == bb ? 0.f : s_m[s] * x;
-#pragma unroll
-          for (int p = 0; p < NP; ++p) Xu[p] = fmaf(s_wx[p * C + c], xo, Xu[p]);
-        }
-        xb = s == bb ? x : xb;
-      }
-#pragma unroll
-      for (int p = 0; p < NP; ++p) Xp[p] = fmaf(s_wx[p * C + c], xb, Xp[p]);
-    }
-
-    // The root's inputs and their t-derivatives
-    float Pb = 0.f, U = 0.f;
-    float Dpb[KD], DU[KD];
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      Pb = s == bb ? Pv[s] : Pb;
-      U = s == bb ? U : fmaf(s_m[s], Pv[s], U);
-    }
-#pragma unroll
-    for (int d = 0; d < K; ++d) {
-      Dpb[d] = 0.f;
-      DU[d] = 0.f;
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        Dpb[d] = s == bb ? Dv[d][s] : Dpb[d];
-        DU[d] = s == bb ? DU[d] : fmaf(s_m[s], Dv[d][s], DU[d]);
-      }
-    }
+          for (int p = 0; p < NP; ++p) {
+            Xp[p] = __fmaf_rn(oh, a[1 + K + p][0], Xp[p]);
+            Xu[p] = fmaf(mo, a[1 + K + p][0], Xu[p]);
+          }
+        });
 
     const float k = obs_b[n];
     const BBParts bp = bb_lam_parts(Pb, Nb, U, M, T, k);
@@ -220,13 +222,11 @@ bb_vgh_kernel(const float* __restrict__ anchor, const float* __restrict__ nme,
 
     // dlam/d(m, t): m_s -> g2 * P_s (s != bb) or g3 (s == bb);
     // t_d -> g0 Dpb + g1 DN + g2 DU + g4 SN
-    float dl[P];
-#pragma unroll
-    for (int s = 0; s < S; ++s) dl[s] = s == bb ? bp.g[3] : bp.g[2] * Pv[s];
+    float dlt[KD];
 #pragma unroll
     for (int d = 0; d < K; ++d)
-      dl[S + d] = bp.g[0] * Dpb[d] + bp.g[1] * DN[d] + bp.g[2] * DU[d]
-                  + bp.g[4] * s_glob[1 + d];
+      dlt[d] = bp.g[0] * Dpb[d] + bp.g[1] * DN[d] + bp.g[2] * DU[d]
+               + bp.g[4] * s_glob[1 + d];
 
     // r * om: the input-space curvature weighted by this bin's residual
     const float r00 = r * bp.o00, r01 = r * bp.o01, r02 = r * bp.o02,
@@ -246,27 +246,43 @@ bb_vgh_kernel(const float* __restrict__ anchor, const float* __restrict__ nme,
       W4[d] = r04 * Dpb[d] + r14 * DN[d] + r44 * sn;
     }
     const float rg2 = r * bp.g[2];
+    const float qg2 = q * bp.g[2], qg3 = q * bp.g[3];
 
+    // g and the m rows of H, every source s taken as s != bb (J(m_s) =
+    // (0, 0, P_s, 0, 0), dlam/dm_s = g2 P_s); source bb's row and column
+    // (J(m_bb) = (0, 0, 0, 1, 0), dlam/dm_bb = g3) accumulate apart and
+    // replace them after the loop:
+    //   H(m_i, m_j) = (r22 - q g2^2) P_i P_j,
+    //   H(m_bb, m_j) = (r23 - q g3 g2) P_j, H(m_bb, m_bb) = r33 - q g3^2,
+    //   H(m_i, t_d) = P_i (W2_d - q g2 dl_d) + r g2 D[d][i]
+    //     (d2U/dm_i dt_d = D[d][i]),
+    //   H(m_bb, t_d) = W3_d - q g3 dl_d
 #pragma unroll
-    for (int i = 0; i < P; ++i) acc[1 + i] = fmaf(r, dl[i], acc[1 + i]);
-    // (m_i, m_j): J(m_s) = (0, 0, P_s, 0, 0) for s != bb, (0, 0, 0, 1, 0)
-    // for s == bb
+    for (int i = 0; i < S; ++i) acc[1 + i] = fmaf(rg2, Pv[i], acc[1 + i]);
+#pragma unroll
+    for (int d = 0; d < K; ++d)
+      acc[1 + S + d] = fmaf(r, dlt[d], acc[1 + S + d]);
+    gb = fmaf(r, bp.g[3], gb);
+    const float c22 = fmaf(-qg2, bp.g[2], r22);
+    const float c23 = fmaf(-qg3, bp.g[2], r23);
+    hbb += fmaf(-qg3, bp.g[3], r33);
+    float V[KD];
+#pragma unroll
+    for (int d = 0; d < K; ++d) {
+      V[d] = fmaf(-qg2, dlt[d], W2[d]);
+      hbt[d] += fmaf(-qg3, dlt[d], W3[d]);
+    }
 #pragma unroll
     for (int i = 0; i < S; ++i) {
-      const float qi = -q * dl[i];
+      const float ci = c22 * Pv[i];
+      hbm[i] = fmaf(c23, Pv[i], hbm[i]);
 #pragma unroll
-      for (int j = i; j < S; ++j) {
-        const float joj = i == bb ? (j == bb ? r33 : r23 * Pv[j])
-                                  : (j == bb ? r23 * Pv[i]
-                                             : r22 * Pv[i] * Pv[j]);
-        acc[1 + P + tri(P, i, j)] += fmaf(qi, dl[j], joj);
-      }
-      // (m_i, t_d), with d2U/dm_s dt_d = D[d][s] for s != bb
+      for (int j = i; j < S; ++j)
+        acc[1 + P + tri(P, i, j)] = fmaf(ci, Pv[j], acc[1 + P + tri(P, i, j)]);
 #pragma unroll
       for (int d = 0; d < K; ++d) {
-        const float joj = i == bb ? W3[d]
-                                  : fmaf(Pv[i], W2[d], rg2 * Dv[d][i]);
-        acc[1 + P + tri(P, i, S + d)] += fmaf(qi, dl[S + d], joj);
+        float& h = acc[1 + P + tri(P, i, S + d)];
+        h = fmaf(rg2, Dv[d][i], fmaf(Pv[i], V[d], h));
       }
     }
     // (t_d, t_e), with the inputs' cross-pair second differences
@@ -274,7 +290,7 @@ bb_vgh_kernel(const float* __restrict__ anchor, const float* __restrict__ nme,
       int p = 0;
 #pragma unroll
       for (int d = 0; d < K; ++d) {
-        const float qd = -q * dl[S + d];
+        const float qd = -q * dlt[d];
 #pragma unroll
         for (int e = d; e < K; ++e) {
           float joj = Dpb[d] * W0[e] + DN[d] * W1[e] + DU[d] * W2[e]
@@ -284,14 +300,32 @@ bb_vgh_kernel(const float* __restrict__ anchor, const float* __restrict__ nme,
                         + bp.g[4] * s_glob[1 + K + p]);
             ++p;
           }
-          acc[1 + P + tri(P, S + d, S + e)] += fmaf(qd, dl[S + e], joj);
+          acc[1 + P + tri(P, S + d, S + e)] += fmaf(qd, dlt[e], joj);
         }
       }
     }
   }
+  // Source bb's row and column of g and H
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    acc[1 + i] = i == bb ? gb : acc[1 + i];
+#pragma unroll
+    for (int j = i; j < S; ++j)
+      acc[1 + P + tri(P, i, j)] =
+          i == bb ? (j == bb ? hbb : hbm[j])
+                  : (j == bb ? hbm[i] : acc[1 + P + tri(P, i, j)]);
+#pragma unroll
+    for (int d = 0; d < K; ++d)
+      acc[1 + P + tri(P, i, S + d)] =
+          i == bb ? hbt[d] : acc[1 + P + tri(P, i, S + d)];
+  }
 
-  block_sum<NV>(acc, s_red, s_tot);
-  store_vgh<P>(s_tot, b, ll_out, g_out, h_out);
+  cluster_vgh_sum<NV, NT>(acc, s_red, s_part, s_tot);
+  if (rg.range == 0) {   // back from the reflected cell's coordinates
+    if (threadIdx.x == 0) flip_vgh<S, K>(s_tot, s_flip);
+    __syncthreads();
+    store_vgh<P, NT>(s_tot, b, ll_out, g_out, h_out);
+  }
 }
 
 // The value kernel, in the cell layout of bt_cells.cuh: one CTA per (toy,
@@ -364,10 +398,12 @@ int bt_bb_vgh(int S, int K, int N, int B, int bb, const float* anchor,
   if (B <= 0) return 0;
   if (bb < 0 || bb >= S) return -1;
   cudaGetLastError();   // clear a stale error so the return value is ours
+  cudaError_t err = cudaSuccess;
 #define BT_VGH_CASE(S_, K_)                                                \
   case (S_) * 8 + (K_):                                                    \
-    bb_vgh_kernel<S_, K_><<<B, kThreads, 0, stream>>>(                     \
-        anchor, nme, tot, N, bb, ids, w, wd, wx, m, obs, ll, g, h);        \
+    err = launch_ranges<bb_vgh_kernel<S_, K_>, kVghThreads>(                \
+        N, B, stream, anchor, nme, tot, N, bb, ids, w, wd, wx, m, obs, ll,  \
+        g, h);                                                             \
     break;
   switch (S * 8 + K) {
     BT_FOR_SK(BT_VGH_CASE)
@@ -375,7 +411,7 @@ int bt_bb_vgh(int S, int K, int N, int B, int bb, const float* anchor,
       return -1;
   }
 #undef BT_VGH_CASE
-  return (int)cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 int bt_bb_ll_multi(int S, int K, int N, int B, int A, int bb,

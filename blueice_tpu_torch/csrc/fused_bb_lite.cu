@@ -8,8 +8,10 @@
 //   bblite_vgh_kernel  deviance-form ll, gradient g (P) and Hessian
 //                      H (P x P) in (m, t), P = S + K, of the likelihood
 //                      with one profiled scale per bin on the total
-//                      expectation, gamma = (k + M) / (lam + M); one toy per
-//                      block. Replaces the Pallas kernels _bblite_vgh_kernel
+//                      expectation, gamma = (k + M) / (lam + M), in the bin
+//                      ranges of bt_ranges.cuh (one block per toy and bin
+//                      range, a toy's ranges one cluster). Replaces the
+//                      Pallas kernels _bblite_vgh_kernel
 //                      (blueice_tpu/ops/fused_bb_lite.py:154, gather flavor)
 //                      and _bblite_vgh_kernel_dense (fused_bb_lite.py:417,
 //                      dense flavor).
@@ -22,24 +24,30 @@
 //
 // Per bin: the 2^K corner rows of the pmf anchors (G, S, N) and of the
 // total MC counts (G, N) (summed over sources on the host) combine into
-// lam = sum_s m_s P_s and M, and the closed forms of
+// lam = sum_s m_s P_s and M (the vgh by bt::corner_tree's lerp steps, at
+// the lerp weights it recovers from the corner weights; the value kernel by
+// the corner weights), and the closed forms of
 // blueice_tpu/ops/bb_lite.py:_per_bin_parts give the value and its first
 // and second derivatives in (lam, M), chained to (m, t) through the
-// corner-difference tables. The negative-expectation penalty (1e6 * lam in
+// corner differences. The negative-expectation penalty (1e6 * lam in
 // value, 1e6 in d/dlam where lam < 0) is kept, as in the reference.
 // lite_parts lives in bt_perbin.cuh, shared with the op-mix probe
 // (op_mix.cu).
 //
-// What bounds them on an H100: the corner gathers, (S + 1) * 2^K rows per
-// bin, served from the 50 MB L2; neighbouring threads take neighbouring
-// bins, so every gather is a coalesced row read. The value kernel reads a
-// cell's rows once per bin for all of the toy's candidates in that cell, so
-// where they share cells the per-candidate combine and lite_parts set its
-// pace. No global sums are needed.
+// What bounds them on an H100: float32 issue and the latency of the corner
+// gathers, (S + 1) * 2^K rows per bin, served from the 50 MB L2;
+// neighbouring threads take neighbouring bins, so every gather is a
+// coalesced row read. The vgh kernel runs on the Newton loop's live lanes,
+// often under 132 toys: a toy's bins split over up to 8 blocks of 128
+// threads (bt_ranges.cuh, as many as the batch needs to fill the card).
+// The value kernel reads a cell's rows once per bin for all of the toy's
+// candidates in that cell, so where they share cells the per-candidate
+// combine and lite_parts set its pace. No global sums are needed.
 //
-// Reductions: fixed order everywhere (per-thread register accumulators and
-// bt::block_sum for the vgh; bt::cell_sums for the value kernel), no float
-// atomics: reruns are bit-identical.
+// Reductions: fixed order everywhere (per-thread register accumulators,
+// bt::block_sum and the cluster's ranges in rank order,
+// bt::cluster_vgh_sum, for the vgh; bt::cell_sums for the value kernel),
+// no float atomics: reruns are bit-identical.
 //
 // Built by blueice_tpu_torch/ops/fused.py (nvcc -gencode
 // arch=compute_90a,code=sm_90a -O3 -shared) and loaded with ctypes; the C
@@ -54,11 +62,10 @@ namespace {
 using namespace bt;
 
 template <int S, int K>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kVghThreads, kVghBlocks)
 bblite_vgh_kernel(const float* __restrict__ anchor,
                   const float* __restrict__ nme, int N,
                   const int* __restrict__ ids, const float* __restrict__ w,
-                  const float* __restrict__ wd, const float* __restrict__ wx,
                   const float* __restrict__ m, const float* __restrict__ obs,
                   float* __restrict__ ll_out, float* __restrict__ g_out,
                   float* __restrict__ h_out) {
@@ -69,86 +76,70 @@ bblite_vgh_kernel(const float* __restrict__ anchor,
   constexpr int NV = 1 + P + NH;      // ll, g, packed upper H
   constexpr int KD = K > 0 ? K : 1;   // no zero-length arrays
   constexpr int NPD = NP > 0 ? NP : 1;
+  constexpr int NT = kVghThreads;
 
   __shared__ int s_ids[C];
   __shared__ float s_w[C];
-  __shared__ float s_wd[KD * C];
-  __shared__ float s_wx[NPD * C];
   __shared__ float s_m[S];
-  __shared__ float s_red[kWarps * NV];
+  __shared__ int s_rid[C], s_flip;
+  __shared__ float s_lw[KD];
+  __shared__ float s_red[NT / 32 * NV];
+  __shared__ float s_part[NV];
   __shared__ float s_tot[NV];
 
-  const int b = blockIdx.x;
-  for (int i = threadIdx.x; i < C; i += kThreads) {
+  const BinRange rg = bin_range(N);
+  const int b = blockIdx.x / rg.T;
+  for (int i = threadIdx.x; i < C; i += NT) {
     s_ids[i] = ids[(size_t)b * C + i];
     s_w[i] = w[(size_t)b * C + i];
   }
-  for (int i = threadIdx.x; i < K * C; i += kThreads)
-    s_wd[i] = wd[(size_t)b * K * C + i];
-  for (int i = threadIdx.x; i < NP * C; i += kThreads)
-    s_wx[i] = wx[(size_t)b * NP * C + i];
-  for (int i = threadIdx.x; i < S; i += kThreads) s_m[i] = m[(size_t)b * S + i];
+  for (int i = threadIdx.x; i < S; i += NT) s_m[i] = m[(size_t)b * S + i];
   __syncthreads();
+  tree_cell<K>(s_ids, s_w, s_rid, s_lw, &s_flip);
+  __syncthreads();
+  float lw[KD];
+#pragma unroll
+  for (int d = 0; d < KD; ++d) lw[d] = d < K ? s_lw[d] : 0.f;
 
   float acc[NV];
 #pragma unroll
   for (int i = 0; i < NV; ++i) acc[i] = 0.f;
 
   const float* obs_b = obs + (size_t)b * N;
-  const size_t row = (size_t)S * N;
-  for (int n = threadIdx.x; n < N; n += kThreads) {
-    // Corner combination: P (S), D (K x S), the m-weighted cross-pair
-    // second differences Xb (NP), and the total-count row's Mn, DM, XM
+  for (int n = rg.lo + threadIdx.x; n < rg.hi; n += NT) {
+    // Corner combination (bt::tree_rows): P (S), D (K x S), the m-weighted
+    // lam, Dbar and cross-pair second differences Xb, and the total-count
+    // row's Mn, DM, XM
     float Pv[S];
     float Dv[KD][S];
-    float Xb[NPD], DM[KD], XM[NPD];
-    float Mn = 0.f;
+    float lam = 0.f, Mn = 0.f;
+    float Dbar[KD], DM[KD], Xb[NPD], XM[NPD];
 #pragma unroll
-    for (int s = 0; s < S; ++s) {
-      Pv[s] = 0.f;
-#pragma unroll
-      for (int d = 0; d < KD; ++d) Dv[d][s] = 0.f;
-    }
-#pragma unroll
-    for (int d = 0; d < KD; ++d) DM[d] = 0.f;
+    for (int d = 0; d < KD; ++d) Dbar[d] = DM[d] = 0.f;
 #pragma unroll
     for (int p = 0; p < NPD; ++p) Xb[p] = XM[p] = 0.f;
-
+    tree_rows<S, K>(
+        anchor, nme, N, n, s_rid, lw,
+        [&](const auto& a) {
+          Mn = a[0][0];
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const size_t gid = (size_t)s_ids[c];
-      const float* a = anchor + gid * row + n;
-      const float wc = s_w[c];
-      const float nx = __ldg(nme + gid * N + n);
-      Mn = fmaf(wc, nx, Mn);
+          for (int d = 0; d < K; ++d) DM[d] = a[1 + d][0];
 #pragma unroll
-      for (int d = 0; d < K; ++d) DM[d] = fmaf(s_wd[d * C + c], nx, DM[d]);
+          for (int p = 0; p < NP; ++p) XM[p] = a[1 + K + p][0];
+        },
+        [&](int s, const auto& a) {
+          const float ms = s_m[s];
+          Pv[s] = a[0][0];
+          lam = fmaf(ms, a[0][0], lam);
 #pragma unroll
-      for (int p = 0; p < NP; ++p) XM[p] = fmaf(s_wx[p * C + c], nx, XM[p]);
+          for (int d = 0; d < K; ++d) {
+            Dv[d][s] = a[1 + d][0];
+            Dbar[d] = fmaf(ms, a[1 + d][0], Dbar[d]);
+          }
 #pragma unroll
-      for (int s = 0; s < S; ++s) {
-        const float x = __ldg(a + (size_t)s * N);
-        Pv[s] = fmaf(wc, x, Pv[s]);
-#pragma unroll
-        for (int d = 0; d < K; ++d) Dv[d][s] = fmaf(s_wd[d * C + c], x, Dv[d][s]);
-        if (NP > 0) {
-          const float mx = s_m[s] * x;
-#pragma unroll
-          for (int p = 0; p < NP; ++p) Xb[p] = fmaf(s_wx[p * C + c], mx, Xb[p]);
-        }
-      }
-    }
-
-    float lam = 0.f;
-#pragma unroll
-    for (int s = 0; s < S; ++s) lam = fmaf(s_m[s], Pv[s], lam);
-    float Dbar[KD];
-#pragma unroll
-    for (int d = 0; d < K; ++d) {
-      Dbar[d] = 0.f;
-#pragma unroll
-      for (int s = 0; s < S; ++s) Dbar[d] = fmaf(s_m[s], Dv[d][s], Dbar[d]);
-    }
+          for (int p = 0; p < NP; ++p)
+            Xb[p] = fmaf(ms, a[1 + K + p][0], Xb[p]);
+        });
 
     const LiteParts lp = lite_parts(lam, Mn, obs_b[n]);
     acc[0] += lp.value;
@@ -174,9 +165,10 @@ bblite_vgh_kernel(const float* __restrict__ anchor,
       for (int j = i; j < S; ++j)
         acc[1 + P + tri(P, i, j)] = fmaf(pi, Pv[j], acc[1 + P + tri(P, i, j)]);
 #pragma unroll
-      for (int d = 0; d < K; ++d)
-        acc[1 + P + tri(P, i, S + d)] +=
-            fmaf(Pv[i], Vl[d], Dv[d][i] * lp.f_lam);
+      for (int d = 0; d < K; ++d) {
+        float& h = acc[1 + P + tri(P, i, S + d)];
+        h = fmaf(Dv[d][i], lp.f_lam, fmaf(Pv[i], Vl[d], h));
+      }
     }
     {
       int p = 0;
@@ -195,8 +187,12 @@ bblite_vgh_kernel(const float* __restrict__ anchor,
     }
   }
 
-  block_sum<NV>(acc, s_red, s_tot);
-  store_vgh<P>(s_tot, b, ll_out, g_out, h_out);
+  cluster_vgh_sum<NV, NT>(acc, s_red, s_part, s_tot);
+  if (rg.range == 0) {   // back from the reflected cell's coordinates
+    if (threadIdx.x == 0) flip_vgh<S, K>(s_tot, s_flip);
+    __syncthreads();
+    store_vgh<P, NT>(s_tot, b, ll_out, g_out, h_out);
+  }
 }
 
 // The value kernel, in the cell layout of bt_cells.cuh: one CTA per (toy,
@@ -240,7 +236,9 @@ bblite_ll_kernel(int N, int A, int Acta, const float* __restrict__ anchor,
 extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 = success), or -1 when
-// (S, K) is outside the instantiated range.
+// (S, K) is outside the instantiated range. wd and wx (the corner weights'
+// derivatives) are not read: the kernel takes the differences by its
+// corner tree.
 int bt_bblite_vgh(int S, int K, int N, int B, const float* anchor,
                   const float* nme, const int* ids, const float* w,
                   const float* wd, const float* wx, const float* m,
@@ -248,10 +246,11 @@ int bt_bblite_vgh(int S, int K, int N, int B, const float* anchor,
                   cudaStream_t stream) {
   if (B <= 0) return 0;
   cudaGetLastError();   // clear a stale error so the return value is ours
+  cudaError_t err = cudaSuccess;
 #define BT_VGH_CASE(S_, K_)                                                \
   case (S_) * 8 + (K_):                                                    \
-    bblite_vgh_kernel<S_, K_><<<B, kThreads, 0, stream>>>(                 \
-        anchor, nme, N, ids, w, wd, wx, m, obs, ll, g, h);                 \
+    err = launch_ranges<bblite_vgh_kernel<S_, K_>, kVghThreads>(            \
+        N, B, stream, anchor, nme, N, ids, w, m, obs, ll, g, h);           \
     break;
   switch (S * 8 + K) {
     BT_FOR_SK(BT_VGH_CASE)
@@ -259,7 +258,7 @@ int bt_bblite_vgh(int S, int K, int N, int B, const float* anchor,
       return -1;
   }
 #undef BT_VGH_CASE
-  return (int)cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 int bt_bblite_ll_multi(int S, int K, int N, int B, int A,

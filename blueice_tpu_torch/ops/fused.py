@@ -74,11 +74,12 @@ def _find_nvcc():
 
 def build_library(source=SOURCE):
     """Compile one ``csrc/*.cu`` source into a shared library (once per
-    version of the source and the shared headers: the file name carries
-    their hash) and return its path. The compiler's ``-Xptxas -v`` report is
-    kept beside it (``.log``)."""
+    version of the source and the headers beside it, which it includes: the
+    file name carries their hash) and return its path. The compiler's
+    ``-Xptxas -v`` report is kept beside it (``.log``)."""
     digest = hashlib.sha1()
-    headers = sorted(glob.glob(os.path.join(CSRC_DIR, '*.cuh')))
+    headers = sorted(glob.glob(os.path.join(os.path.dirname(source),
+                                            '*.cuh')))
     for path in [source] + headers:
         with open(path, 'rb') as f:
             digest.update(f.read())

@@ -42,9 +42,9 @@ For each path:
    have launched, the others not; the profile statistic is checked against
    the reference's statistics (median t band, mean fitted target in
    (0.7, 1.3)); on the binned paths (xenon, bb, bb-lite), then, the value
-   kernel over one profile's own calls (``replay_value_calls``: every call
-   recorded, their launches replayed from CUDA graphs, summed time beside
-   summed bound);
+   and the vgh kernel over one profile's own calls (``replay_calls``: every
+   call of the wrapper recorded, their launches replayed from CUDA graphs,
+   summed time beside summed bound);
 3. the same toys (counts, or event sets) fitted on CUDA in float32 and on
    the CPU in float64 (plain versions): max |d max_ll| <= 0.05, median
    |d t| <= 0.01.
@@ -275,6 +275,22 @@ def binned_ops(label, compiled, mods):
     return fns, rows, extra
 
 
+def binned_data(label, compiled, mods, rng):
+    """Phase 1's data of a binned path: the anchor tensor (G, S, N), the
+    observed counts of KERNEL_TOYS toys at the default expectations (drawn
+    from ``rng``), and ``binned_ops``' kernels, MC-count rows and trailing
+    arguments."""
+    S = len(compiled.rate_names)
+    G = compiled.mus_tensor.numel() // S
+    anchor = compiled.ps_tensor.reshape(G, S, -1).contiguous()
+    expected = compiled.expected_counts(compiled.defaults).cpu().numpy()
+    obs = torch.as_tensor(
+        rng.poisson(expected.ravel(), (KERNEL_TOYS, anchor.shape[-1])),
+        dtype=torch.float32, device=compiled.device)
+    fns, mc, extra = binned_ops(label, compiled, mods)
+    return anchor, obs, fns, mc, extra
+
+
 def random_point(compiled, rng, lead):
     """Random lower corners, lerp weights and rates within 20% of the
     default expectations (float32 tensors on the card)."""
@@ -404,12 +420,8 @@ def kernel_rows(label, study, mods):
             B, n, float(valid.double().mean()))
     else:
         B = KERNEL_TOYS
-        anchor = compiled.ps_tensor.reshape(G, S, -1).contiguous()
+        anchor, obs, fns, mc, extra = binned_data(label, compiled, mods, rng)
         n = anchor.shape[-1]
-        expected = compiled.expected_counts(compiled.defaults).cpu().numpy()
-        obs = torch.as_tensor(rng.poisson(expected.ravel(), (B, n)),
-                              dtype=torch.float32, device=compiled.device)
-        fns, mc, extra = binned_ops(label, compiled, mods)
         data = (anchor, obs, mc)
 
         def call(fn, idx, t, m, data=data):
@@ -551,9 +563,9 @@ def distinct_per_row(x):
     return 1 + (s[:, 1:] != s[:, :-1]).sum(-1) - (s[:, 0] < 0).long()
 
 
-# The binned value wrappers a profile's calls are recorded from: label ->
-# (module, wrapper, launcher, leading arguments shared by every call: the
-# anchor tensor and, on bb and bb-lite, the MC-count rows)
+# The binned wrappers a profile's calls are recorded from, per contract:
+# label -> (module, wrapper, launcher, leading arguments shared by every
+# call: the anchor tensor and, on bb and bb-lite, the MC-count rows)
 VALUE_CALLS = {
     'xenon': ('fused', 'binned_ll_fused_multi', 'binned_ll_launcher', 1),
     'bb': ('fused_bb', 'binned_bb_ll_fused_multi', 'binned_bb_ll_launcher',
@@ -561,16 +573,24 @@ VALUE_CALLS = {
     'bblite': ('fused_bb_lite', 'binned_bblite_ll_fused_multi',
                'binned_bblite_ll_launcher', 2),
 }
+VGH_CALLS = {
+    'xenon': ('fused', 'binned_vgh_fused', 'binned_vgh_launcher', 1),
+    'bb': ('fused_bb', 'binned_bb_vgh_fused', 'binned_bb_vgh_launcher', 2),
+    'bblite': ('fused_bb_lite', 'binned_bblite_vgh_fused',
+               'binned_bblite_vgh_launcher', 2),
+}
+CALLS = {'value': VALUE_CALLS, 'vgh': VGH_CALLS}
 
 
-def record_value_calls(label, study, mods, seed=0, n_toys=None):
-    """Every call of the path's value wrapper (``VALUE_CALLS``) in one
+def record_calls(label, study, mods, contract='value', seed=0,
+                 n_toys=None):
+    """Every call of the path's wrapper of ``contract`` (``CALLS``) in one
     ``profile_ts`` of ``n_toys`` toys (default: the path's; a fresh study
-    like ``study``, whose
-    fitters take the wrapper through a recorder; the wrapper is put back
-    after): a list of each call's arguments, the per-call inputs cloned
-    and the anchor tensor and MC-count rows shared, as on the path."""
-    mod_name, name, _, shared = VALUE_CALLS[label]
+    like ``study``, whose fitters take the wrapper through a recorder; the
+    wrapper is put back after): a list of each call's arguments, the
+    per-call inputs cloned and the anchor tensor and MC-count rows shared,
+    as on the path."""
+    mod_name, name, _, shared = CALLS[contract][label]
     module = mods[mod_name]
     _, target, path_toys, _, _ = PATHS[label]
     wrapper, calls = getattr(module, name), []
@@ -592,36 +612,43 @@ def record_value_calls(label, study, mods, seed=0, n_toys=None):
     return calls
 
 
-def time_value_calls(launcher, calls, shared):
-    """{A: summed ms} of recorded value calls (``record_value_calls``; the
-    first ``shared`` arguments are the shared tensors): one launcher built
-    per call, the launches of each candidate count A captured in one CUDA
-    graph in call order, and the replays timed
+def call_candidates(args, shared):
+    """Candidates a toy of a recorded call: A of a value call, 1 of a vgh
+    call (its idx is (L, K))."""
+    idx = args[shared + 1]
+    return idx.shape[1] if idx.dim() == 3 else 1
+
+
+def time_calls(launcher, calls, shared):
+    """{A: summed ms} of recorded calls (``record_calls``; the first
+    ``shared`` arguments are the shared tensors): one launcher built per
+    call, the launches of each candidate count A (``call_candidates``)
+    captured in one CUDA graph in call order, and the replays timed
     (``roofline.launch_elapsed_s``)."""
     from blueice_tpu_torch.utils.roofline import launch_elapsed_s
     by_A = {}
     for args in calls:
-        A = args[shared + 1].shape[1]
-        by_A.setdefault(A, []).append(launcher(*args)[0])
+        by_A.setdefault(call_candidates(args, shared), []).append(
+            launcher(*args)[0])
     return {A: 1e3 * len(fns) * launch_elapsed_s(fns, len(fns))
             for A, fns in sorted(by_A.items())}
 
 
-def replay_value_calls(label, study, mods, rows):
-    """The binned value kernel over the profile's own calls
-    (``record_value_calls``, seed 0; the kernels are built and loaded),
-    replayed from CUDA graphs (``time_value_calls``). Prints the calls,
-    their mean lanes L, candidates A and distinct corner rows U per toy
-    (and per group of 8 candidates), the summed kernel time and the summed
-    bound (the MC-count row counted among the rows a corner reads); adds
-    them to the value kernel's row."""
+def replay_calls(label, study, mods, rows, contract='value'):
+    """The binned kernel of ``contract`` over the profile's own calls
+    (``record_calls``, seed 0; the kernels are built and loaded), replayed
+    from CUDA graphs (``time_calls``). Prints the calls, their mean lanes L
+    (and, of the value kernel, candidates A and distinct corner rows U per
+    toy and per group of 8 candidates), the summed kernel time and the
+    summed bound (the MC-count row counted among the rows a corner reads);
+    adds them to the kernel's row."""
     from blueice_tpu_torch.utils.roofline import bound, distinct_rows, work
-    mod_name, name, launcher_name, shared = VALUE_CALLS[label]
-    calls = record_value_calls(label, study, mods)
+    mod_name, name, launcher_name, shared = CALLS[contract][label]
+    calls = record_calls(label, study, mods, contract)
     torch.cuda.synchronize()
     if not calls:
-        raise AssertionError("%s: the profile made no value-kernel call"
-                             % label)
+        raise AssertionError("%s: the profile made no %s-kernel call"
+                             % (label, contract))
     fused = mods['fused']
     compiled = study.compiled
     K, S = len(compiled.shape_names), len(compiled.rate_names)
@@ -631,9 +658,9 @@ def replay_value_calls(label, study, mods, rows):
                  bound_ms=0.0)
     for args in calls:
         anchor, (strides, idx) = args[0], args[shared:shared + 2]
-        L, A = idx.shape[:2]
+        L, A = idx.shape[0], call_candidates(args, shared)
         N = anchor.shape[-1]
-        ids = fused.corner_ids(strides, idx, G)                 # (L, A, C)
+        ids = fused.corner_ids(strides, idx, G).reshape(L, A, -1)
         n_grp = -(-A // 8)
         grouped = torch.nn.functional.pad(ids, (0, 0, 0, 8 * n_grp - A),
                                           value=-1)
@@ -643,30 +670,39 @@ def replay_value_calls(label, study, mods, rows):
         stats['groups'] += L * n_grp
         stats['lanes'] += L
         stats['cands'] += L * A
-        nbytes, flops = work('value', S, K, (L, A),
+        lead = (L, A) if contract == 'value' else (L,)
+        nbytes, flops = work(contract, S, K, lead,
                              row_floats=R * distinct_rows(ids) * N,
                              data_bytes=L * N * 4, items=L * A * N,
                              mc_rows=R > S)
         stats['bound_ms'] += bound(nbytes, flops)[0]
-    per_A = time_value_calls(getattr(mods[mod_name], launcher_name), calls,
-                             shared)
+    per_A = time_calls(getattr(mods[mod_name], launcher_name), calls, shared)
     n = len(calls)
     out = dict(replay_calls=n, replay_ms=sum(per_A.values()),
                replay_bound_ms=stats['bound_ms'],
-               replay_mean_lanes=stats['lanes'] / n,
-               replay_mean_A=stats['cands'] / stats['lanes'],
-               replay_mean_U_toy=stats['toy_rows'] / stats['lanes'],
-               replay_mean_U_group=stats['group_rows'] / stats['groups'])
-    log("%s value kernel over one profile's own calls: %d calls, mean "
-        "lanes L %.1f, mean A %.2f (lane-weighted), mean distinct corner "
-        "rows U %.2f a toy, %.2f a group of 8 candidates; kernel time "
-        "summed %.4f ms (%s), bound summed %.4f ms"
-        % (label, n, out['replay_mean_lanes'], out['replay_mean_A'],
-           out['replay_mean_U_toy'], out['replay_mean_U_group'],
-           out['replay_ms'], ', '.join('A=%d: %d calls %.4f ms' % (
-               A, sum(a[shared + 1].shape[1] == A for a in calls), ms)
-               for A, ms in per_A.items()),
-           out['replay_bound_ms']))
+               replay_mean_lanes=stats['lanes'] / n)
+    if contract == 'value':
+        out.update(replay_mean_A=stats['cands'] / stats['lanes'],
+                   replay_mean_U_toy=stats['toy_rows'] / stats['lanes'],
+                   replay_mean_U_group=stats['group_rows'] / stats['groups'])
+        log("%s value kernel over one profile's own calls: %d calls, mean "
+            "lanes L %.1f, mean A %.2f (lane-weighted), mean distinct corner "
+            "rows U %.2f a toy, %.2f a group of 8 candidates; kernel time "
+            "summed %.4f ms (%s), bound summed %.4f ms"
+            % (label, n, out['replay_mean_lanes'], out['replay_mean_A'],
+               out['replay_mean_U_toy'], out['replay_mean_U_group'],
+               out['replay_ms'], ', '.join('A=%d: %d calls %.4f ms' % (
+                   A, sum(call_candidates(a, shared) == A for a in calls),
+                   ms) for A, ms in per_A.items()),
+               out['replay_bound_ms']))
+    else:
+        log("%s vgh kernel over one profile's own calls: %d calls, mean "
+            "lanes L %.1f (min %d, max %d); kernel time summed %.4f ms, "
+            "bound summed %.4f ms"
+            % (label, n, out['replay_mean_lanes'],
+               min(a[shared + 1].shape[0] for a in calls),
+               max(a[shared + 1].shape[0] for a in calls),
+               out['replay_ms'], out['replay_bound_ms']))
     next(r for r in rows if r['name'] == name).update(out)
 
 
@@ -730,7 +766,8 @@ def run_path(label, mods, api):
     rows = kernel_rows(label, study, mods)
     main_path(label, study, mods, rows)
     if label in VALUE_CALLS:
-        replay_value_calls(label, study, mods, rows)
+        for contract in CALLS:
+            replay_calls(label, study, mods, rows, contract)
     two_precisions(label, study, cls)
     return rows
 

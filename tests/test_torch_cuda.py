@@ -230,14 +230,82 @@ BB_MODES = {
 }
 
 
+#: The Beeston-Barlow vgh kernels' cases beyond K = 0..4 (S = 3, N = 300,
+#: B = 16): name -> (S, K, N, B, bb source). The kernels split a toy's bins
+#: over a cluster of up to 8 blocks, as many as the batch needs to fill the
+#: card: one toy gets 7 ranges (B = 1, 3), a batch of more than five waves
+#: (B = 300, 5 ranges a toy), fewer bins than a range's width (N = 37), the
+#: XENON shape; and
+#: they combine the corner rows by lerp steps at lerp weights recovered from
+#: the corner weights, which must keep the plain version's exact zeros of a
+#: fit at an anchor (t = 0 or 1).
+BB_VGH_CASES = {
+    'B1': (6, 4, 3100, 1, 1),
+    'B3': (6, 4, 3100, 3, 1),
+    'B300': (6, 4, 3100, 300, 1),
+    'N37': (6, 4, 37, 16, 1),
+    'N3100': (6, 4, 3100, 16, 1),
+    't_at_anchors': (6, 4, 300, 16, 1),
+}
+#: Beeston-Barlow only: the finite source first and last (a runtime index)
+BB_ONLY_VGH_CASES = {
+    'bb_first_source': (6, 4, 3100, 16, 0),
+    'bb_last_source': (6, 4, 3100, 16, 5),
+}
+
+
+def _bb_vgh_case(case, mode, device, seed=0):
+    """(args, module, kernel, plain) of a Beeston-Barlow vgh case: K = 0..4
+    (case '0'..'4') on ``_count_rows``' inputs, else a ``BB_VGH_CASES`` or
+    ``BB_ONLY_VGH_CASES`` shape with, as there, an empty-MC bin, a bin
+    where the other sources vanish (U == 0) and one where the finite source
+    does."""
+    module, kernel, plain, _, _, extra = BB_MODES[mode]
+    if case.isdigit():
+        anchor, nme, strides, observed, (idx, t, m), _ = _count_rows(
+            int(case), device, seed)
+        return ((anchor, nme, strides, idx, t, m, observed) + extra, module,
+                kernel, plain)
+    S_, K, N_, B_, bb_i = BB_VGH_CASES.get(case) or BB_ONLY_VGH_CASES[case]
+    rng = np.random.default_rng(200 + seed)
+    grid = (3,) * K
+    G = int(np.prod(grid))
+    strides = tuple(int(np.prod(grid[d + 1:])) for d in range(K))
+    anchor = rng.random((G, S_, N_)) + 0.01
+    nme = rng.uniform(0.5, 40.0, (G, N_))
+    nme[:, 5] = 0.0
+    anchor[:, [s for s in range(S_) if s != bb_i], 7] = 0.0
+    anchor[:, bb_i, 9] = 0.0
+    observed = rng.poisson(30.0, (B_, N_))
+    idx = rng.integers(0, 2, (B_, K))
+    t = rng.random((B_, K))
+    m = rng.random((B_, S_)) * 10 + 1
+    if case == 't_at_anchors':
+        # fits at an anchor along axes 0 and 2 (t exactly 0 or 1), and
+        # rows that vanish on the anchors with an odd index along axis 0:
+        # at t = 1 (lower corner 0) or 0 (lower corner 1) the plain
+        # version's MC count, other-source sum U or bb pmf is zero exactly
+        t[:, [0, 2]] = rng.integers(0, 2, (B_, 2))
+        odd = np.array([(g // strides[0]) % 2 == 1 for g in range(G)])
+        nme[np.ix_(odd, np.arange(11, 21))] = 0.0
+        anchor[np.ix_(odd, [s for s in range(S_) if s != bb_i],
+                      np.arange(21, 31))] = 0.0
+        anchor[np.ix_(odd, [bb_i], np.arange(31, 41))] = 0.0
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+    args = (f32(anchor), f32(nme), strides, torch.as_tensor(idx,
+                                                            device=device),
+            f32(t), f32(m), f32(observed))
+    return args + ((bb_i,) if mode == 'bb' else ()), module, kernel, plain
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("K", [0, 1, 2, 3, 4])
+@pytest.mark.parametrize("K", ['0', '1', '2', '3', '4']
+                         + sorted(BB_VGH_CASES))
 @pytest.mark.parametrize("mode", sorted(BB_MODES))
 def test_bb_vgh_kernels_match_plain(cuda_device, mode, K):
-    module, kernel, plain, _, _, extra = BB_MODES[mode]
-    anchor, nme, strides, observed, (idx, t, m), _ = _count_rows(
-        K, cuda_device)
-    args = (anchor, nme, strides, idx, t, m, observed) + extra
+    args, module, kernel, plain = _bb_vgh_case(K, mode, cuda_device)
     module.reset_launch_counts()
     out = kernel(*args)
     ref = plain(*args)
@@ -246,8 +314,42 @@ def test_bb_vgh_kernels_match_plain(cuda_device, mode, K):
     np.testing.assert_allclose(out[0].cpu(), ref[0].cpu(), rtol=1e-5)
     assert _rel_to_toy_max(out[1], ref[1]) < 1e-4
     assert _rel_to_toy_max(out[2], ref[2]) < 1e-4
+    # fixed-order sums over the cluster, no float atomics: bit-identical
     again = kernel(*args)
     assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(BB_ONLY_VGH_CASES))
+def test_bb_vgh_kernel_source_cases(cuda_device, case):
+    """The finite source first and last (bb's runtime index picks Pb, Dpb
+    and Xp by a one-hot chain)."""
+    args, module, kernel, plain = _bb_vgh_case(case, 'bb', cuda_device)
+    out = kernel(*args)
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(out[0].cpu(), ref[0].cpu(), rtol=1e-5)
+    assert _rel_to_toy_max(out[1], ref[1]) < 1e-4
+    assert _rel_to_toy_max(out[2], ref[2]) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(BB_MODES))
+def test_bb_vgh_kernels_alone_and_in_a_batch(cuda_device, mode):
+    """One toy computed alone (all of a cluster's ranges on its bins) and
+    inside a batch of 300 (two ranges a toy) agree to float32 tolerance:
+    the range count changes the summation order, not the result."""
+    args, _, kernel, _ = _bb_vgh_case('B300', mode, cuda_device)
+    anchor, nme, strides, idx, t, m, observed, *extra = args
+    batch = kernel(*args)
+    for toy in (0, 137, 299):
+        one = kernel(anchor, nme, strides, idx[toy:toy + 1], t[toy:toy + 1],
+                     m[toy:toy + 1], observed[toy:toy + 1], *extra)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(one[0].cpu(), batch[0][toy:toy + 1].cpu(),
+                                   rtol=1e-5)
+        assert _rel_to_toy_max(one[1], batch[1][toy:toy + 1]) < 1e-4
+        assert _rel_to_toy_max(one[2], batch[2][toy:toy + 1]) < 1e-4
 
 
 @pytest.mark.cuda

@@ -191,7 +191,7 @@ def test_chip_smoke_records_a_profiles_value_calls(label):
     lf = build_likelihood('binned', bb={'xenon': False, 'bb': True,
                                         'bblite': 'bb_lite'}[label], **SIZE)
     study = BinnedToyStudy(lf, device='cpu', max_iter=30, engine='fused')
-    calls = smoke['record_value_calls'](label, study, mods, n_toys=3)
+    calls = smoke['record_calls'](label, study, mods, n_toys=3)
     assert getattr(module, name) is wrapper
     assert len(calls) >= 2
     # the anchor tensor and MC-count rows are the fitters' own (one set for
@@ -210,14 +210,62 @@ def test_chip_smoke_records_a_profiles_value_calls(label):
     assert len({args[shared + 1].data_ptr() for args in calls}) == len(calls)
 
 
+@pytest.mark.parametrize('label', ['xenon', 'bb', 'bblite'])
+def test_chip_smoke_records_a_profiles_vgh_calls(label):
+    """chip_smoke.py's recorder for the vgh contract (what its vgh-kernel
+    replay times) sees every call of the path's vgh wrapper in one profile,
+    with the shared anchor tensor (and MC-count rows) passed through and the
+    per-call inputs cloned, and puts the wrapper back."""
+    import runpy
+    from blueice_tpu_torch.ops import fused_bb, fused_bb_lite
+    from blueice_tpu_torch.utils import roofline
+    smoke = runpy.run_path(str(Path(__file__).resolve().parents[1]
+                               / 'chip_smoke.py'))
+    set_progress(False)
+    mods = dict(fused=fused, fused_bb=fused_bb, fused_bb_lite=fused_bb_lite,
+                fused_unbinned=fused_unbinned, roofline=roofline)
+    mod_name, name, launcher, shared = smoke['VGH_CALLS'][label]
+    assert smoke['CALLS']['vgh'][label] == smoke['VGH_CALLS'][label]
+    module = mods[mod_name]
+    wrapper = getattr(module, name)
+    assert callable(getattr(module, launcher))
+    lf = build_likelihood('binned', bb={'xenon': False, 'bb': True,
+                                        'bblite': 'bb_lite'}[label], **SIZE)
+    study = BinnedToyStudy(lf, device='cpu', max_iter=30, engine='fused')
+    calls = smoke['record_calls'](label, study, mods, contract='vgh',
+                                  n_toys=3)
+    assert getattr(module, name) is wrapper
+    assert len(calls) >= 2
+    for i in range(shared):
+        assert len({args[i].data_ptr() for args in calls}) <= 2
+    for args in calls:
+        anchor = args[0]
+        assert len(args) == {'xenon': 6, 'bb': 8, 'bblite': 7}[label]
+        strides, idx, t, m, observed = args[shared:shared + 5]
+        L, K, S = idx.shape[0], len(strides), anchor.shape[1]
+        assert idx.shape == (L, K) and t.shape == (L, K)
+        assert m.shape == (L, S) and observed.shape == (L, anchor.shape[-1])
+        assert smoke['call_candidates'](args, shared) == 1
+        # the recorded call reproduces what the wrapper computed
+        ll, g, H = wrapper(*args)
+        assert ll.shape == (L,) and g.shape == (L, S + K)
+        assert H.shape == (L, S + K, S + K)
+    assert len({args[shared + 1].data_ptr() for args in calls}) == len(calls)
+
+
 def test_value_replay_ab_finds_the_baselines_sources(tmp_path):
     """measure_value_replay.py builds the baseline checkout's copy of each
-    value kernel's source, at the same place under its root."""
+    kernel source of both contracts (value and vgh), at the same place
+    under its root."""
     import runpy
     from blueice_tpu_torch.ops import fused_bb, fused_bb_lite
     script = runpy.run_path(str(Path(__file__).resolve().parents[1]
                                 / 'measure_value_replay.py'))
-    for module in (fused, fused_bb, fused_bb_lite):
+    mods = dict(fused=fused, fused_bb=fused_bb, fused_bb_lite=fused_bb_lite)
+    for contract in ('value', 'vgh'):
+        assert sorted(mod for mod, _, _, _ in
+                      script['CALLS'][contract].values()) == sorted(mods)
+    for module in mods.values():
         name = Path(module.SOURCE).name
         with pytest.raises(FileNotFoundError):
             script['baseline_source'](module, str(tmp_path))
@@ -226,3 +274,22 @@ def test_value_replay_ab_finds_the_baselines_sources(tmp_path):
         (tmp_path / 'blueice_tpu_torch' / 'csrc' / name).write_text('')
         assert script['baseline_source'](module, str(tmp_path)) == str(
             tmp_path / 'blueice_tpu_torch' / 'csrc' / name)
+
+
+def test_value_replay_ab_compares_both_contracts():
+    """measure_value_replay.py's agreement check: 0 for equal outputs, the
+    ll relative to itself and (vgh) g and H relative to each toy's largest
+    entry."""
+    import runpy
+    script = runpy.run_path(str(Path(__file__).resolve().parents[1]
+                                / 'measure_value_replay.py'))
+    rng = np.random.default_rng(0)
+    ll = torch.as_tensor(rng.uniform(1, 2, (4, 3)))
+    assert script['disagreement'](ll, ll) == (0.0, 0.0)
+    assert script['disagreement'](ll * (1 + 1e-6), ll)[0] == pytest.approx(
+        1e-6)
+    vgh = (ll[:, 0], ll, torch.as_tensor(rng.uniform(-1, 1, (4, 3, 3))))
+    H = vgh[2].clone()
+    H[2, 1, 1] += 1e-3 * float(vgh[2][2].abs().max())
+    ll_rel, gh_rel = script['disagreement']((vgh[0], vgh[1], H), vgh)
+    assert ll_rel == 0.0 and gh_rel == pytest.approx(1e-3)
