@@ -1,9 +1,11 @@
-// The cell layout of the binned value kernels: ll_kernel (fused_binned.cu),
-// bb_ll_kernel (fused_bb.cu) and bblite_ll_kernel (fused_bb_lite.cu). The
-// parts that do not depend on the likelihood live here, one copy for the
-// three: the CTA's place in the grid and its bin range, the staging of its
-// candidates' tables, the grouping of candidates by cell, the fixed-order
-// sum over the cluster, and the launch (occupancy, grid sizing).
+// The cell layout of the value kernels: ll_kernel (fused_binned.cu),
+// bb_ll_kernel (fused_bb.cu), bblite_ll_kernel (fused_bb_lite.cu) and the
+// unbinned ull_kernel (fused_unbinned.cu, over a lane's events where the
+// others walk a toy's bins). The parts that do not depend on the
+// likelihood live here, one copy for the four: the CTA's place in the grid
+// and its bin range, the staging of its candidates' tables, the grouping
+// of candidates by cell, the fixed-order sum over the cluster, and the
+// launch (occupancy, grid sizing).
 //
 // One CTA per (toy, bin range[, candidate group]); the CTAs of one toy's
 // bin ranges form a thread-block cluster.
@@ -32,9 +34,10 @@
 // over more CTAs. The bin ranges, the cluster's rank-ordered sum and the
 // launch queries (once a device and kernel, at the first launch: the first
 // launch of a shape must come before any CUDA-graph capture) are
-// bt_ranges.cuh's, shared with the Beeston-Barlow vgh kernels. The CTA size
-// is the kernel's: ll_kernel 256 threads (128 registers, two CTAs an SM),
-// the Beeston-Barlow kernels 128 (about 160 registers, three an SM).
+// bt_ranges.cuh's, shared with the binned vgh kernels. The CTA size
+// is the kernel's: ll_kernel and ull_kernel 256 threads (128 registers at
+// S = 6, K = 4, two CTAs an SM), the Beeston-Barlow kernels 128 (about 160
+// registers, three an SM).
 
 #pragma once
 
@@ -115,10 +118,13 @@ __device__ __forceinline__ void stage_cells(
 
 // Fixed-order sums of the deviance columns s_dev[Aq][NT]: a warp over each
 // candidate's column, then the cluster's ranges in rank order (rank 0
-// writes out[0..Aq)). Every thread of every CTA of the cluster calls it.
-template <int NT>
+// writes out[0..Aq), less the candidate's offset off[0..Aq) where Off, the
+// unbinned value's rate term). Every thread of every CTA of the cluster
+// calls it.
+template <int NT, bool Off = false>
 __device__ inline void cell_sums(const CellBlock& cb, const float* s_dev,
-                                 float* s_tot, float* __restrict__ out) {
+                                 float* s_tot, float* __restrict__ out,
+                                 const float* __restrict__ off = nullptr) {
   namespace cg = cooperative_groups;
   const cg::cluster_group cluster = cg::this_cluster();
   __syncthreads();
@@ -132,14 +138,22 @@ __device__ inline void cell_sums(const CellBlock& cb, const float* s_dev,
     if (lane == 0) s_tot[a] = x;
   }
   cluster.sync();
-  if (cb.range == 0 && t < cb.Aq) out[cb.cand0 + t] = rank_sum(s_tot, t);
+  if (cb.range == 0 && t < cb.Aq) {
+    if constexpr (Off)
+      out[cb.cand0 + t] = rank_sum(s_tot, t) - off[cb.cand0 + t];
+    else
+      out[cb.cand0 + t] = rank_sum(s_tot, t);
+  }
   cluster.sync();   // the ranges' s_tot stay alive until rank 0 has read
 }
 
 // Launches Kernel(N, A, Acta, args...) in CTAs of NT threads for B toys of
 // A candidates over N bins: candidates a CTA (Acta) and bin ranges a toy
-// (T, the cluster size) sized for about two waves of the card
-template <auto Kernel, int NT, typename... Args>
+// (T, the cluster size) sized for about two waves of the card, or, where
+// ByTrips, T by the rounds of the card times the trips of a CTA
+// (ranges_for_bins: a CTA's last trip over its range is not left mostly
+// idle)
+template <auto Kernel, int NT, bool ByTrips = false, typename... Args>
 cudaError_t launch_cells(int N, int B, int A, cudaStream_t stream,
                          Args... args) {
   int device = 0, sms = 0;
@@ -164,9 +178,10 @@ cudaError_t launch_cells(int N, int B, int A, cudaStream_t stream,
     if (ctas * kMaxCluster >= wave2 || Acta == 1) break;
     groups *= 2;
   }
-  return launch_cluster<Kernel>(B, groups, ranges_for(ctas, wave2, N), NT,
-                                sizeof(float) * Acta * NT, stream, N, A,
-                                Acta, args...);
+  const int T = ByTrips ? ranges_for_bins(ctas, wave2 / 2, N, NT)
+                        : ranges_for(ctas, wave2, N);
+  return launch_cluster<Kernel>(B, groups, T, NT, sizeof(float) * Acta * NT,
+                                stream, N, A, Acta, args...);
 }
 
 

@@ -13,20 +13,19 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr float kPenalty = 1e6f;
 
-// Sum each of NV per-thread values over the block of NT threads in a fixed
-// order (warp shuffles, then the warps' partials in shared memory, red
-// holding NT / 32 * NV floats); the totals land in tot[0..NV) (shared
-// memory), visible after the call. No float atomics, so a rerun on the same
-// inputs is bit-identical.
-template <int NV, int NT = kThreads>
-__device__ __forceinline__ void block_sum(float (&v)[NV], float* red,
-                                          float* tot) {
+// Sum each of NV per-thread values (float or double) over the block of NT
+// threads in a fixed order (warp shuffles, then the warps' partials in
+// shared memory, red holding NT / 32 * NV values); the totals land in
+// tot[0..NV) (shared memory), visible after the call. No float atomics, so
+// a rerun on the same inputs is bit-identical.
+template <int NV, int NT = kThreads, typename T>
+__device__ __forceinline__ void block_sum(T (&v)[NV], T* red, T* tot) {
   constexpr int kNW = NT / 32;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
-    float x = v[i];
+    T x = v[i];
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       x += __shfl_down_sync(0xffffffffu, x, off);
@@ -34,7 +33,7 @@ __device__ __forceinline__ void block_sum(float (&v)[NV], float* red,
   }
   __syncthreads();
   for (int i = threadIdx.x; i < NV; i += NT) {
-    float s = 0.f;
+    T s = 0;
 #pragma unroll
     for (int w = 0; w < kNW; ++w) s += red[w * NV + i];
     tot[i] = s;

@@ -1,26 +1,30 @@
-// Bin ranges over a thread-block cluster: the layout of the port's binned
-// kernels that sum over a toy's bins on few toys. The value kernels
-// (bt_cells.cuh: ll_kernel, bb_ll_kernel, bblite_ll_kernel) and the
-// Beeston-Barlow vgh kernels (bb_vgh_kernel, bblite_vgh_kernel) run one CTA
-// per (toy, bin range[, candidate group]); the CTAs of one toy's bin ranges
-// form a thread-block cluster (up to 8, the portable size). The parts that
+// Bin ranges over a thread-block cluster: the layout of the port's kernels
+// that sum over a toy's bins (or events) on few toys. The value kernels
+// (bt_cells.cuh: ll_kernel, bb_ll_kernel, bblite_ll_kernel, and the
+// unbinned ull_kernel over event ranges) and the binned vgh kernels
+// (vgh_kernel, bb_vgh_kernel, bblite_vgh_kernel) run one CTA per (toy, bin
+// range[, candidate group]); the CTAs of one toy's bin ranges form a
+// thread-block cluster (up to 8, the portable size). The parts that
 // do not depend on the likelihood live here, one copy for all of them:
 //
 //   * bin_range: the CTA's range, its rank in the cluster, its bins split
 //     evenly over the ranges in whole warps' worth;
-//   * rank_sum / cluster_vgh_sum: fixed-order sums, over the CTA's warps
+//   * rank_sum / cluster_vgh_sum(2): fixed-order sums, over the CTA's warps
 //     (bt::block_sum) and then over the cluster's CTAs in rank order
 //     through distributed shared memory. No float atomics: a rerun on the
 //     same inputs is bit-identical (a different range count, another batch
 //     size, rounds differently);
-//   * the launch: the SM count and the kernel's CTAs an SM (occupancy),
-//     queried once a device and kernel at the first launch (so the first
-//     launch of a shape must come before any CUDA-graph capture), and the
-//     cluster launch (cudaLaunchKernelEx); launch_ranges sizes the ranges a
-//     toy for the batch (ranges_for_bins), so that few toys fill the card.
+//   * the launch: the SM count and the kernel's CTAs an SM (occupancy) or
+//     clusters of each size (cluster_slots), queried once a device and
+//     kernel at the first launch (so the first launch of a shape must come
+//     before any CUDA-graph capture), and the cluster launch
+//     (cudaLaunchKernelEx); launch_ranges and launch_range_clusters size
+//     the ranges a toy for the batch (ranges_for_bins,
+//     ranges_for_clusters), so that few toys fill the card.
 //
-// And, for the two Beeston-Barlow vgh kernels, the per-bin combine of the
-// corner rows (corner_tree, tree_rows): a cell's value, first differences
+// And, for the three vgh kernels, the per-bin combine of the corner rows
+// (corner_tree; tree_rows with the Beeston-Barlow kernels' MC-count row,
+// tree_pmf_rows without, for vgh_kernel): a cell's value, first differences
 // and cross second differences by K lerp steps over its 2^K corners in
 // registers, where the corner-weight tables took 2^K (1 + K + K(K-1)/2)
 // FMAs a row (a third of the operations at K = 4).
@@ -59,10 +63,11 @@ __device__ __forceinline__ BinRange bin_range(int N) {
 // Element i of `part` (a shared-memory array of every CTA of the cluster)
 // summed over the cluster's CTAs in rank order. Call it between two
 // cluster.sync()s: after the CTAs have written part, before they exit.
-__device__ __forceinline__ float rank_sum(const float* part, int i) {
+template <typename T>
+__device__ __forceinline__ T rank_sum(const T* part, int i) {
   namespace cg = cooperative_groups;
   const cg::cluster_group cluster = cg::this_cluster();
-  float x = 0.f;
+  T x = 0;
   for (int r = 0; r < (int)cluster.num_blocks(); ++r)
     x += cluster.map_shared_rank(part, r)[i];
   return x;
@@ -82,6 +87,26 @@ __device__ __forceinline__ void cluster_vgh_sum(float (&v)[NV], float* red,
   cluster.sync();
   if (cluster.block_rank() == 0)
     for (int i = threadIdx.x; i < NV; i += NT) tot[i] = rank_sum(part, i);
+  cluster.sync();   // the ranges' parts stay alive until rank 0 has read
+}
+
+// cluster_vgh_sum of two sets of per-thread values (of two types: float and
+// double) at once: both over the CTA, then both over the cluster in one
+// round of cluster syncs
+template <int NA, int NB, int NT, typename TA, typename TB>
+__device__ __forceinline__ void cluster_vgh_sum2(TA (&va)[NA], TA* reda,
+                                                 TA* parta, TA* tota,
+                                                 TB (&vb)[NB], TB* redb,
+                                                 TB* partb, TB* totb) {
+  namespace cg = cooperative_groups;
+  const cg::cluster_group cluster = cg::this_cluster();
+  block_sum<NA, NT>(va, reda, parta);
+  block_sum<NB, NT>(vb, redb, partb);
+  cluster.sync();
+  if (cluster.block_rank() == 0) {
+    for (int i = threadIdx.x; i < NA; i += NT) tota[i] = rank_sum(parta, i);
+    for (int i = threadIdx.x; i < NB; i += NT) totb[i] = rank_sum(partb, i);
+  }
   cluster.sync();   // the ranges' parts stay alive until rank 0 has read
 }
 
@@ -164,31 +189,40 @@ cudaError_t launch_cluster(int gx, int gy, int T, int NT, size_t smem,
   return cudaLaunchKernelEx(&cfg, Kernel, args...);
 }
 
-// Bin ranges a toy for B toys of N bins in CTAs of NT threads, `slots` of
-// which the card holds at once: the T in 1..kMaxCluster with the least
-// rounds of the card times (trips of a CTA over its range + kCtaTrips),
-// ceil(B T / slots) (ceil(ceil(chunks / T) / (NT / 32)) + kCtaTrips), with
-// chunks the toy's warps' worth of bins and kCtaTrips a CTA's own work
-// (staging, the sums over its warps and its cluster) counted in trips; on
-// a tie the smaller T. Few toys take many ranges, so that they still fill
-// the card; many take few.
-constexpr long long kCtaTrips = 2;
-
-inline int ranges_for_bins(long long B, long long slots, int N, int NT) {
+// The T in 1..kMaxCluster (bin ranges a toy, at most one warp's worth of N
+// bins a range) with the least rounds(T) x (trips of a CTA over its range
+// + cta_trips), trips = ceil(ceil(chunks / T) / (NT / 32)) with chunks the
+// toy's warps' worth of bins and cta_trips a CTA's own work (staging, the
+// sums over its warps and its cluster) counted in trips; on a tie the
+// smaller T. Few toys take many ranges, so that they still fill the card;
+// many take few.
+template <class Rounds>
+inline int least_cost_ranges(int N, int NT, long long cta_trips,
+                             Rounds rounds) {
   const long long chunks = (N + 31) / 32, warps = NT / 32;
   int best = 1;
   long long best_cost = -1;
   for (int T = 1; T <= std::min<long long>(kMaxCluster, std::max(1LL, chunks));
        ++T) {
-    const long long rounds = (B * T + slots - 1) / slots;
     const long long trips = ((chunks + T - 1) / T + warps - 1) / warps;
-    const long long cost = rounds * (trips + kCtaTrips);
+    const long long cost = rounds(T) * (trips + cta_trips);
     if (best_cost < 0 || cost < best_cost) {
       best = T;
       best_cost = cost;
     }
   }
   return best;
+}
+
+// Bin ranges a toy for B toys of N bins in CTAs of NT threads, `slots` of
+// which the card holds at once: least_cost_ranges with ceil(B T / slots)
+// rounds and kCtaTrips
+constexpr long long kCtaTrips = 2;
+
+inline int ranges_for_bins(long long B, long long slots, int N, int NT) {
+  return least_cost_ranges(N, NT, kCtaTrips, [&](int T) {
+    return (B * T + slots - 1) / slots;
+  });
 }
 
 // Launches Kernel(args...) for B toys over N bins, one CTA of NT threads
@@ -207,7 +241,65 @@ cudaError_t launch_ranges(int N, int B, cudaStream_t stream, Args... args) {
                                 0, stream, args...);
 }
 
-// -- the per-bin combine of the Beeston-Barlow vgh kernels --------------------
+// The clusters of T CTAs of NT threads (T = 1..kMaxCluster) that the device
+// holds at once, for each T (cudaOccupancyMaxActiveClusters: a cluster's
+// CTAs run at once on one GPC, so T CTAs an SM times the SMs overstates
+// what the card holds where T does not pack the GPCs' SMs), queried once a
+// (device, kernel) at its first launch and cached; *slots points at the
+// counts, indexed by T.
+template <auto Kernel, int NT>
+cudaError_t cluster_slots(int device, const int** slots) {
+  static int cache[kMaxDevices][kMaxCluster + 1];
+  int* counts = cache[device];
+  if (counts[1] == 0) {
+    for (int T = 1; T <= kMaxCluster; ++T) {
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3((unsigned)T, 1, 1);
+      cfg.blockDim = dim3((unsigned)NT, 1, 1);
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = (unsigned)T;
+      attr[0].val.clusterDim.y = 1;
+      attr[0].val.clusterDim.z = 1;
+      cfg.attrs = attr;
+      cfg.numAttrs = 1;
+      int n = 0;
+      const cudaError_t err = cudaOccupancyMaxActiveClusters(&n, Kernel, &cfg);
+      if (err != cudaSuccess) return err;
+      counts[T] = std::max(n, 1);
+    }
+  }
+  *slots = counts;
+  return cudaSuccess;
+}
+
+// As ranges_for_bins, with each T's rounds counted in the clusters of T
+// CTAs that the card holds at once (cluster_slots): ceil(B / clusters[T]),
+// and a CTA's own work counted as kClusterCtaTrips trips (3 beat 1 and 2
+// on xenon's recorded vgh calls, 4 and 6 tied; PERF.md §6, PR 9)
+constexpr long long kClusterCtaTrips = 3;
+
+inline int ranges_for_clusters(long long B, const int* clusters, int N,
+                               int NT) {
+  return least_cost_ranges(N, NT, kClusterCtaTrips, [&](int T) {
+    return (B + clusters[T] - 1) / clusters[T];
+  });
+}
+
+// launch_ranges with the range count from ranges_for_clusters
+template <auto Kernel, int NT, typename... Args>
+cudaError_t launch_range_clusters(int N, int B, cudaStream_t stream,
+                                  Args... args) {
+  int device = 0;
+  const int* clusters = nullptr;
+  cudaError_t err = current_device(&device);
+  if (err == cudaSuccess) err = cluster_slots<Kernel, NT>(device, &clusters);
+  if (err != cudaSuccess) return err;
+  return launch_cluster<Kernel>(B, 1, ranges_for_clusters(B, clusters, N, NT),
+                                NT, 0, stream, args...);
+}
+
+// -- the per-bin combine of the vgh kernels -----------------------------------
 //
 // A toy's cell has C = 2^K corner rows; corner c's bit K-1-d is its side of
 // axis d (axis K-1 the lowest bit, the corner order of corner_weight_tables).
@@ -239,7 +331,8 @@ __host__ __device__ constexpr int pair_id(int d, int e) {
   return d * K - d * (d + 1) / 2 + (e - d - 1);
 }
 
-// The vgh kernels' CTA: 128 threads, two an SM at up to 255 registers
+// The binned vgh kernels' CTA: 128 threads, two an SM at up to 255
+// registers
 constexpr int kVghThreads = 128;
 constexpr int kVghBlocks = 2;
 
@@ -413,6 +506,28 @@ __device__ __forceinline__ void tree_rows(const float* __restrict__ anchor,
 #pragma unroll
     for (int c = 0; c < C; ++c)
       a[0][c] = __ldg(row_at(row, s_rid[c], 4u * S * N));
+    corner_tree<K>(a, w);
+    pmf_row(s, a);
+  }
+}
+
+// The same without the MC-count row (vgh_kernel): the S pmf rows only, at
+// 32-bit offsets from the anchor tensor's base (rofs[c], corner c's first
+// row in floats, in the reflected order; the tensor holds fewer than 2^32
+// floats): a load's address is a 32-bit add and a wide multiply-add,
+// where tree_rows' 64-bit corner offsets take a 64-bit add (two adds) and
+// twice the registers
+template <int S, int K, class PmfRow>
+__device__ __forceinline__ void tree_pmf_rows(
+    const float* __restrict__ anchor, int N, int n,
+    const unsigned (&rofs)[Tree<K>::C], const float* w, PmfRow pmf_row) {
+  constexpr int C = Tree<K>::C, NM = Tree<K>::NM;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const unsigned base = (unsigned)s * N + n;
+    float a[NM][C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) a[0][c] = __ldg(anchor + (rofs[c] + base));
     corner_tree<K>(a, w);
     pmf_row(s, a);
   }

@@ -5,7 +5,10 @@
 // ops/binned_vgh.py), which the wrapper uses for CPU tensors:
 //
 //   vgh_kernel   deviance-form ll, gradient g (P) and Hessian H (P x P) in
-//                (m, t), P = S + K, one toy per block. Replaces the Pallas
+//                (m, t), P = S + K, one block per (toy, bin range), a
+//                toy's ranges one cluster (the bin ranges of
+//                bt_ranges.cuh), the corner rows combined by lerp steps
+//                (bt::corner_tree). Replaces the Pallas
 //                kernels _vgh_kernel (blueice_tpu/ops/fused.py:144, gather
 //                flavor) and _vgh_kernel_dense (fused.py:597, dense flavor).
 //   ll_kernel    deviance-form ll at A line-search candidates per toy, one
@@ -22,16 +25,19 @@
 // has at most 227 KB of shared memory, so the anchor tensor stays in global
 // memory and is served from the 50 MB L2 (it fits many times over).
 // Neighbouring threads take neighbouring bins, so every gather is a
-// coalesced row read. vgh_kernel does a handful of FMAs per loaded value
-// (value, K derivatives and the m-weighted cross-pair combinations) and is
-// L2-bandwidth bound by design. ll_kernel reads a cell's corner values once
+// coalesced row read. vgh_kernel's per-bin work is the corner tree (value,
+// K differences and K(K-1)/2 cross differences of each row, 62 operations
+// a row at K = 4 where the weight tables took 176 FMAs) and the
+// (S+K)(S+K+1)/2 Hessian updates: float32 issue and the latency of the
+// gathers bound it. ll_kernel reads a cell's corner values once
 // per bin for all of the toy's candidates in that cell, so where they share
 // cells the float32 FMA rate bounds it.
 //
-// Reductions: fixed order everywhere (bt::block_sum in bt_common.cuh for
-// vgh_kernel; warp shuffles, the warps in order and the cluster's blocks
-// in rank order for ll_kernel), no float atomics, so a rerun on the same
-// inputs is bit-identical.
+// Reductions: fixed order everywhere (bt::block_sum and the cluster's
+// ranges in rank order, bt::cluster_vgh_sum, for vgh_kernel; warp
+// shuffles, the warps in order and the cluster's blocks in rank order for
+// ll_kernel), no float atomics, so a rerun on the same inputs is
+// bit-identical.
 //
 // Semantics kept exactly from the reference: lambda floored at FLT_MIN
 // inside the log, the 1e6 linear penalty on negative expectations (in value
@@ -48,11 +54,36 @@ namespace {
 
 using namespace bt;
 
+// ---------------------------------------------------------------------------
+// The vgh kernel, in the bin ranges of bt_ranges.cuh: one CTA of
+// kVghThreads per (toy, bin range), two an SM, a toy's ranges one cluster
+// summed in rank order (bt::cluster_vgh_sum2), the range count per call
+// from the batch and the clusters of each size that the card holds at once
+// (bt::launch_range_clusters: the Newton loop's few live lanes still fill
+// the card, and a range count whose clusters do not pack the GPCs is not
+// taken). Per bin the toy's C corner rows of each source, loaded at 32-bit
+// offsets from the anchor tensor (bt::tree_pmf_rows), combine by
+// bt::corner_tree's lerp steps over the reflected cell (bt::tree_cell; the
+// lerp weights recovered from the corner weights, so a fit next to an
+// anchor keeps the weight tables' precision): the value P_s, the
+// differences D_ds and the cross differences of each pair, m-weighted into
+// lambda, Dbar and Xbar. Then the deviance closed form:
+//   r = k / lambda - 1 (+ kPenalty where lambda < 0), q = k / lambda^2,
+//   g = v r,  H = -q v v^T + [D r on the (m, t) block, Xbar r on (t, t)],
+// v = (P_1..P_S, Dbar_1..Dbar_K), accumulated in the reflected cell's
+// coordinates and flipped back once (bt::flip_vgh). g accumulates in
+// double (the float products v r added exactly): at a converged fit a
+// t-gradient is a sum of large terms of both signs that nearly cancel,
+// and float32 sums lose what is left to their order. wd and
+// wx, the weight tables' derivatives, are not read. Measured slower on the
+// H100 (PERF.md §6, PR 9): 128-thread CTAs held to three an SM (168
+// registers), 96-thread CTAs (four an SM: faster at 512 toys, slower on
+// the few-lane calls), clusters of up to 16 ranges.
+
 template <int S, int K>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kVghThreads, kVghBlocks)
 vgh_kernel(const float* __restrict__ anchor, int N,
            const int* __restrict__ ids, const float* __restrict__ w,
-           const float* __restrict__ wd, const float* __restrict__ wx,
            const float* __restrict__ m, const float* __restrict__ obs,
            float* __restrict__ ll_out, float* __restrict__ g_out,
            float* __restrict__ h_out) {
@@ -61,83 +92,78 @@ vgh_kernel(const float* __restrict__ anchor, int N,
   constexpr int P = S + K;
   constexpr int NH = P * (P + 1) / 2;
   constexpr int NV = 1 + P + NH;      // ll, g, packed upper H
+  constexpr int NF = 1 + NH;          // the float sums: ll, H
   constexpr int KD = K > 0 ? K : 1;   // no zero-length arrays
   constexpr int NPD = NP > 0 ? NP : 1;
+  constexpr int NT = kVghThreads;
 
   __shared__ int s_ids[C];
   __shared__ float s_w[C];
-  __shared__ float s_wd[KD * C];
-  __shared__ float s_wx[NPD * C];
   __shared__ float s_m[S];
-  __shared__ float s_red[kWarps * NV];
+  __shared__ int s_rid[C], s_flip;
+  __shared__ float s_lw[KD];
+  __shared__ float s_red[NT / 32 * NF];
+  __shared__ float s_part[NF];
+  __shared__ float s_ftot[NF];
+  __shared__ double s_gred[NT / 32 * P];
+  __shared__ double s_gpart[P];
+  __shared__ double s_gtot[P];
   __shared__ float s_tot[NV];
 
-  const int b = blockIdx.x;
-  for (int i = threadIdx.x; i < C; i += kThreads) {
+  const BinRange rg = bin_range(N);
+  const int b = blockIdx.x / rg.T;
+  for (int i = threadIdx.x; i < C; i += NT) {
     s_ids[i] = ids[(size_t)b * C + i];
     s_w[i] = w[(size_t)b * C + i];
   }
-  for (int i = threadIdx.x; i < K * C; i += kThreads)
-    s_wd[i] = wd[(size_t)b * K * C + i];
-  for (int i = threadIdx.x; i < NP * C; i += kThreads)
-    s_wx[i] = wx[(size_t)b * NP * C + i];
-  for (int i = threadIdx.x; i < S; i += kThreads) s_m[i] = m[(size_t)b * S + i];
+  for (int i = threadIdx.x; i < S; i += NT) s_m[i] = m[(size_t)b * S + i];
   __syncthreads();
-
-  float acc[NV];
+  tree_cell<K>(s_ids, s_w, s_rid, s_lw, &s_flip);
+  __syncthreads();
+  float lw[KD];
 #pragma unroll
-  for (int i = 0; i < NV; ++i) acc[i] = 0.f;
+  for (int d = 0; d < KD; ++d) lw[d] = d < K ? s_lw[d] : 0.f;
+  unsigned rofs[C];   // corner c's first row, in floats into anchor
+#pragma unroll
+  for (int c = 0; c < C; ++c) rofs[c] = (unsigned)s_rid[c] * S * N;
+
+  float acc[NF];     // ll, packed upper H
+  double gacc[P];
+#pragma unroll
+  for (int i = 0; i < NF; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < P; ++i) gacc[i] = 0.0;
 
   const float* obs_b = obs + (size_t)b * N;
-  const size_t row = (size_t)S * N;
-  for (int n = threadIdx.x; n < N; n += kThreads) {
-    // Multilinear combination of the corner templates: P (S), D (K x S),
-    // and the m-weighted cross-pair second derivatives Xbar (NP)
+  for (int n = rg.lo + threadIdx.x; n < rg.hi; n += NT) {
+    // Corner combination (bt::tree_pmf_rows): P (S), D (K x S), and the
+    // m-weighted lambda, Dbar (K) and cross-pair second differences Xb (NP)
     float Pv[S];
     float Dv[KD][S];
-    float Xb[NPD];
+    float lam = 0.f, Dbar[KD], Xb[NPD];
 #pragma unroll
-    for (int s = 0; s < S; ++s) {
-      Pv[s] = 0.f;
-#pragma unroll
-      for (int d = 0; d < KD; ++d) Dv[d][s] = 0.f;
-    }
+    for (int d = 0; d < KD; ++d) Dbar[d] = 0.f;
 #pragma unroll
     for (int p = 0; p < NPD; ++p) Xb[p] = 0.f;
-
+    tree_pmf_rows<S, K>(anchor, N, n, rofs, lw, [&](int s, const auto& a) {
+      const float ms = s_m[s];
+      Pv[s] = a[0][0];
+      lam = fmaf(ms, a[0][0], lam);
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const float* a = anchor + (size_t)s_ids[c] * row + n;
-      const float wc = s_w[c];
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        const float x = __ldg(a + (size_t)s * N);
-        Pv[s] = fmaf(wc, x, Pv[s]);
-#pragma unroll
-        for (int d = 0; d < K; ++d) Dv[d][s] = fmaf(s_wd[d * C + c], x, Dv[d][s]);
-        if (NP > 0) {
-          const float mx = s_m[s] * x;
-#pragma unroll
-          for (int p = 0; p < NP; ++p) Xb[p] = fmaf(s_wx[p * C + c], mx, Xb[p]);
-        }
+      for (int d = 0; d < K; ++d) {
+        Dv[d][s] = a[1 + d][0];
+        Dbar[d] = fmaf(ms, a[1 + d][0], Dbar[d]);
       }
-    }
+#pragma unroll
+      for (int p = 0; p < NP; ++p) Xb[p] = fmaf(ms, a[1 + K + p][0], Xb[p]);
+    });
 
     // v = dlambda/d(m, t): [P_1..P_S, Dbar_1..Dbar_K]
     float v[P];
-    float lam = 0.f;
 #pragma unroll
-    for (int s = 0; s < S; ++s) {
-      v[s] = Pv[s];
-      lam = fmaf(s_m[s], Pv[s], lam);
-    }
+    for (int s = 0; s < S; ++s) v[s] = Pv[s];
 #pragma unroll
-    for (int d = 0; d < K; ++d) {
-      float db = 0.f;
-#pragma unroll
-      for (int s = 0; s < S; ++s) db = fmaf(s_m[s], Dv[d][s], db);
-      v[S + d] = db;
-    }
+    for (int d = 0; d < K; ++d) v[S + d] = Dbar[d];
 
     const float k = obs_b[n];
     const float lam_safe = fmaxf(lam, FLT_MIN);
@@ -148,34 +174,41 @@ vgh_kernel(const float* __restrict__ anchor, int N,
     const float r = k * inv - 1.f + (lam < 0.f ? kPenalty : 0.f);
     const float q = k * inv * inv;
 
+    const double rd = r;
 #pragma unroll
     for (int i = 0; i < P; ++i) {
-      acc[1 + i] = fmaf(v[i], r, acc[1 + i]);
+      gacc[i] = fma((double)v[i], rd, gacc[i]);
       const float qi = -q * v[i];
 #pragma unroll
       for (int j = i; j < P; ++j)
-        acc[1 + P + tri(P, i, j)] = fmaf(qi, v[j], acc[1 + P + tri(P, i, j)]);
+        acc[1 + tri(P, i, j)] = fmaf(qi, v[j], acc[1 + tri(P, i, j)]);
     }
     // Second-derivative terms: d2lam/dm_s dt_d = D_ds, d2lam/dt_d dt_e = Xbar
 #pragma unroll
     for (int s = 0; s < S; ++s)
 #pragma unroll
       for (int d = 0; d < K; ++d)
-        acc[1 + P + tri(P, s, S + d)] =
-            fmaf(Dv[d][s], r, acc[1 + P + tri(P, s, S + d)]);
-    {
-      int p = 0;
+        acc[1 + tri(P, s, S + d)] =
+            fmaf(Dv[d][s], r, acc[1 + tri(P, s, S + d)]);
 #pragma unroll
-      for (int d = 0; d < K; ++d)
+    for (int d = 0; d < K; ++d)
 #pragma unroll
-        for (int e = d + 1; e < K; ++e, ++p)
-          acc[1 + P + tri(P, S + d, S + e)] =
-              fmaf(Xb[p], r, acc[1 + P + tri(P, S + d, S + e)]);
-    }
+      for (int e = d + 1; e < K; ++e)
+        acc[1 + tri(P, S + d, S + e)] =
+            fmaf(Xb[pair_id<K>(d, e)], r, acc[1 + tri(P, S + d, S + e)]);
   }
 
-  block_sum<NV>(acc, s_red, s_tot);
-  store_vgh<P>(s_tot, b, ll_out, g_out, h_out);
+  cluster_vgh_sum2<NF, P, NT>(acc, s_red, s_part, s_ftot, gacc, s_gred,
+                              s_gpart, s_gtot);
+  if (rg.range == 0) {   // [ll, g, H], back from the reflected cell's
+    for (int i = threadIdx.x; i < NV; i += NT)    // coordinates
+      s_tot[i] = i == 0 ? s_ftot[0]
+                 : i <= P ? (float)s_gtot[i - 1] : s_ftot[i - P];
+    __syncthreads();
+    if (threadIdx.x == 0) flip_vgh<S, K>(s_tot, s_flip);
+    __syncthreads();
+    store_vgh<P, NT>(s_tot, b, ll_out, g_out, h_out);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -264,17 +297,20 @@ ll_kernel(int N, int A, int Acta, const float* __restrict__ anchor,
 extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 = success), or -1 when
-// (S, K) is outside the instantiated range.
+// (S, K) is outside the instantiated range. wd and wx (the corner weights'
+// derivatives) are not read: the kernel takes the differences by its
+// corner tree.
 int bt_binned_vgh(int S, int K, int N, int B, const float* anchor,
                   const int* ids, const float* w, const float* wd,
                   const float* wx, const float* m, const float* obs,
                   float* ll, float* g, float* h, cudaStream_t stream) {
   if (B <= 0) return 0;
   cudaGetLastError();   // clear a stale error so the return value is ours
+  cudaError_t err = cudaSuccess;
 #define BT_VGH_CASE(S_, K_)                                                 \
   case (S_) * 8 + (K_):                                                     \
-    vgh_kernel<S_, K_><<<B, kThreads, 0, stream>>>(anchor, N, ids, w, wd,   \
-                                                   wx, m, obs, ll, g, h);   \
+    err = launch_range_clusters<vgh_kernel<S_, K_>, kVghThreads>(            \
+        N, B, stream, anchor, N, ids, w, m, obs, ll, g, h);                 \
     break;
   switch (S * 8 + K) {
     BT_FOR_SK(BT_VGH_CASE)
@@ -282,7 +318,7 @@ int bt_binned_vgh(int S, int K, int N, int B, const float* anchor,
       return -1;
   }
 #undef BT_VGH_CASE
-  return (int)cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 int bt_binned_ll_multi(int S, int K, int N, int B, int A, const float* anchor,

@@ -225,6 +225,9 @@ def binned_vgh_launcher(anchor, strides, idx, t, m, observed):
     G, S, N, K = _check_shapes(anchor, strides, idx, t, m, observed, (B,))
     _check_cuda(anchor, 'binned_vgh_fused')
     _check_kernel_inputs(anchor, K, S, (m, observed))
+    if anchor.numel() >= 2 ** 32:
+        raise ValueError("the vgh kernel addresses the anchor tensor with "
+                         "32-bit offsets: it takes fewer than 2^32 floats")
     lib = load_library()
     P = S + K
     ids, w, wd, wx_pairs = vgh_tables(strides, idx, t, G)

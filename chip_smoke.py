@@ -41,10 +41,9 @@ For each path:
    to 0 just before and read just after: the path's own two kernels must
    have launched, the others not; the profile statistic is checked against
    the reference's statistics (median t band, mean fitted target in
-   (0.7, 1.3)); on the binned paths (xenon, bb, bb-lite), then, the value
-   and the vgh kernel over one profile's own calls (``replay_calls``: every
-   call of the wrapper recorded, their launches replayed from CUDA graphs,
-   summed time beside summed bound);
+   (0.7, 1.3)); then the value and the vgh kernel over one profile's own
+   calls (``replay_calls``: every call of the wrapper recorded, their
+   launches replayed from CUDA graphs, summed time beside summed bound);
 3. the same toys (counts, or event sets) fitted on CUDA in float32 and on
    the CPU in float64 (plain versions): max |d max_ll| <= 0.05, median
    |d t| <= 0.01.
@@ -73,6 +72,7 @@ with code 2 before doing anything. The last line of standard output is
 ``{"ok": true, "device": {...}}``.
 """
 
+import collections
 import json
 import os
 import re
@@ -188,30 +188,63 @@ def ptxas_report(lib_paths):
     return lines
 
 
-def sass_census(lib_path):
-    """Per op-mix kernel, its SASS instruction count and its FFMA and MUFU
-    instructions (``cuobjdump -sass``), where the toolkit has cuobjdump:
-    the fma kernel's 16-step body over 4 elements must hold at least 64
-    FFMA, or the compiler folded the mix. Returns the report lines."""
+def sass_functions(lib_path):
+    """{(kernel, S, K): SASS text} of a library's fit kernels and {('op_mix',
+    kind, None): ...} of its op-mix kernels (``cuobjdump -sass``; the
+    anonymous namespace's mangled name, which differs between two builds,
+    left out), or None where the toolkit has no cuobjdump."""
     tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
     if not os.path.exists(tool):
-        return ['cuobjdump not found: no SASS census']
+        return None
     out = subprocess.run([tool, '-sass', lib_path], capture_output=True,
                          text=True, timeout=300, check=True).stdout
-    lines = []
+    funcs = {}
     for block in out.split('Function : ')[1:]:
-        kind = re.search(r'op_mix_kernelILi(\d)E', block.split('\n', 1)[0])
-        if not kind:
-            continue
-        ops = re.findall(r'/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)',
-                         block)
-        ffma = sum(op.startswith('FFMA') for op in ops)
-        mufu = sum(op.startswith('MUFU') for op in ops)
-        lines.append('op_mix_kernel<%s>: %d SASS instructions, %d FFMA, %d '
-                     'MUFU' % (kind.group(1), len(ops), ffma, mufu))
-        if kind.group(1) == '0' and ffma < 64:
-            raise AssertionError("the fma mix compiled to %d FFMA (< 64): "
-                                 "its loop was folded" % ffma)
+        name, body = block.split('\n', 1)
+        mix = re.search(r'op_mix_kernelILi(\d)E', name)
+        shape = re.search(r'\d([a-z][a-z_]*_kernel)ILi(\d)ELi(\d)E', name)
+        if mix:
+            funcs[('op_mix', mix.group(1), None)] = body
+        elif shape:
+            funcs[shape.groups()] = body
+    return funcs
+
+
+def sass_ops(body):
+    """The opcodes of a function's SASS text."""
+    return re.findall(r'/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)',
+                      body)
+
+
+def sass_census(lib_paths):
+    """From each library's SASS (``sass_functions``): per op-mix kernel its
+    instruction count and its FFMA and MUFU instructions (the fma kernel's
+    16-step body over 4 elements must hold at least 64 FFMA, or the compiler
+    folded the mix), and per fit kernel of the instantiations
+    ``ptxas_report`` names its instruction count and its local-memory loads
+    and stores (LDL, STL: spills or a dynamically indexed array). Returns
+    the report lines."""
+    lines = []
+    for path in lib_paths:
+        funcs = sass_functions(path)
+        if funcs is None:
+            return ['cuobjdump not found: no SASS census']
+        for (name, S, K), body in funcs.items():
+            ops = sass_ops(body)
+            count = lambda prefix: sum(op.startswith(prefix) for op in ops)
+            if name == 'op_mix':
+                ffma = count('FFMA')
+                lines.append('op_mix_kernel<%s>: %d SASS instructions, %d '
+                             'FFMA, %d MUFU' % (S, len(ops), ffma,
+                                                count('MUFU')))
+                if S == '0' and ffma < 64:
+                    raise AssertionError("the fma mix compiled to %d FFMA "
+                                         "(< 64): its loop was folded" % ffma)
+            elif (S, K) == ('6', '4') or ((S, K) == ('2', '1')
+                                          and 'unbinned' in path):
+                lines.append('%s<%s,%s>: %d SASS instructions, %d LDL, %d '
+                             'STL' % (name, S, K, len(ops), count('LDL'),
+                                      count('STL')))
     return lines
 
 
@@ -289,6 +322,19 @@ def binned_data(label, compiled, mods, rng):
         dtype=torch.float32, device=compiled.device)
     fns, mc, extra = binned_ops(label, compiled, mods)
     return anchor, obs, fns, mc, extra
+
+
+def unbinned_data(label, study):
+    """Phase 1's data of an unbinned path: the study's scored event set of
+    the path's toys (seed 0), (ps (B, G, S, E), mask (B, E), inv_ref
+    (B, E), ref_msum (B,)), and the lanes (B,), all toys in a seeded
+    random order."""
+    ps, mask, (inv_ref, ref_msum, _) = study._fit_data(
+        study.simulate(0, PATHS[label][2]))
+    lanes = torch.randperm(ps.shape[0],
+                           generator=torch.Generator().manual_seed(0)
+                           ).to(study.compiled.device)
+    return ps, mask, inv_ref, ref_msum, lanes
 
 
 def random_point(compiled, rng, lead):
@@ -384,12 +430,8 @@ def kernel_rows(label, study, mods):
     unbinned = not compiled.is_binned
 
     if unbinned:
-        n_toys = PATHS[label][2]
-        ps, mask, (inv_ref, ref_msum, _) = study._fit_data(
-            study.simulate(0, n_toys))
+        ps, mask, inv_ref, ref_msum, lanes = unbinned_data(label, study)
         B, n = ps.shape[0], ps.shape[-1]
-        lanes = torch.randperm(B, generator=torch.Generator().manual_seed(0)
-                               ).to(compiled.device)
 
         def moff_of(m):
             return (m.sum(-1) - (ref_msum[lanes] if m.dim() == 2
@@ -563,21 +605,36 @@ def distinct_per_row(x):
     return 1 + (s[:, 1:] != s[:, :-1]).sum(-1) - (s[:, 0] < 0).long()
 
 
-# The binned wrappers a profile's calls are recorded from, per contract:
-# label -> (module, wrapper, launcher, leading arguments shared by every
-# call: the anchor tensor and, on bb and bb-lite, the MC-count rows)
+# The wrappers a profile's calls are recorded from, per contract: label ->
+# (module, wrapper, launcher, positions of the arguments shared by every
+# call, positions of strides and idx). Shared: the binned anchor tensor
+# and, on bb and bb-lite, the MC-count rows; the unbinned study's ps (1.04
+# GB on unbinned_xenon), mask and inv_ref.
+Calls = collections.namedtuple('Calls',
+                               'module wrapper launcher shared strides idx')
 VALUE_CALLS = {
-    'xenon': ('fused', 'binned_ll_fused_multi', 'binned_ll_launcher', 1),
-    'bb': ('fused_bb', 'binned_bb_ll_fused_multi', 'binned_bb_ll_launcher',
-           2),
-    'bblite': ('fused_bb_lite', 'binned_bblite_ll_fused_multi',
-               'binned_bblite_ll_launcher', 2),
+    'xenon': Calls('fused', 'binned_ll_fused_multi', 'binned_ll_launcher',
+                   (0,), 1, 2),
+    'bb': Calls('fused_bb', 'binned_bb_ll_fused_multi',
+                'binned_bb_ll_launcher', (0, 1), 2, 3),
+    'bblite': Calls('fused_bb_lite', 'binned_bblite_ll_fused_multi',
+                    'binned_bblite_ll_launcher', (0, 1), 2, 3),
+    'unbinned_xenon': Calls('fused_unbinned', 'unbinned_ll_fused_multi',
+                            'unbinned_ll_launcher', (0, 6, 7), 1, 3),
+    'unbinned': Calls('fused_unbinned', 'unbinned_ll_fused_multi',
+                      'unbinned_ll_launcher', (0, 6, 7), 1, 3),
 }
 VGH_CALLS = {
-    'xenon': ('fused', 'binned_vgh_fused', 'binned_vgh_launcher', 1),
-    'bb': ('fused_bb', 'binned_bb_vgh_fused', 'binned_bb_vgh_launcher', 2),
-    'bblite': ('fused_bb_lite', 'binned_bblite_vgh_fused',
-               'binned_bblite_vgh_launcher', 2),
+    'xenon': Calls('fused', 'binned_vgh_fused', 'binned_vgh_launcher', (0,),
+                   1, 2),
+    'bb': Calls('fused_bb', 'binned_bb_vgh_fused', 'binned_bb_vgh_launcher',
+                (0, 1), 2, 3),
+    'bblite': Calls('fused_bb_lite', 'binned_bblite_vgh_fused',
+                    'binned_bblite_vgh_launcher', (0, 1), 2, 3),
+    'unbinned_xenon': Calls('fused_unbinned', 'unbinned_vgh_fused',
+                            'unbinned_vgh_launcher', (0, 6, 7), 1, 3),
+    'unbinned': Calls('fused_unbinned', 'unbinned_vgh_fused',
+                      'unbinned_vgh_launcher', (0, 6, 7), 1, 3),
 }
 CALLS = {'value': VALUE_CALLS, 'vgh': VGH_CALLS}
 
@@ -588,79 +645,103 @@ def record_calls(label, study, mods, contract='value', seed=0,
     ``profile_ts`` of ``n_toys`` toys (default: the path's; a fresh study
     like ``study``, whose fitters take the wrapper through a recorder; the
     wrapper is put back after): a list of each call's arguments, the
-    per-call inputs cloned and the anchor tensor and MC-count rows shared,
-    as on the path."""
-    mod_name, name, _, shared = CALLS[contract][label]
-    module = mods[mod_name]
+    per-call inputs cloned and the shared tensors passed through, as on
+    the path."""
+    spec = CALLS[contract][label]
+    module = mods[spec.module]
     _, target, path_toys, _, _ = PATHS[label]
-    wrapper, calls = getattr(module, name), []
+    wrapper, calls = getattr(module, spec.wrapper), []
 
     def recorder(*args):
-        calls.append(args[:shared] + tuple(
-            a.clone() if torch.is_tensor(a) else a for a in args[shared:]))
+        calls.append(tuple(
+            a.clone() if torch.is_tensor(a) and i not in spec.shared else a
+            for i, a in enumerate(args)))
         return wrapper(*args)
-    recorder.launches = 0
-    setattr(module, name, recorder)             # read when fitters are built
+    recorder.launches = 0           # the launchers count on the module's name
+    setattr(module, spec.wrapper, recorder)     # read when fitters are built
     try:
+        extra = {} if study.compiled.is_binned else dict(n_max=study.n_max)
         fresh = type(study)(study.lf, dtype=study.compiled.dtype,
                             device=study.device, max_iter=study.max_iter,
-                            tol=study.tol, engine=study.engine)
+                            tol=study.tol, engine=study.engine, **extra)
         fresh.profile_ts(seed, n_toys=n_toys or path_toys, target=target,
                          hypothesis=1.0)
     finally:
-        setattr(module, name, wrapper)
+        setattr(module, spec.wrapper, wrapper)
     return calls
 
 
-def call_candidates(args, shared):
+def call_candidates(args, spec):
     """Candidates a toy of a recorded call: A of a value call, 1 of a vgh
     call (its idx is (L, K))."""
-    idx = args[shared + 1]
+    idx = args[spec.idx]
     return idx.shape[1] if idx.dim() == 3 else 1
 
 
-def time_calls(launcher, calls, shared):
-    """{A: summed ms} of recorded calls (``record_calls``; the first
-    ``shared`` arguments are the shared tensors): one launcher built per
-    call, the launches of each candidate count A (``call_candidates``)
-    captured in one CUDA graph in call order, and the replays timed
-    (``roofline.launch_elapsed_s``)."""
+def time_calls(launcher, calls, spec, key=call_candidates):
+    """{key: summed ms} of recorded calls (``record_calls`` of the contract
+    ``spec``): one launcher built per call, the launches of each group of
+    calls (by ``key(args, spec)``, default the candidate count A,
+    ``call_candidates``) captured in one CUDA graph in call order, and the
+    replays timed (``roofline.launch_elapsed_s``)."""
     from blueice_tpu_torch.utils.roofline import launch_elapsed_s
-    by_A = {}
+    groups = {}
     for args in calls:
-        by_A.setdefault(call_candidates(args, shared), []).append(
-            launcher(*args)[0])
-    return {A: 1e3 * len(fns) * launch_elapsed_s(fns, len(fns))
-            for A, fns in sorted(by_A.items())}
+        groups.setdefault(key(args, spec), []).append(launcher(*args)[0])
+    return {k: 1e3 * len(fns) * launch_elapsed_s(fns, len(fns))
+            for k, fns in sorted(groups.items())}
+
+
+def call_work(contract, args, spec, S, K, G):
+    """(bytes, operations) of one recorded call (``roofline.work``), as
+    phase 1 counts them: binned, the distinct corner rows (the MC-count
+    row among the rows a corner reads) over every bin and the observed
+    counts; unbinned, each lane's distinct corner rows over its valid
+    events, the lanes' mask and the valid events' inv_ref. Returns the
+    corner ids (L, A, C) too."""
+    from blueice_tpu_torch.ops import fused
+    from blueice_tpu_torch.utils.roofline import (distinct_rows, row_events,
+                                                  work)
+    strides, idx = args[spec.strides], args[spec.idx]
+    L, A = idx.shape[0], call_candidates(args, spec)
+    ids = fused.corner_ids(strides, idx, G).reshape(L, A, -1)
+    lead = (L, A) if contract == 'value' else (L,)
+    if spec.module == 'fused_unbinned':
+        ps, lanes, mask = args[0], args[2], args[6]
+        valid = mask[lanes].sum(-1)
+        n_valid = int(valid.sum())
+        return work(contract, S, K, lead,
+                    row_floats=S * row_events(ids, valid),
+                    data_bytes=L * ps.shape[-1] + 4 * n_valid,
+                    items=A * n_valid) + (ids,)
+    R = S + (len(spec.shared) > 1)              # rows a corner reads
+    N = args[0].shape[-1]
+    return work(contract, S, K, lead, row_floats=R * distinct_rows(ids) * N,
+                data_bytes=L * N * 4, items=L * A * N, mc_rows=R > S) + (ids,)
 
 
 def replay_calls(label, study, mods, rows, contract='value'):
-    """The binned kernel of ``contract`` over the profile's own calls
+    """The kernel of ``contract`` over the profile's own calls
     (``record_calls``, seed 0; the kernels are built and loaded), replayed
     from CUDA graphs (``time_calls``). Prints the calls, their mean lanes L
     (and, of the value kernel, candidates A and distinct corner rows U per
     toy and per group of 8 candidates), the summed kernel time and the
-    summed bound (the MC-count row counted among the rows a corner reads);
-    adds them to the kernel's row."""
-    from blueice_tpu_torch.utils.roofline import bound, distinct_rows, work
-    mod_name, name, launcher_name, shared = CALLS[contract][label]
+    summed bound (``call_work``); adds them to the kernel's row."""
+    from blueice_tpu_torch.utils.roofline import bound
+    spec = CALLS[contract][label]
     calls = record_calls(label, study, mods, contract)
     torch.cuda.synchronize()
     if not calls:
         raise AssertionError("%s: the profile made no %s-kernel call"
                              % (label, contract))
-    fused = mods['fused']
     compiled = study.compiled
     K, S = len(compiled.shape_names), len(compiled.rate_names)
     G = compiled.mus_tensor.numel() // S
-    R = S + (shared > 1)                        # rows a corner reads
     stats = dict(lanes=0, cands=0, toy_rows=0, groups=0, group_rows=0,
                  bound_ms=0.0)
     for args in calls:
-        anchor, (strides, idx) = args[0], args[shared:shared + 2]
-        L, A = idx.shape[0], call_candidates(args, shared)
-        N = anchor.shape[-1]
-        ids = fused.corner_ids(strides, idx, G).reshape(L, A, -1)
+        nbytes, flops, ids = call_work(contract, args, spec, S, K, G)
+        L, A = ids.shape[:2]
         n_grp = -(-A // 8)
         grouped = torch.nn.functional.pad(ids, (0, 0, 0, 8 * n_grp - A),
                                           value=-1)
@@ -670,13 +751,9 @@ def replay_calls(label, study, mods, rows, contract='value'):
         stats['groups'] += L * n_grp
         stats['lanes'] += L
         stats['cands'] += L * A
-        lead = (L, A) if contract == 'value' else (L,)
-        nbytes, flops = work(contract, S, K, lead,
-                             row_floats=R * distinct_rows(ids) * N,
-                             data_bytes=L * N * 4, items=L * A * N,
-                             mc_rows=R > S)
         stats['bound_ms'] += bound(nbytes, flops)[0]
-    per_A = time_calls(getattr(mods[mod_name], launcher_name), calls, shared)
+    per_A = time_calls(getattr(mods[spec.module], spec.launcher), calls,
+                       spec)
     n = len(calls)
     out = dict(replay_calls=n, replay_ms=sum(per_A.values()),
                replay_bound_ms=stats['bound_ms'],
@@ -692,7 +769,7 @@ def replay_calls(label, study, mods, rows, contract='value'):
             % (label, n, out['replay_mean_lanes'], out['replay_mean_A'],
                out['replay_mean_U_toy'], out['replay_mean_U_group'],
                out['replay_ms'], ', '.join('A=%d: %d calls %.4f ms' % (
-                   A, sum(call_candidates(a, shared) == A for a in calls),
+                   A, sum(call_candidates(a, spec) == A for a in calls),
                    ms) for A, ms in per_A.items()),
                out['replay_bound_ms']))
     else:
@@ -700,10 +777,10 @@ def replay_calls(label, study, mods, rows, contract='value'):
             "lanes L %.1f (min %d, max %d); kernel time summed %.4f ms, "
             "bound summed %.4f ms"
             % (label, n, out['replay_mean_lanes'],
-               min(a[shared + 1].shape[0] for a in calls),
-               max(a[shared + 1].shape[0] for a in calls),
+               min(a[spec.idx].shape[0] for a in calls),
+               max(a[spec.idx].shape[0] for a in calls),
                out['replay_ms'], out['replay_bound_ms']))
-    next(r for r in rows if r['name'] == name).update(out)
+    next(r for r in rows if r['name'] == spec.wrapper).update(out)
 
 
 def two_precisions(label, study, cls):
@@ -765,9 +842,8 @@ def run_path(label, mods, api):
     check_on_card(label, study.compiled)
     rows = kernel_rows(label, study, mods)
     main_path(label, study, mods, rows)
-    if label in VALUE_CALLS:
-        for contract in CALLS:
-            replay_calls(label, study, mods, rows, contract)
+    for contract in CALLS:
+        replay_calls(label, study, mods, rows, contract)
     two_precisions(label, study, cls)
     return rows
 
@@ -898,7 +974,7 @@ def main(labels):
         % (len(libs), time.time() - t0))
     for line in ptxas_report(libs):
         log("ptxas " + line)
-    for line in sass_census(dict(zip(mods, libs))['roofline']):
+    for line in sass_census(libs):
         log("sass " + line)
 
     rows = []

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""A/B of the binned value or vgh kernels against other checkouts', on a
-profile's own calls, on one NVIDIA GPU.
+"""A/B of the value or vgh kernels against other checkouts', on a profile's
+own calls, on one NVIDIA GPU.
 
 Run from the root of a checkout on a machine with a CUDA GPU:
 
@@ -11,31 +11,40 @@ BASELINE is the root of another checkout of the repo (for example an
 earlier commit unpacked with ``git archive`` into a directory that
 ``.gitignore`` lists) whose kernels' C entries take the arguments this
 checkout's take: for the value contract (the default) ``bt_binned_ll_multi``,
-``bt_bb_ll_multi``, ``bt_bblite_ll_multi``; for the vgh contract
-``bt_binned_vgh``, ``bt_bb_vgh``, ``bt_bblite_vgh``. Several baselines,
-separated by commas, are measured on the same calls. For each binned path
-(``xenon``, ``bb``, ``bblite``, or the ones named), float32 on the card:
+``bt_bb_ll_multi``, ``bt_bblite_ll_multi``, ``bt_unbinned_ll_multi``; for the
+vgh contract ``bt_binned_vgh``, ``bt_bb_vgh``, ``bt_bblite_vgh``. Several
+baselines, separated by commas, are measured on the same calls. For each
+path (value: ``xenon``, ``bb``, ``bblite``, ``unbinned_xenon``,
+``unbinned``; vgh: the three binned ones; or the ones named), float32 on
+the card:
 
 1. every call of the path's wrapper of the contract in one ``profile_ts``
    (seed 0, the path's toys) is recorded with this checkout's kernels
    (``chip_smoke.record_calls``);
-2. the same calls are replayed from CUDA graphs (``chip_smoke.time_calls``)
-   with each library in turns, the baselines, this checkout's twice, the
+2. the same calls are replayed from CUDA graphs (``chip_smoke.time_calls``,
+   by candidate count and bin of lanes, ``LANE_BINS``) with each library
+   in turns, the baselines, this checkout's twice, the
    baselines in reverse (one baseline: baseline, current, current,
    baseline); each replay's summed time is printed, then each library's
    median and the ratio baseline / current;
 3. in the same turns, each library's kernel alone at phase 1's inputs of
-   ``chip_smoke.py`` (512 toys; the value kernel at A = 12), 20 launches
-   replayed from a CUDA graph;
-4. the outputs on every recorded call are checked, or the run fails: a
+   ``chip_smoke.py`` (binned: 512 toys; unbinned: the path's scored event
+   sets; the value kernel at A = 12 and 20), 20 launches replayed from a
+   CUDA graph, warm and L2-cold (``roofline.cold_launches``);
+4. the outputs on every recorded call are checked, and the run fails
+   (after every baseline's line is printed) unless they hold: a
    value baseline's agree with this checkout's to relative 1e-5 (0:
-   bit-identical); the vgh kernels are held to the plain version in
+   bit-identical; an unbinned ll relative to the magnitudes of its terms,
+   ``chip_smoke.term_scale``); the vgh kernels are held to the plain version in
    float64 on the same calls (ll relative, g and H relative to each toy's
    largest entry), this checkout's within 1e-5 and 1e-4 or within twice a
    baseline's error (where float32 itself loses digits, next to an anchor
    whose MC-count row is empty). The errors are printed, and for the vgh
    the largest difference between the two libraries' outputs (0:
    bit-identical).
+
+Before the turns it prints, per kernel source and baseline, which kernels
+compile to the same SASS in both builds, instantiation by instantiation.
 
 Without CUDA it exits with code 2. It prints the card's name and power
 limit first and last.
@@ -48,10 +57,16 @@ import sys
 import numpy as np
 import torch
 
-from chip_smoke import (CALLS, binned_data, build_model, log, random_point,
-                        record_calls, rel_to_toy_max, time_calls)
+from chip_smoke import (CALLS, PATHS, binned_data, build_model,
+                        call_candidates, log, random_point, record_calls,
+                        rel_to_toy_max, sass_functions, term_scale,
+                        time_calls, unbinned_data)
 
 BINNED = ('xenon', 'bb', 'bblite')
+#: The paths of each contract's A/B (the vgh outputs are held to the plain
+#: version in float64, which on unbinned_xenon would copy its 1 GB event
+#: tensor into float64 for every call)
+AB_PATHS = {'value': tuple(PATHS), 'vgh': BINNED}
 
 
 def baseline_source(module, root):
@@ -79,27 +94,59 @@ def load_baseline(module, root):
 
 
 def phase1_args(label, study, mods, contract):
-    """The arguments of the path's wrapper of ``contract`` at phase 1's
-    inputs (``chip_smoke.kernel_rows``: the same seed and draws)."""
+    """{name: arguments} of the path's wrapper of ``contract`` at phase 1's
+    inputs (``chip_smoke.kernel_rows``: the same seed and draws): the vgh
+    call, or the value calls at A = 12 and 20."""
     compiled = study.compiled
     rng = np.random.default_rng(0)
-    anchor, obs, _, mc, extra = binned_data(label, compiled, mods, rng)
     grid = [len(a) for a in compiled.anchor_arrays]
     strides = tuple(int(np.prod(grid[d + 1:])) for d in range(len(grid)))
-    idx, t, m = random_point(compiled, rng, obs.shape[:1])
+    if not compiled.is_binned:
+        ps, mask, inv_ref, ref_msum, lanes = unbinned_data(label, study)
+        lead = lanes.shape
+    else:
+        anchor, obs, _, mc, extra = binned_data(label, compiled, mods, rng)
+        lead = obs.shape[:1]
+    points = {'': random_point(compiled, rng, lead)}
     if contract == 'value':
-        idx, t, m = random_point(compiled, rng, obs.shape[:1] + (12,))
-    head = (anchor,) if mc is None else (anchor, mc)
-    return head + (strides, idx, t, m, obs) + tuple(extra)
+        points = {'A=%d' % A: random_point(compiled, rng, lead + (A,))
+                  for A in (12, 20)}
+    out = {}
+    for name, (idx, t, m) in points.items():
+        if not compiled.is_binned:
+            moff = (m.sum(-1) - ref_msum[lanes].reshape(
+                lead + (1,) * (m.dim() - 2))).contiguous()
+            out[name] = (ps, strides, lanes, idx, t, m, mask, inv_ref, moff,
+                         compiled.outlier_likelihood)
+        else:
+            head = (anchor,) if mc is None else (anchor, mc)
+            out[name] = head + (strides, idx, t, m, obs) + tuple(extra)
+    return out
 
 
-def disagreement(out, ref):
+#: The lane counts by which a replay's time is broken down
+LANE_BINS = (1, 8, 32, 128, 256)
+
+
+def lanes_and_A(args, spec):
+    """(A, lane bin) of a recorded call: its candidates and its lanes' bin
+    of ``LANE_BINS`` ('1-7', ..., '256+')."""
+    L = args[spec.idx].shape[0]
+    i = max(j for j, lo in enumerate(LANE_BINS) if L >= lo)
+    hi = LANE_BINS[i + 1] - 1 if i + 1 < len(LANE_BINS) else None
+    return (call_candidates(args, spec),
+            '%d-%d' % (LANE_BINS[i], hi) if hi else '%d+' % LANE_BINS[i])
+
+
+def disagreement(out, ref, scale=None):
     """(ll, g and H) relative differences of ``out`` from ``ref``: the ll
     (a value call's, or the first of a vgh call's (ll, g, H)) relative to
-    itself, g and H relative to each toy's largest entry (0 for a value
-    call)."""
+    ``scale`` (default: itself; an unbinned value call's, the magnitudes of
+    its terms, ``chip_smoke.term_scale``), g and H relative to each toy's
+    largest entry (0 for a value call)."""
     if not isinstance(out, tuple):
-        return float(((out - ref).abs() / ref.abs()).max()), 0.0
+        scale = ref.abs() if scale is None else scale
+        return float(((out - ref).abs() / scale).max()), 0.0
     return (float(((out[0] - ref[0]).abs() / ref[0].abs()).max()),
             max(rel_to_toy_max(out[1], ref[1]),
                 rel_to_toy_max(out[2], ref[2])))
@@ -107,32 +154,43 @@ def disagreement(out, ref):
 
 def ab(label, study, mods, baselines, contract):
     """Steps 1-4 for one path; ``baselines``: {name: {module name:
-    library}}."""
-    from blueice_tpu_torch.utils.roofline import launch_elapsed_s
-    mod_name, name, launcher_name, shared = CALLS[contract][label]
-    module = mods[mod_name]
-    launcher = getattr(module, launcher_name)
+    library}}. Returns the failures of step 4 (texts; none: [])."""
+    from blueice_tpu_torch.utils.roofline import (N_INNER, cold_launches,
+                                                  launch_elapsed_s)
+    spec = CALLS[contract][label]
+    module = mods[spec.module]
+    launcher = getattr(module, spec.launcher)
     calls = record_calls(label, study, mods, contract)
     phase1 = phase1_args(label, study, mods, contract)
     torch.cuda.synchronize()
     libs = dict(current=module.load_library())
-    libs.update((b, lib[mod_name]) for b, lib in baselines.items())
+    libs.update((b, lib[spec.module]) for b, lib in baselines.items())
     order = list(baselines) + ['current', 'current'] + list(baselines)[::-1]
     totals = {kind: [] for kind in libs}
-    alone = {kind: [] for kind in libs}
+    # phase 1 alone: {kind: {input name (warm or cold): [ms, ...]}}
+    alone = {kind: {} for kind in libs}
     outs = {}
     load = module.load_library
     try:
         for kind in order:
             module.load_library = lambda kind=kind: libs[kind]
-            per_A = time_calls(launcher, calls, shared)
+            per_A = time_calls(launcher, calls, spec, key=lanes_and_A)
             totals[kind].append(sum(per_A.values()))
-            alone[kind].append(1e3 * launch_elapsed_s(launcher(*phase1)[0]))
+            for name, args in phase1.items():
+                cold = cold_launches(launcher, args)
+                for key, ms in ((name, 1e3 * launch_elapsed_s(
+                        launcher(*args)[0])), ((name + ' cold').strip(),
+                        1e3 * launch_elapsed_s(cold, max(N_INNER,
+                                                         len(cold))))):
+                    alone[kind].setdefault(key, []).append(ms)
+                del cold
             log("%s %s replay, %s kernel: %d calls, %.4f ms (%s); phase 1 "
-                "alone %.4f ms" % (
+                "alone %s" % (
                     label, contract, kind, len(calls), totals[kind][-1],
-                    ', '.join('A=%d: %.4f ms' % a for a in per_A.items()),
-                    alone[kind][-1]))
+                    ', '.join('A=%d, L %s: %.4f ms' % (A, L, ms) for (A, L), ms
+                              in per_A.items()),
+                    ', '.join('%s %.4f ms' % (key or 'warm', ms[-1])
+                              for key, ms in alone[kind].items())))
             if kind not in outs:
                 outs[kind] = []
                 for args in calls:
@@ -146,17 +204,22 @@ def ab(label, study, mods, baselines, contract):
     # plain version in float64 on the same calls (in a bin next to an anchor
     # whose MC-count row is empty float32 itself loses digits, so two
     # float32 kernels may differ there by more than their tolerance)
+    scales = [None] * len(calls)
     if contract == 'vgh':
-        plain = getattr(module, name.replace('_fused', '_plain'))
+        plain = getattr(module, spec.wrapper.replace('_fused', '_plain'))
         refs = [plain(*(a.double() if torch.is_tensor(a)
                         and a.is_floating_point() else a for a in args))
                 for args in calls]
     else:
         refs = outs['current']
-    errs = {kind: np.array([disagreement(double(o), double(r)) for o, r in
-                            zip(outs[kind], refs)]) for kind in libs}
+        if spec.module == 'fused_unbinned':
+            scales = [term_scale(*args) for args in calls]
+    errs = {kind: np.array([disagreement(double(o), double(r), s)
+                            for o, r, s in zip(outs[kind], refs, scales)])
+            for kind in libs}
     worst = {kind: e.max(axis=0) for kind, e in errs.items()}
-    cur, cur1 = (float(np.median(x['current'])) for x in (totals, alone))
+    cur = float(np.median(totals['current']))
+    failures = []
     for kind in baselines:
         if contract == 'vgh':
             bound = np.maximum((1e-5, 1e-4), 2 * worst[kind])
@@ -173,19 +236,41 @@ def ab(label, study, mods, baselines, contract):
             held = "each other (%.3g)" % worst[kind][0]
         if not ok:
             i = int(bad.max(axis=1).argmax())
-            raise AssertionError(
+            failures.append(
                 "%s: the %s kernels of %s and this checkout are not held to "
                 "%s, worst on call %d of %d (%d lanes; lerp weights t in "
                 "[%g, %g])" % (
                     label, contract, kind, held, i, len(calls),
-                    calls[i][shared + 1].shape[0],
-                    float(calls[i][shared + 2].min()),
-                    float(calls[i][shared + 2].max())))
-        base, base1 = (float(np.median(x[kind])) for x in (totals, alone))
+                    calls[i][spec.idx].shape[0],
+                    float(calls[i][spec.idx + 1].min()),
+                    float(calls[i][spec.idx + 1].max())))
+            log(failures[-1])
+        base = float(np.median(totals[kind]))
+        phase = []
+        for key, ms in alone[kind].items():
+            b1, c1 = float(np.median(ms)), float(np.median(
+                alone['current'][key]))
+            phase.append('%s %.4f ms, current %.4f ms (%.3fx)' % (
+                key or 'warm', b1, c1, b1 / c1))
         log("%s %s replay medians: %s %.4f ms, current %.4f ms (%.3fx); "
-            "phase 1 alone %.4f ms, current %.4f ms (%.3fx); outputs held "
-            "to %s" % (label, contract, kind, base, cur, base / cur, base1,
-                       cur1, base1 / cur1, held))
+            "phase 1 alone: %s; outputs held to %s" % (
+                label, contract, kind, base, cur, base / cur,
+                '; '.join(phase), held))
+    return failures
+
+
+def sass_comparison(lib, base, label):
+    """Which kernels of two builds of one source compile to the same SASS,
+    instantiation by instantiation (``chip_smoke.sass_functions``): a line
+    of counts per kernel name."""
+    ours, theirs = sass_functions(lib), sass_functions(base)
+    if ours is None or theirs is None:
+        return 'sass %s: cuobjdump not found' % label
+    same, differ = {}, {}
+    for key in sorted(set(ours) & set(theirs), key=str):
+        tally = same if ours[key] == theirs[key] else differ
+        tally[key[0]] = tally.get(key[0], 0) + 1
+    return 'sass %s: identical %s; differ %s' % (label, same, differ)
 
 
 def double(out):
@@ -202,30 +287,44 @@ def main(argv):
     parser.add_argument('--contract', choices=sorted(CALLS), default='value')
     parser.add_argument('baselines')
     parser.add_argument('paths', nargs='*', metavar='path',
-                        help=' | '.join(BINNED))
+                        help=' | '.join(PATHS))
     args = parser.parse_args(argv)
-    if not set(args.paths) <= set(BINNED):
-        parser.error("paths are %s" % ', '.join(BINNED))
+    paths = AB_PATHS[args.contract]
+    if not set(args.paths) <= set(paths):
+        parser.error("the %s contract's paths are %s"
+                     % (args.contract, ', '.join(paths)))
     from blueice_tpu_torch import likelihood, test_helpers
     from blueice_tpu_torch.examples import xenon_like
-    from blueice_tpu_torch.ops import fused, fused_bb, fused_bb_lite
-    from blueice_tpu_torch.parallel import BinnedToyStudy
+    from blueice_tpu_torch.ops import (fused, fused_bb, fused_bb_lite,
+                                       fused_unbinned)
+    from blueice_tpu_torch.parallel import BinnedToyStudy, UnbinnedToyStudy
     from blueice_tpu_torch.utils import set_progress
     from blueice_tpu_torch.utils.roofline import card_line
 
     set_progress(False)
     log(card_line())
     roots = args.baselines.split(',')
-    mods = dict(fused=fused, fused_bb=fused_bb, fused_bb_lite=fused_bb_lite)
+    mods = dict(fused=fused, fused_bb=fused_bb, fused_bb_lite=fused_bb_lite,
+                fused_unbinned=fused_unbinned)
     fused.build_libraries([m.SOURCE for m in mods.values()] + [
         baseline_source(m, root) for root in roots for m in mods.values()])
     baselines = {root: {name: load_baseline(m, root)
                         for name, m in mods.items()} for root in roots}
-    for label in args.paths or BINNED:
+    for root in roots:
+        for name, m in mods.items():
+            log(sass_comparison(fused.build_library(m.SOURCE),
+                                fused.build_library(baseline_source(m, root)),
+                                '%s vs %s' % (name, root)))
+    failures = []
+    for label in args.paths or paths:
         lf = build_model(label, xenon_like, test_helpers, likelihood)
-        study = BinnedToyStudy(lf, max_iter=96, tol=3e-4)
-        ab(label, study, mods, baselines, args.contract)
+        cls = UnbinnedToyStudy if label.startswith('unbinned') \
+            else BinnedToyStudy
+        study = cls(lf, max_iter=96, tol=3e-4)
+        failures += ab(label, study, mods, baselines, args.contract)
     log(card_line())
+    if failures:
+        raise AssertionError('; '.join(failures))
     return 0
 
 

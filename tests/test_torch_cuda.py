@@ -230,15 +230,17 @@ BB_MODES = {
 }
 
 
-#: The Beeston-Barlow vgh kernels' cases beyond K = 0..4 (S = 3, N = 300,
-#: B = 16): name -> (S, K, N, B, bb source). The kernels split a toy's bins
-#: over a cluster of up to 8 blocks, as many as the batch needs to fill the
-#: card: one toy gets 7 ranges (B = 1, 3), a batch of more than five waves
-#: (B = 300, 5 ranges a toy), fewer bins than a range's width (N = 37), the
-#: XENON shape; and
+#: The binned vgh kernels' cases beyond K = 0..4 (S = 3, N = 300, B = 16),
+#: for the three contracts (binned, Beeston-Barlow, bb-lite): name -> (S,
+#: K, N, B, bb source). The kernels split a toy's bins over a cluster of up
+#: to 8 blocks, as many as the batch needs to fill the card: one toy gets 7
+#: ranges (B = 1, 3), a batch of more than five waves (B = 300, 5 ranges a
+#: toy), fewer bins than a range's width (N = 37), the XENON shape; and
 #: they combine the corner rows by lerp steps at lerp weights recovered from
 #: the corner weights, which must keep the plain version's exact zeros of a
-#: fit at an anchor (t = 0 or 1).
+#: fit at an anchor (t = 0 or 1) and its precision next to one (t within
+#: 1e-5 of 1 on every axis, where the weight tables' sum keeps a small
+#: corner value's digits and a lerp from the far corner would not).
 BB_VGH_CASES = {
     'B1': (6, 4, 3100, 1, 1),
     'B3': (6, 4, 3100, 3, 1),
@@ -246,7 +248,9 @@ BB_VGH_CASES = {
     'N37': (6, 4, 37, 16, 1),
     'N3100': (6, 4, 3100, 16, 1),
     't_at_anchors': (6, 4, 300, 16, 1),
+    't_near_one': (6, 4, 300, 16, 1),
 }
+VGH_MODES = ('binned', 'bb', 'bblite')
 #: Beeston-Barlow only: the finite source first and last (a runtime index)
 BB_ONLY_VGH_CASES = {
     'bb_first_source': (6, 4, 3100, 16, 0),
@@ -255,17 +259,25 @@ BB_ONLY_VGH_CASES = {
 
 
 def _bb_vgh_case(case, mode, device, seed=0):
-    """(args, module, kernel, plain) of a Beeston-Barlow vgh case: K = 0..4
-    (case '0'..'4') on ``_count_rows``' inputs, else a ``BB_VGH_CASES`` or
-    ``BB_ONLY_VGH_CASES`` shape with, as there, an empty-MC bin, a bin
-    where the other sources vanish (U == 0) and one where the finite source
-    does."""
-    module, kernel, plain, _, _, extra = BB_MODES[mode]
+    """(args, module, kernel, plain) of a binned vgh case of contract
+    ``mode`` (``VGH_MODES``): K = 0..4 (case '0'..'4') on ``_count_rows``'
+    inputs, else a ``BB_VGH_CASES`` or ``BB_ONLY_VGH_CASES`` shape with, as
+    there, an empty-MC bin, a bin where the other sources vanish (U == 0)
+    and one where the finite source does. The binned contract takes no
+    MC-count rows: its args leave them out."""
+    if mode == 'binned':
+        module, kernel, plain, extra = (fused, fused.binned_vgh_fused,
+                                        fused.binned_vgh_plain, ())
+    else:
+        module, kernel, plain, _, _, extra = BB_MODES[mode]
+
+    def contract(args):
+        return (args[:1] + args[2:] if mode == 'binned' else args + extra,
+                module, kernel, plain)
     if case.isdigit():
         anchor, nme, strides, observed, (idx, t, m), _ = _count_rows(
             int(case), device, seed)
-        return ((anchor, nme, strides, idx, t, m, observed) + extra, module,
-                kernel, plain)
+        return contract((anchor, nme, strides, idx, t, m, observed))
     S_, K, N_, B_, bb_i = BB_VGH_CASES.get(case) or BB_ONLY_VGH_CASES[case]
     rng = np.random.default_rng(200 + seed)
     grid = (3,) * K
@@ -291,26 +303,37 @@ def _bb_vgh_case(case, mode, device, seed=0):
         anchor[np.ix_(odd, [s for s in range(S_) if s != bb_i],
                       np.arange(21, 31))] = 0.0
         anchor[np.ix_(odd, [bb_i], np.arange(31, 41))] = 0.0
+    if case == 't_near_one':
+        # within 1e-5 of 1 on every axis, and every source's rows 1e-4 of
+        # their size on the anchors with an odd index along axis 0 (bins
+        # 41-60): where the lower corner along axis 0 is even, lambda is
+        # ~1e-4 of its size there and dominates the toy's H, so its few
+        # digits must survive the combine
+        t[:] = 1.0 - rng.uniform(0.0, 1e-5, (B_, K))
+        odd = np.array([(g // strides[0]) % 2 == 1 for g in range(G)])
+        anchor[np.ix_(odd, np.arange(S_), np.arange(41, 61))] *= 1e-4
 
     def f32(x):
         return torch.as_tensor(x, dtype=torch.float32, device=device)
     args = (f32(anchor), f32(nme), strides, torch.as_tensor(idx,
                                                             device=device),
             f32(t), f32(m), f32(observed))
-    return args + ((bb_i,) if mode == 'bb' else ()), module, kernel, plain
+    if mode == 'bb':
+        return args + (bb_i,), module, kernel, plain
+    return contract(args)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("K", ['0', '1', '2', '3', '4']
                          + sorted(BB_VGH_CASES))
-@pytest.mark.parametrize("mode", sorted(BB_MODES))
+@pytest.mark.parametrize("mode", VGH_MODES)
 def test_bb_vgh_kernels_match_plain(cuda_device, mode, K):
     args, module, kernel, plain = _bb_vgh_case(K, mode, cuda_device)
     module.reset_launch_counts()
     out = kernel(*args)
     ref = plain(*args)
     torch.cuda.synchronize()
-    assert module.launch_counts()['binned_%s_vgh_fused' % mode] == 1
+    assert module.launch_counts()[kernel.__name__] == 1
     np.testing.assert_allclose(out[0].cpu(), ref[0].cpu(), rtol=1e-5)
     assert _rel_to_toy_max(out[1], ref[1]) < 1e-4
     assert _rel_to_toy_max(out[2], ref[2]) < 1e-4
@@ -334,17 +357,17 @@ def test_bb_vgh_kernel_source_cases(cuda_device, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", sorted(BB_MODES))
+@pytest.mark.parametrize("mode", VGH_MODES)
 def test_bb_vgh_kernels_alone_and_in_a_batch(cuda_device, mode):
     """One toy computed alone (all of a cluster's ranges on its bins) and
     inside a batch of 300 (two ranges a toy) agree to float32 tolerance:
     the range count changes the summation order, not the result."""
     args, _, kernel, _ = _bb_vgh_case('B300', mode, cuda_device)
-    anchor, nme, strides, idx, t, m, observed, *extra = args
+    toy_args = range(2 if mode == 'binned' else 3, len(args))  # idx .. obs
     batch = kernel(*args)
     for toy in (0, 137, 299):
-        one = kernel(anchor, nme, strides, idx[toy:toy + 1], t[toy:toy + 1],
-                     m[toy:toy + 1], observed[toy:toy + 1], *extra)
+        one = kernel(*(a[toy:toy + 1] if i in toy_args and torch.is_tensor(a)
+                       else a for i, a in enumerate(args)))
         torch.cuda.synchronize()
         np.testing.assert_allclose(one[0].cpu(), batch[0][toy:toy + 1].cpu(),
                                    rtol=1e-5)
@@ -463,6 +486,130 @@ def test_unbinned_value_kernel_matches_plain(cuda_device, case, outlier):
     assert out.shape == (len(U_LANES), UA) and torch.isfinite(out).all()
     np.testing.assert_allclose(out.cpu(), ref.cpu(), rtol=1e-5)
     assert torch.equal(out, fused_unbinned.unbinned_ll_fused_multi(*args))
+
+
+#: The unbinned value kernel's cases, at the two widths the paths run
+#: (``ULL_WIDTHS``: the Gaussian model's S = 2 sources on a 3-anchor axis,
+#: and XENON's S = 6 on a 3^4 grid): name -> (B, L, A, E, candidates,
+#: lanes). The kernel runs one block per (lane, event range[, candidate
+#: group]), a lane's ranges one cluster, the candidates of one grid cell
+#: sharing each load of its corner rows: one lane (8 ranges), L x A below
+#: one wave of the card and above it, A = 65 (more than a block's 64
+#: candidates: two groups), all of a lane's candidates in one cell and each
+#: in its own, lanes permuted and repeated, a lane whose events are all
+#: masked, and E = 37 (fewer events than a block's threads).
+ULL_WIDTHS = {'S2K1': ((3,), 2), 'S6K4': ((3, 3, 3, 3), 6)}
+ULL_CASES = {
+    'one_lane': (3, 1, 12, 700, 'random', [1]),
+    'below_one_wave': (6, 4, 12, 700, 'random', [4, 0, 5, 2]),
+    'above_one_wave': (130, 128, 12, 300, 'random', None),
+    'A65_two_groups': (6, 3, 65, 300, 'random', [2, 5, 0]),
+    'one_cell': (6, 4, 12, 700, 'one_cell', [3, 1, 4, 0]),
+    'own_cells': (6, 4, 12, 700, 'own_cells', [3, 1, 4, 0]),
+    'lanes_permuted_repeated': (5, 6, 12, 700, 'random', [3, 0, 3, 4, 0, 1]),
+    'all_masked_lane': (6, 4, 12, 700, 'all_masked', [2, 0, 5, 1]),
+    'E37': (6, 4, 12, 37, 'random', [4, 0, 5, 2]),
+}
+
+
+def _ull_case(width, case, outlier, device, seed=0):
+    """The unbinned value wrapper's args of a ``ULL_CASES`` case: masked
+    tails (a prefix of each toy's events valid, as the study's sampler
+    makes them), events of zero and of negative summed density (valid only
+    with an outlier floor, else in the masked tail), centered."""
+    grid, S_ = ULL_WIDTHS[width]
+    B_, L, A_, E_, kind, lanes = ULL_CASES[case]
+    K = len(grid)
+    G = int(np.prod(grid))
+    strides = tuple(int(np.prod(grid[d + 1:])) for d in range(K))
+    rng = np.random.default_rng(seed + S_)
+    ps = rng.uniform(0.001, 0.4, (B_, G, S_, E_))
+    n_valid = rng.integers(E_ // 2, E_ - 2, B_)
+    if kind == 'all_masked':
+        n_valid[lanes[1]] = 0
+    mask = np.arange(E_)[None, :] < n_valid[:, None]
+    bad = [0, 1] if outlier else [E_ - 2, E_ - 1]
+    ps[:, :, :, bad[0]] = 0.0
+    ps[:, :, 0, bad[1]] = -50.0
+    inv_ref = np.where(mask, rng.uniform(0.5, 2.0, (B_, E_)), 1.0)
+    ref_msum = rng.uniform(500, 3000, B_)
+    lanes = np.arange(L) if lanes is None else np.asarray(lanes)
+    cells = np.array(list(np.ndindex((2,) * K)))       # lower corners
+    idx = cells[rng.integers(0, len(cells), (L, A_))]
+    if kind == 'one_cell':
+        idx[:] = idx[:, :1]
+    elif kind == 'own_cells':
+        idx = np.stack([cells[rng.permutation(len(cells))] for _ in
+                        range(L)])[:, :min(A_, len(cells))]
+    A_ = idx.shape[1]
+    t = rng.uniform(0, 1, (L, A_, K))
+    m = rng.uniform(100, 2000, (L, A_, S_))
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+    return (f32(ps), strides,
+            torch.as_tensor(lanes, dtype=torch.int64, device=device),
+            torch.as_tensor(idx, device=device), f32(t), f32(m),
+            torch.as_tensor(mask, device=device), f32(inv_ref),
+            f32(m.sum(-1) - ref_msum[lanes][:, None]), outlier)
+
+
+def _ull_term_scale(ps, strides, lanes, idx, t, m, mask, inv_ref, moff,
+                    outlier):
+    """Per (lane, candidate) sum of the magnitudes of the centered ll's
+    terms, sum_e |log(lam_e inv_ref_e)| + |moff|, in float64: the scale of
+    its float32 rounding (a centered ll is a small difference of such
+    terms)."""
+    from blueice_tpu_torch.ops.binned_vgh import corner_weight_tables
+    ids = fused.corner_ids(strides, idx, ps.shape[1])           # (L, A, C)
+    w = corner_weight_tables(t.double())[0]
+    P = sum(w[..., c, None, None] * ps[lanes[:, None], ids[..., c]].double()
+            for c in range(ids.shape[-1]))                      # (L, A, S, E)
+    lam = torch.einsum('las,lase->lae', m.double(), P)
+    if outlier:
+        lam = torch.where(lam > 0, lam, torch.full_like(lam, outlier))
+    terms = torch.log(lam * inv_ref[lanes][:, None].double()).abs()
+    terms = torch.where(mask[lanes][:, None], terms, torch.zeros_like(terms))
+    return terms.sum(-1) + moff.double().abs()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("outlier", [0.0, 1e-12])
+@pytest.mark.parametrize("case", sorted(ULL_CASES))
+@pytest.mark.parametrize("width", sorted(ULL_WIDTHS))
+def test_ull_kernel_cases(cuda_device, width, case, outlier):
+    """The unbinned value kernel against its plain version, within 1e-5 of
+    the magnitudes of each ll's terms, finite, and bit-identical on a
+    rerun (fixed-order sums, no float atomics)."""
+    args = _ull_case(width, case, outlier, cuda_device)
+    L, A_ = args[3].shape[:2]
+    ids = fused.corner_ids(args[1], args[3], args[0].shape[1]).tolist()
+    cells = {len(set(map(tuple, lane))) for lane in ids}   # cells a lane
+    if case == 'one_cell':
+        assert cells == {1}
+    if case == 'own_cells':
+        assert cells == {A_}
+    fused_unbinned.reset_launch_counts()
+    out = fused_unbinned.unbinned_ll_fused_multi(*args)
+    ref = fused_unbinned.unbinned_ll_plain(*args)
+    torch.cuda.synchronize()
+    assert fused_unbinned.launch_counts()['unbinned_ll_fused_multi'] == 1
+    assert out.shape == (L, A_) and torch.isfinite(out).all()
+    err = (out.double() - ref.double()).abs() / _ull_term_scale(*args)
+    assert float(err.max()) <= 1e-5
+    if case == 'all_masked_lane':
+        assert torch.equal(out[1], -args[8][1])
+    if case == 'lanes_permuted_repeated':
+        # a toy's events give one lane's ll whatever the lane's place
+        same = fused_unbinned.unbinned_ll_fused_multi(
+            args[0], args[1], args[2][[0]], args[3][[2]], args[4][[2]],
+            args[5][[2]], *args[6:8], args[8][[2]], outlier)
+        assert float(((same - out[[2]]).abs() / _ull_term_scale(
+            args[0], args[1], args[2][[0]], args[3][[2]], args[4][[2]],
+            args[5][[2]], *args[6:8], args[8][[2]], outlier)).max()) <= 1e-5
+    again = fused_unbinned.unbinned_ll_fused_multi(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
 
 
 @pytest.mark.cuda

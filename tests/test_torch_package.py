@@ -170,87 +170,106 @@ def test_kernel_inputs_are_checked():
                                     torch.ones((3, 1, 2)), torch.ones((3, 5)))
 
 
-@pytest.mark.parametrize('label', ['xenon', 'bb', 'bblite'])
+def _recorded_calls(label, contract):
+    """chip_smoke.py's record of one 3-toy profile's calls of the path's
+    wrapper of ``contract`` on the CPU: (the module's namespace, the call
+    spec, the wrapper, the calls); the wrapper is put back after."""
+    import runpy
+    from blueice_tpu_torch import test_helpers
+    from blueice_tpu_torch.examples import xenon_like
+    from blueice_tpu_torch.ops import fused_bb, fused_bb_lite
+    from blueice_tpu_torch.utils import roofline
+    smoke = runpy.run_path(str(Path(__file__).resolve().parents[1]
+                               / 'chip_smoke.py'))
+    set_progress(False)
+    mods = dict(fused=fused, fused_bb=fused_bb, fused_bb_lite=fused_bb_lite,
+                fused_unbinned=fused_unbinned, roofline=roofline)
+    spec = smoke['CALLS'][contract][label]
+    module = mods[spec.module]
+    wrapper = getattr(module, spec.wrapper)
+    assert callable(getattr(module, spec.launcher))
+    if label == 'unbinned':
+        import blueice_tpu_torch.likelihood as likelihood
+        lf = smoke['build_model'](label, xenon_like, test_helpers, likelihood)
+        study = UnbinnedToyStudy(lf, device='cpu', max_iter=30,
+                                 engine='fused')
+    else:
+        lf = build_likelihood('binned', bb={'xenon': False, 'bb': True,
+                                            'bblite': 'bb_lite'}[label],
+                              **SIZE)
+        study = BinnedToyStudy(lf, device='cpu', max_iter=30,
+                               engine='fused')
+    calls = smoke['record_calls'](label, study, mods, contract=contract,
+                                  n_toys=3)
+    assert getattr(module, spec.wrapper) is wrapper
+    assert len(calls) >= 2
+    # the shared tensors (anchor tensor and MC-count rows; unbinned: ps,
+    # mask and inv_ref) are the fitters' own (one set for the free fit, one
+    # for the conditional one), never copies a call; every per-call tensor
+    # is a copy of its own
+    shared_ptrs = set()
+    for i in spec.shared:
+        ptrs = {args[i].data_ptr() for args in calls}
+        assert len(ptrs) <= 2
+        shared_ptrs |= ptrs
+    for i in range(len(calls[0])):
+        if i not in spec.shared and torch.is_tensor(calls[0][i]):
+            ptrs = {args[i].data_ptr() for args in calls}
+            assert len(ptrs) == len(calls) and not ptrs & shared_ptrs
+    return smoke, spec, wrapper, calls
+
+
+@pytest.mark.parametrize('label', ['xenon', 'bb', 'bblite', 'unbinned'])
 def test_chip_smoke_records_a_profiles_value_calls(label):
     """chip_smoke.py's recorder (what its value-kernel replay times) sees
     every call of the path's value wrapper in one profile, with the shared
-    anchor tensor (and MC-count rows) passed through and the per-call
-    inputs cloned, and puts the wrapper back."""
-    import runpy
-    from blueice_tpu_torch.ops import fused_bb, fused_bb_lite
-    from blueice_tpu_torch.utils import roofline
-    smoke = runpy.run_path(str(Path(__file__).resolve().parents[1]
-                               / 'chip_smoke.py'))
-    set_progress(False)
-    mods = dict(fused=fused, fused_bb=fused_bb, fused_bb_lite=fused_bb_lite,
-                fused_unbinned=fused_unbinned, roofline=roofline)
-    mod_name, name, launcher, shared = smoke['VALUE_CALLS'][label]
-    module = mods[mod_name]
-    wrapper = getattr(module, name)
-    assert callable(getattr(module, launcher))
-    lf = build_likelihood('binned', bb={'xenon': False, 'bb': True,
-                                        'bblite': 'bb_lite'}[label], **SIZE)
-    study = BinnedToyStudy(lf, device='cpu', max_iter=30, engine='fused')
-    calls = smoke['record_calls'](label, study, mods, n_toys=3)
-    assert getattr(module, name) is wrapper
-    assert len(calls) >= 2
-    # the anchor tensor and MC-count rows are the fitters' own (one set for
-    # the free fit, one for the conditional one), never copies a call
-    for i in range(shared):
-        assert len({args[i].data_ptr() for args in calls}) <= 2
+    tensors passed through and the per-call inputs cloned, and puts the
+    wrapper back."""
+    smoke, spec, wrapper, calls = _recorded_calls(label, 'value')
     for args in calls:
-        anchor = args[0]
-        assert len(args) == {'xenon': 6, 'bb': 8, 'bblite': 7}[label]
-        strides, idx, t, m, observed = args[shared:shared + 5]
+        data = args[0]
+        assert len(args) == {'xenon': 6, 'bb': 8, 'bblite': 7,
+                             'unbinned': 10}[label]
+        strides, idx, t, m = (args[spec.strides],) + args[spec.idx:
+                                                          spec.idx + 3]
         L, A = idx.shape[:2]
         assert t.shape == (L, A, len(strides)) and m.shape[:2] == (L, A)
-        assert observed.shape == (L, anchor.shape[-1])
+        assert smoke['call_candidates'](args, spec) == A
+        if label == 'unbinned':
+            lanes, mask, inv_ref, moff = args[2], args[6], args[7], args[8]
+            assert lanes.shape == (L,) and moff.shape == (L, A)
+            assert mask.shape == inv_ref.shape == (data.shape[0],
+                                                   data.shape[-1])
+        else:
+            assert args[spec.idx + 3].shape == (L, data.shape[-1])
         # the recorded call reproduces what the wrapper computed
         assert wrapper(*args).shape == (L, A)
-    assert len({args[shared + 1].data_ptr() for args in calls}) == len(calls)
 
 
-@pytest.mark.parametrize('label', ['xenon', 'bb', 'bblite'])
+@pytest.mark.parametrize('label', ['xenon', 'bb', 'bblite', 'unbinned'])
 def test_chip_smoke_records_a_profiles_vgh_calls(label):
     """chip_smoke.py's recorder for the vgh contract (what its vgh-kernel
     replay times) sees every call of the path's vgh wrapper in one profile,
-    with the shared anchor tensor (and MC-count rows) passed through and the
-    per-call inputs cloned, and puts the wrapper back."""
-    import runpy
-    from blueice_tpu_torch.ops import fused_bb, fused_bb_lite
-    from blueice_tpu_torch.utils import roofline
-    smoke = runpy.run_path(str(Path(__file__).resolve().parents[1]
-                               / 'chip_smoke.py'))
-    set_progress(False)
-    mods = dict(fused=fused, fused_bb=fused_bb, fused_bb_lite=fused_bb_lite,
-                fused_unbinned=fused_unbinned, roofline=roofline)
-    mod_name, name, launcher, shared = smoke['VGH_CALLS'][label]
+    with the shared tensors passed through and the per-call inputs cloned,
+    and puts the wrapper back."""
+    smoke, spec, wrapper, calls = _recorded_calls(label, 'vgh')
     assert smoke['CALLS']['vgh'][label] == smoke['VGH_CALLS'][label]
-    module = mods[mod_name]
-    wrapper = getattr(module, name)
-    assert callable(getattr(module, launcher))
-    lf = build_likelihood('binned', bb={'xenon': False, 'bb': True,
-                                        'bblite': 'bb_lite'}[label], **SIZE)
-    study = BinnedToyStudy(lf, device='cpu', max_iter=30, engine='fused')
-    calls = smoke['record_calls'](label, study, mods, contract='vgh',
-                                  n_toys=3)
-    assert getattr(module, name) is wrapper
-    assert len(calls) >= 2
-    for i in range(shared):
-        assert len({args[i].data_ptr() for args in calls}) <= 2
     for args in calls:
-        anchor = args[0]
-        assert len(args) == {'xenon': 6, 'bb': 8, 'bblite': 7}[label]
-        strides, idx, t, m, observed = args[shared:shared + 5]
-        L, K, S = idx.shape[0], len(strides), anchor.shape[1]
+        data = args[0]
+        assert len(args) == {'xenon': 6, 'bb': 8, 'bblite': 7,
+                             'unbinned': 10}[label]
+        strides, idx, t, m = (args[spec.strides],) + args[spec.idx:
+                                                          spec.idx + 3]
+        L, K, S = idx.shape[0], len(strides), data.shape[-2]
         assert idx.shape == (L, K) and t.shape == (L, K)
-        assert m.shape == (L, S) and observed.shape == (L, anchor.shape[-1])
-        assert smoke['call_candidates'](args, shared) == 1
+        assert m.shape == (L, S)
+        assert smoke['call_candidates'](args, spec) == 1
+        if label != 'unbinned':
+            assert args[spec.idx + 3].shape == (L, data.shape[-1])
         # the recorded call reproduces what the wrapper computed
         ll, g, H = wrapper(*args)
         assert ll.shape == (L,) and g.shape == (L, S + K)
         assert H.shape == (L, S + K, S + K)
-    assert len({args[shared + 1].data_ptr() for args in calls}) == len(calls)
 
 
 def test_value_replay_ab_finds_the_baselines_sources(tmp_path):
@@ -261,10 +280,12 @@ def test_value_replay_ab_finds_the_baselines_sources(tmp_path):
     from blueice_tpu_torch.ops import fused_bb, fused_bb_lite
     script = runpy.run_path(str(Path(__file__).resolve().parents[1]
                                 / 'measure_value_replay.py'))
-    mods = dict(fused=fused, fused_bb=fused_bb, fused_bb_lite=fused_bb_lite)
+    mods = dict(fused=fused, fused_bb=fused_bb, fused_bb_lite=fused_bb_lite,
+                fused_unbinned=fused_unbinned)
     for contract in ('value', 'vgh'):
-        assert sorted(mod for mod, _, _, _ in
-                      script['CALLS'][contract].values()) == sorted(mods)
+        specs = script['CALLS'][contract]
+        assert {spec.module for spec in specs.values()} == set(mods)
+        assert set(script['AB_PATHS'][contract]) <= set(specs)
     for module in mods.values():
         name = Path(module.SOURCE).name
         with pytest.raises(FileNotFoundError):
@@ -293,3 +314,30 @@ def test_value_replay_ab_compares_both_contracts():
     H[2, 1, 1] += 1e-3 * float(vgh[2][2].abs().max())
     ll_rel, gh_rel = script['disagreement']((vgh[0], vgh[1], H), vgh)
     assert ll_rel == 0.0 and gh_rel == pytest.approx(1e-3)
+    # an unbinned value call: relative to the magnitudes of its terms
+    # (chip_smoke.term_scale), not to a centered ll near 0
+    scale = torch.full_like(ll, 1e3)
+    centered = ll - 1.5
+    assert script['disagreement'](centered + 1e-3, centered, scale)[0] == \
+        pytest.approx(1e-6)
+    assert script['disagreement'](centered, centered, scale) == (0.0, 0.0)
+
+
+def test_value_replay_bins_calls_by_lanes():
+    """measure_value_replay.py breaks a replay down by candidate count and
+    bin of lanes: (A, '1-7'), (A, '8-31'), ..., (A, '256+'); a vgh call has
+    A = 1."""
+    import runpy
+    script = runpy.run_path(str(Path(__file__).resolve().parents[1]
+                                / 'measure_value_replay.py'))
+    value, vgh = (script['CALLS'][c]['unbinned'] for c in ('value', 'vgh'))
+
+    def call(spec, *idx_shape):
+        args = [None] * 10
+        args[spec.idx] = torch.zeros(idx_shape, dtype=torch.int64)
+        return tuple(args)
+    for L, label in ((1, '1-7'), (7, '1-7'), (8, '8-31'), (127, '32-127'),
+                     (255, '128-255'), (256, '256+'), (1024, '256+')):
+        assert script['lanes_and_A'](call(value, L, 12, 1), value) == (
+            12, label)
+        assert script['lanes_and_A'](call(vgh, L, 1), vgh) == (1, label)
