@@ -90,6 +90,25 @@ __device__ __forceinline__ void cluster_vgh_sum(float (&v)[NV], float* red,
   cluster.sync();   // the ranges' parts stay alive until rank 0 has read
 }
 
+// rank_sum with the cluster's loads issued before the adds (the same sum in
+// the same rank order): one round of distributed-shared-memory latency
+// where rank_sum's loop waits for each load in turn
+template <typename T>
+__device__ __forceinline__ T rank_sum_loads_first(const T* part, int i) {
+  namespace cg = cooperative_groups;
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int ranks = (int)cluster.num_blocks();
+  T x[kMaxCluster];
+#pragma unroll
+  for (int r = 0; r < kMaxCluster; ++r)
+    if (r < ranks) x[r] = cluster.map_shared_rank(part, r)[i];
+  T sum = 0;
+#pragma unroll
+  for (int r = 0; r < kMaxCluster; ++r)
+    if (r < ranks) sum += x[r];
+  return sum;
+}
+
 // cluster_vgh_sum of two sets of per-thread values (of two types: float and
 // double) at once: both over the CTA, then both over the cluster in one
 // round of cluster syncs
@@ -104,8 +123,10 @@ __device__ __forceinline__ void cluster_vgh_sum2(TA (&va)[NA], TA* reda,
   block_sum<NB, NT>(vb, redb, partb);
   cluster.sync();
   if (cluster.block_rank() == 0) {
-    for (int i = threadIdx.x; i < NA; i += NT) tota[i] = rank_sum(parta, i);
-    for (int i = threadIdx.x; i < NB; i += NT) totb[i] = rank_sum(partb, i);
+    for (int i = threadIdx.x; i < NA; i += NT)
+      tota[i] = rank_sum_loads_first(parta, i);
+    for (int i = threadIdx.x; i < NB; i += NT)
+      totb[i] = rank_sum_loads_first(partb, i);
   }
   cluster.sync();   // the ranges' parts stay alive until rank 0 has read
 }

@@ -71,7 +71,7 @@ using namespace bt;
 //   r = k / lambda - 1 (+ kPenalty where lambda < 0), q = k / lambda^2,
 //   g = v r,  H = -q v v^T + [D r on the (m, t) block, Xbar r on (t, t)],
 // v = (P_1..P_S, Dbar_1..Dbar_K), accumulated in the reflected cell's
-// coordinates and flipped back once (bt::flip_vgh). g accumulates in
+// coordinates and flipped back as they are stored. g accumulates in
 // double (the float products v r added exactly): at a converged fit a
 // t-gradient is a sum of large terms of both signs that nearly cancel,
 // and float32 sums lose what is left to their order. wd and
@@ -91,8 +91,7 @@ vgh_kernel(const float* __restrict__ anchor, int N,
   constexpr int NP = K * (K - 1) / 2;
   constexpr int P = S + K;
   constexpr int NH = P * (P + 1) / 2;
-  constexpr int NV = 1 + P + NH;      // ll, g, packed upper H
-  constexpr int NF = 1 + NH;          // the float sums: ll, H
+  constexpr int NF = 1 + NH;          // the float sums: ll, packed upper H
   constexpr int KD = K > 0 ? K : 1;   // no zero-length arrays
   constexpr int NPD = NP > 0 ? NP : 1;
   constexpr int NT = kVghThreads;
@@ -108,7 +107,6 @@ vgh_kernel(const float* __restrict__ anchor, int N,
   __shared__ double s_gred[NT / 32 * P];
   __shared__ double s_gpart[P];
   __shared__ double s_gtot[P];
-  __shared__ float s_tot[NV];
 
   const BinRange rg = bin_range(N);
   const int b = blockIdx.x / rg.T;
@@ -200,14 +198,22 @@ vgh_kernel(const float* __restrict__ anchor, int N,
 
   cluster_vgh_sum2<NF, P, NT>(acc, s_red, s_part, s_ftot, gacc, s_gred,
                               s_gpart, s_gtot);
-  if (rg.range == 0) {   // [ll, g, H], back from the reflected cell's
-    for (int i = threadIdx.x; i < NV; i += NT)    // coordinates
-      s_tot[i] = i == 0 ? s_ftot[0]
-                 : i <= P ? (float)s_gtot[i - 1] : s_ftot[i - P];
-    __syncthreads();
-    if (threadIdx.x == 0) flip_vgh<S, K>(s_tot, s_flip);
-    __syncthreads();
-    store_vgh<P, NT>(s_tot, b, ll_out, g_out, h_out);
+  if (rg.range == 0) {   // ll, g and H, back from the reflected cell's
+    // coordinates as they are stored: an entry of a reflected axis's t
+    // changes sign (flip_vgh's products, exactly)
+    const int flip = s_flip;
+    auto sign = [&](int i) {
+      return i < S ? 1.f : flip_sign<K>(flip, i - S);
+    };
+    if (threadIdx.x == 0) ll_out[b] = s_ftot[0];
+    for (int i = threadIdx.x; i < P; i += NT)
+      g_out[(size_t)b * P + i] = sign(i) * (float)s_gtot[i];
+    for (int ij = threadIdx.x; ij < P * P; ij += NT) {
+      const int i = ij / P, j = ij % P;
+      const int lo = i < j ? i : j, hi = i < j ? j : i;
+      h_out[(size_t)b * P * P + ij] =
+          sign(i) * sign(j) * s_ftot[1 + tri(P, lo, hi)];
+    }
   }
 }
 
