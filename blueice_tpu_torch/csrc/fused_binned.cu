@@ -305,7 +305,11 @@ extern "C" {
 // Returns cudaGetLastError() after the launch (0 = success), or -1 when
 // (S, K) is outside the instantiated range. wd and wx (the corner weights'
 // derivatives) are not read: the kernel takes the differences by its
-// corner tree.
+// corner tree. Precondition, not checked here (the entry is not given the
+// anchor tensor's length): the anchor tensor (G, S, N) holds fewer than
+// 2^32 floats, as the kernel addresses its rows at 32-bit offsets; the
+// Python launcher (ops/fused.py binned_vgh_launcher) raises otherwise. A
+// larger tensor here would read wrapped addresses without an error.
 int bt_binned_vgh(int S, int K, int N, int B, const float* anchor,
                   const int* ids, const float* w, const float* wd,
                   const float* wx, const float* m, const float* obs,

@@ -3,7 +3,9 @@ probe (a hand-written CUDA kernel).
 
 Counterpart of :mod:`blueice_tpu.utils.roofline`, with the same public
 names: per-kernel flop and byte cost models (the reference's formulas, so a
-verdict counts the same work whatever implements it), the card's peaks, a
+verdict counts the same work whatever implements it; the verdicts count
+their corner combine as the corner tree does it, :func:`tree_flops`, the
+least of the port's combines), the card's peaks, a
 microbenchmark per fit kernel that times the kernel alone at ensemble batch
 size and reports its achieved rates as fractions of the binding roof, and
 :func:`measure_op_mix`, the rate a kernel's per-bin op mix reaches on the
@@ -35,7 +37,8 @@ import torch
 from ..ops import fused
 
 __all__ = ['PEAKS', 'binned_vgh_cost', 'bb_vgh_cost', 'bblite_vgh_cost',
-           'unbinned_vgh_cost', 'op_cost', 'work', 'bound', 'distinct_rows',
+           'unbinned_vgh_cost', 'tree_flops', 'op_cost', 'work', 'bound',
+           'distinct_rows',
            'card_line', 'launch_elapsed_s', 'roofline_verdict',
            'measure_binned_kernel', 'measure_bb_kernel',
            'measure_bblite_kernel', 'measure_unbinned_kernel',
@@ -166,6 +169,31 @@ def unbinned_vgh_cost(G, S, E, K, dtype_bytes=4):
     return c
 
 
+def tree_flops(K):
+    """Float32 operations of the corner tree (``csrc/bt_ranges.cuh``
+    ``corner_tree``) on one row of a cell's 2^K corners, to its value, its
+    K differences and its K(K-1)/2 cross differences: the step on axis D
+    halves 2^D pairs of each array it still holds (the value, the
+    differences along the axes after D and their cross differences) by a
+    subtraction and an FMA, 3 flops a pair. 93 at K = 4, where the
+    corner-weight tables take 2^K (1 + K + K(K-1)/2) FMAs, 352 flops."""
+    pairs = 0
+    for D in range(K):
+        after = K - 1 - D
+        pairs += 2 ** D * (1 + after + after * (after - 1) // 2)
+    return 3 * pairs
+
+
+def _tree_cost(cost, N, K, rows):
+    """A reference cost model's per-toy cost with its corner combine (the
+    weight tables, 2^K (1 + K + K(K-1)/2) FMAs a row) counted as the corner
+    tree does it (:func:`tree_flops`), ``rows`` rows a bin over N bins."""
+    C = 2 ** K
+    tables = 2 * C * (1 + K + _pairs(K))
+    return dict(cost, flops=cost['flops'] - N * rows * (tables
+                                                        - tree_flops(K)))
+
+
 def op_cost(fn, *args):
     """(flops, bytes) of ``fn(*args)`` on torch tensors: flops as
     ``torch.utils.flop_counter.FlopCounterMode`` counts them (matrix
@@ -195,10 +223,12 @@ def work(kind, S, K, lead, row_floats, data_bytes, items, mc_rows=False):
     unbinned: the event mask and the valid events' inv_ref), the per-call
     tables and the outputs. Operations: per bin or event (``items``, summed
     over the call's toys and candidates; unbinned, the valid events only,
-    as the others add nothing) the corner combination (2 flops per FMA),
-    the rate sum and the g / H accumulation, as counted in the kernel
-    sources; the logarithm, division and Beeston-Barlow root are not
-    counted, so this is a lower bound.
+    as the others add nothing) the corner combination (2 flops per FMA;
+    vgh: by the corner tree, :func:`tree_flops`, the least of the port's
+    combines, which the binned vgh kernels use and ``uvgh_kernel``, on
+    weight tables, does not), the rate sum and the g / H accumulation;
+    the logarithm, division and Beeston-Barlow root are not counted, so
+    this is a lower bound.
 
     :param kind: 'vgh' or 'value'; lead: (B,) or (B, A).
     :param mc_rows: each corner also combines an MC-count row (bb, bb-lite).
@@ -211,8 +241,10 @@ def work(kind, S, K, lead, row_floats, data_bytes, items, mc_rows=False):
     B = lead[0]
     calls = int(np.prod(lead))
     if kind == 'vgh':
-        per = C * R * (2 + 2 * K + (1 + 2 * NP if NP else 0))
-        per += 2 * S * (1 + K) + 2 * P + 2 * NH + P + 2 * S * K + 2 * NP
+        # the tree on each row; the pmf rows m-weighted into lambda, Dbar
+        # and Xbar; g, H's outer product, D r and Xbar r
+        per = R * tree_flops(K) + 2 * S * (1 + K + NP)
+        per += 2 * P + 2 * NH + P + 2 * S * K + 2 * NP
         tables = calls * (C * (1 + K + NP) + S) * 4
         out = B * (1 + P + P * P) * 4
     else:
@@ -410,7 +442,8 @@ def measure_binned_kernel(G=81, S=6, N=3200, K=3, B=1024, chip='h100-sxm',
     _require_cuda('measure_binned_kernel')
     args = _common_setup(G, S, N, K, B)
     return _measure(fused.binned_vgh_fused, fused.binned_vgh_launcher, args,
-                    binned_vgh_cost(G, S, N, K), B, chip, n_inner,
+                    _tree_cost(binned_vgh_cost(G, S, N, K), N, K, S), B,
+                    chip, n_inner,
                     'binned_vgh_fused(G=%d,S=%d,N=%d,K=%d)' % (G, S, N, K),
                     _anchor_bytes(args[1], args[2], G, N, S))
 
@@ -427,7 +460,8 @@ def measure_bb_kernel(G=81, S=6, N=3200, K=3, B=256, bb_i=0, chip='h100-sxm',
     args = (anchor, nme, strides, idx, t, m, obs, bb_i)
     return _measure(fused_bb.binned_bb_vgh_fused,
                     fused_bb.binned_bb_vgh_launcher, args,
-                    bb_vgh_cost(G, S, N, K), B, chip, n_inner,
+                    _tree_cost(bb_vgh_cost(G, S, N, K), N, K, S + 1), B,
+                    chip, n_inner,
                     'binned_bb_vgh_fused(G=%d,S=%d,N=%d,K=%d)' % (G, S, N, K),
                     _anchor_bytes(strides, idx, G, N, S + 1))
 
@@ -444,7 +478,8 @@ def measure_bblite_kernel(G=81, S=6, N=3200, K=3, B=256, chip='h100-sxm',
     args = (anchor, nme_tot, strides, idx, t, m, obs)
     return _measure(fused_bb_lite.binned_bblite_vgh_fused,
                     fused_bb_lite.binned_bblite_vgh_launcher, args,
-                    bblite_vgh_cost(G, S, N, K), B, chip, n_inner,
+                    _tree_cost(bblite_vgh_cost(G, S, N, K), N, K, S + 1),
+                    B, chip, n_inner,
                     'binned_bblite_vgh_fused(G=%d,S=%d,N=%d,K=%d)'
                     % (G, S, N, K),
                     _anchor_bytes(strides, idx, G, N, S + 1))
@@ -493,7 +528,7 @@ def measure_unbinned_kernel(G=3, S=2, E=2304, K=1, B=256, chip='h100-sxm',
     inv_ref = torch.ones((B, E), dtype=torch.float32, device=dev)
     args = (ps, strides, lanes, idx, t, m, mask, inv_ref,
             m.sum(-1).contiguous())
-    cost = unbinned_vgh_cost(G, S, E, K)
+    cost = _tree_cost(unbinned_vgh_cost(G, S, E, K), E, K, S)
     cost['hbm_bytes'] -= 4 * G * S * E
     rows = row_events(fused.corner_ids(strides, idx, G),
                       torch.full((B,), E, device=dev))

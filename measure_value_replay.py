@@ -4,8 +4,8 @@ own calls, on one NVIDIA GPU.
 
 Run from the root of a checkout on a machine with a CUDA GPU:
 
-    python3 measure_value_replay.py [--contract value|vgh] BASELINE[,...] \\
-        [path ...]
+    python3 measure_value_replay.py [--contract value|vgh] [--seed N] \\
+        [--by lanes|cells] BASELINE[,...] [path ...]
 
 BASELINE is the root of another checkout of the repo (for example an
 earlier commit unpacked with ``git archive`` into a directory that
@@ -19,10 +19,13 @@ path (value: ``xenon``, ``bb``, ``bblite``, ``unbinned_xenon``,
 the card:
 
 1. every call of the path's wrapper of the contract in one ``profile_ts``
-   (seed 0, the path's toys) is recorded with this checkout's kernels
-   (``chip_smoke.record_calls``);
+   (seed ``--seed``, default 0; the path's toys) is recorded with this
+   checkout's kernels (``chip_smoke.record_calls``); with ``--by cells``
+   (value contract) the distribution of the grid cells a lane's
+   candidates fall in, over every lane of every call, is printed;
 2. the same calls are replayed from CUDA graphs (``chip_smoke.time_calls``,
-   by candidate count and bin of lanes, ``LANE_BINS``) with each library
+   by candidate count and bin of lanes, ``LANE_BINS``, or with ``--by
+   cells`` by the bin of the call's mean cells a lane, ``CELL_BINS``) with each library
    in turns, the baselines, this checkout's twice, the
    baselines in reverse (one baseline: baseline, current, current,
    baseline); each replay's summed time is printed, then each library's
@@ -35,7 +38,8 @@ the card:
    (after every baseline's line is printed) unless they hold: a
    value baseline's agree with this checkout's to relative 1e-5 (0:
    bit-identical; an unbinned ll relative to the magnitudes of its terms,
-   ``chip_smoke.term_scale``); the vgh kernels are held to the plain version in
+   ``chip_smoke.term_scale``; equal values agree, infinities and NaNs
+   too, and the non-finite outputs of both are counted); the vgh kernels are held to the plain version in
    float64 on the same calls (ll relative, g and H relative to each toy's
    largest entry), this checkout's within 1e-5 and 1e-4 or within twice a
    baseline's error (where float32 itself loses digits, next to an anchor
@@ -138,31 +142,82 @@ def lanes_and_A(args, spec):
             '%d-%d' % (LANE_BINS[i], hi) if hi else '%d+' % LANE_BINS[i])
 
 
+#: The mean cells a lane by which a value replay's time is broken down
+CELL_BINS = (1, 2, 3, 5, 9)
+
+
+def lane_cells(args, spec):
+    """(L,) distinct grid cells (corner-id tuples, as the value kernels
+    group candidates) among each lane's candidates in a recorded value
+    call."""
+    from blueice_tpu_torch.ops import fused
+    from chip_smoke import distinct_per_row
+    idx = args[spec.idx]
+    L, A = idx.shape[:2]
+    G = args[0].shape[1 if spec.module == 'fused_unbinned' else 0]
+    ids = fused.corner_ids(args[spec.strides], idx, G).reshape(L * A, -1)
+    cell = ids.unique(dim=0, return_inverse=True)[1].reshape(L, A)
+    return distinct_per_row(cell)
+
+
+def cell_bin(cells):
+    """The bin of ``CELL_BINS`` ('1', '2', '3-4', '5-8', '9+') of a count
+    of cells."""
+    i = max(j for j, lo in enumerate(CELL_BINS) if cells >= lo)
+    if i + 1 == len(CELL_BINS):
+        return '%d+' % CELL_BINS[i]
+    hi = CELL_BINS[i + 1] - 1
+    return '%d' % hi if hi == CELL_BINS[i] else '%d-%d' % (CELL_BINS[i], hi)
+
+
+def cells_and_A(args, spec):
+    """(A, cell bin) of a recorded value call: its candidates and the bin
+    of ``CELL_BINS`` of its mean cells a lane (rounded to the nearest)."""
+    mean = float(lane_cells(args, spec).double().mean())
+    return call_candidates(args, spec), cell_bin(int(mean + 0.5))
+
+
 def disagreement(out, ref, scale=None):
     """(ll, g and H) relative differences of ``out`` from ``ref``: the ll
     (a value call's, or the first of a vgh call's (ll, g, H)) relative to
     ``scale`` (default: itself; an unbinned value call's, the magnitudes of
     its terms, ``chip_smoke.term_scale``), g and H relative to each toy's
-    largest entry (0 for a value call)."""
+    largest entry (0 for a value call). Equal values count 0, and so do
+    infinities of one sign and NaNs in both (a candidate whose rate is 0 at
+    a valid event, or whose rates are NaN: the plain version gives the
+    same); a NaN or an infinity in one only counts NaN or inf, which no
+    bound holds."""
     if not isinstance(out, tuple):
         scale = ref.abs() if scale is None else scale
-        return float(((out - ref).abs() / scale).max()), 0.0
+        same = (out == ref) | (out.isnan() & ref.isnan())
+        err = torch.where(same, torch.zeros_like(out),
+                          (out - ref).abs() / scale)
+        return float(err.max()), 0.0
     return (float(((out[0] - ref[0]).abs() / ref[0].abs()).max()),
             max(rel_to_toy_max(out[1], ref[1]),
                 rel_to_toy_max(out[2], ref[2])))
 
 
-def ab(label, study, mods, baselines, contract):
+def ab(label, study, mods, baselines, contract, seed=0, by='lanes'):
     """Steps 1-4 for one path; ``baselines``: {name: {module name:
-    library}}. Returns the failures of step 4 (texts; none: [])."""
+    library}}; the calls of ``profile_ts(seed)``, broken down ``by`` 'lanes'
+    or 'cells'. Returns the failures of step 4 (texts; none: [])."""
     from blueice_tpu_torch.utils.roofline import (N_INNER, cold_launches,
                                                   launch_elapsed_s)
     spec = CALLS[contract][label]
     module = mods[spec.module]
     launcher = getattr(module, spec.launcher)
-    calls = record_calls(label, study, mods, contract)
+    calls = record_calls(label, study, mods, contract, seed=seed)
     phase1 = phase1_args(label, study, mods, contract)
     torch.cuda.synchronize()
+    bin_of = lanes_and_A
+    if by == 'cells':
+        bin_of = cells_and_A
+        cells = torch.cat([lane_cells(args, spec) for args in calls]).tolist()
+        log("%s value calls of seed %d, cells a lane over %d lanes of %d "
+            "calls: %s" % (label, seed, len(cells), len(calls), ', '.join(
+                '%s: %d' % (b, sum(cell_bin(c) == b for c in cells))
+                for b in dict.fromkeys(cell_bin(c) for c in range(1, 10)))))
     libs = dict(current=module.load_library())
     libs.update((b, lib[spec.module]) for b, lib in baselines.items())
     order = list(baselines) + ['current', 'current'] + list(baselines)[::-1]
@@ -174,7 +229,7 @@ def ab(label, study, mods, baselines, contract):
     try:
         for kind in order:
             module.load_library = lambda kind=kind: libs[kind]
-            per_A = time_calls(launcher, calls, spec, key=lanes_and_A)
+            per_A = time_calls(launcher, calls, spec, key=bin_of)
             totals[kind].append(sum(per_A.values()))
             for name, args in phase1.items():
                 cold = cold_launches(launcher, args)
@@ -187,8 +242,9 @@ def ab(label, study, mods, baselines, contract):
             log("%s %s replay, %s kernel: %d calls, %.4f ms (%s); phase 1 "
                 "alone %s" % (
                     label, contract, kind, len(calls), totals[kind][-1],
-                    ', '.join('A=%d, L %s: %.4f ms' % (A, L, ms) for (A, L), ms
-                              in per_A.items()),
+                    ', '.join('A=%d, %s %s: %.4f ms' % (A, by[0].upper(), b,
+                                                         ms)
+                              for (A, b), ms in per_A.items()),
                     ', '.join('%s %.4f ms' % (key or 'warm', ms[-1])
                               for key, ms in alone[kind].items())))
             if kind not in outs:
@@ -233,7 +289,9 @@ def ab(label, study, mods, baselines, contract):
         else:
             ok = (worst[kind] <= (1e-5, 0.0)).all()
             bad = errs[kind]
-            held = "each other (%.3g)" % worst[kind][0]
+            held = "each other (%.3g; non-finite outputs %d, %d)" % (
+                worst[kind][0], nonfinite(outs[kind]),
+                nonfinite(outs['current']))
         if not ok:
             i = int(bad.max(axis=1).argmax())
             failures.append(
@@ -273,6 +331,11 @@ def sass_comparison(lib, base, label):
     return 'sass %s: identical %s; differ %s' % (label, same, differ)
 
 
+def nonfinite(outs):
+    """Non-finite entries of a list of value calls' outputs."""
+    return sum(int((~torch.isfinite(out)).sum()) for out in outs)
+
+
 def double(out):
     """A call's outputs in float64."""
     return tuple(x.double() for x in out) if isinstance(out, tuple) \
@@ -285,6 +348,11 @@ def main(argv):
         return 2
     parser = argparse.ArgumentParser(prog='measure_value_replay.py')
     parser.add_argument('--contract', choices=sorted(CALLS), default='value')
+    parser.add_argument('--seed', type=int, default=0,
+                        help="the recorded profile's seed")
+    parser.add_argument('--by', choices=('lanes', 'cells'), default='lanes',
+                        help="break the replay down by bin of lanes, or "
+                        "(value contract) of mean cells a lane")
     parser.add_argument('baselines')
     parser.add_argument('paths', nargs='*', metavar='path',
                         help=' | '.join(PATHS))
@@ -293,6 +361,8 @@ def main(argv):
     if not set(args.paths) <= set(paths):
         parser.error("the %s contract's paths are %s"
                      % (args.contract, ', '.join(paths)))
+    if args.by == 'cells' and args.contract != 'value':
+        parser.error("--by cells breaks down value calls")
     from blueice_tpu_torch import likelihood, test_helpers
     from blueice_tpu_torch.examples import xenon_like
     from blueice_tpu_torch.ops import (fused, fused_bb, fused_bb_lite,
@@ -321,7 +391,8 @@ def main(argv):
         cls = UnbinnedToyStudy if label.startswith('unbinned') \
             else BinnedToyStudy
         study = cls(lf, max_iter=96, tol=3e-4)
-        failures += ab(label, study, mods, baselines, args.contract)
+        failures += ab(label, study, mods, baselines, args.contract,
+                       args.seed, args.by)
     log(card_line())
     if failures:
         raise AssertionError('; '.join(failures))

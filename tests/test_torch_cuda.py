@@ -493,7 +493,11 @@ def test_unbinned_value_kernel_matches_plain(cuda_device, case, outlier):
 #: and XENON's S = 6 on a 3^4 grid): name -> (B, L, A, E, candidates,
 #: lanes). The kernel runs one block per (lane, event range[, candidate
 #: group]), a lane's ranges one cluster, the candidates of one grid cell
-#: sharing each load of its corner rows: one lane (8 ranges), L x A below
+#: sharing each load of its corner rows: one lane (3 ranges at E = 700),
+#: one lane of 16,384 events (8 ranges, the most a cluster takes: 512
+#: warps' worth of events in 8 ranges is 8 trips of a 256-thread block,
+#: in 7 ranges 10, and 8 x 12 blocks fit the card in one round, so
+#: ranges_for_bins takes 8), L x A below
 #: one wave of the card and above it, A = 65 (more than a block's 64
 #: candidates: two groups), all of a lane's candidates in one cell and each
 #: in its own, lanes permuted and repeated, a lane whose events are all
@@ -501,6 +505,7 @@ def test_unbinned_value_kernel_matches_plain(cuda_device, case, outlier):
 ULL_WIDTHS = {'S2K1': ((3,), 2), 'S6K4': ((3, 3, 3, 3), 6)}
 ULL_CASES = {
     'one_lane': (3, 1, 12, 700, 'random', [1]),
+    'eight_ranges': (2, 1, 12, 16384, 'random', [1]),
     'below_one_wave': (6, 4, 12, 700, 'random', [4, 0, 5, 2]),
     'above_one_wave': (130, 128, 12, 300, 'random', None),
     'A65_two_groups': (6, 3, 65, 300, 'random', [2, 5, 0]),

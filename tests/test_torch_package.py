@@ -321,6 +321,17 @@ def test_value_replay_ab_compares_both_contracts():
     assert script['disagreement'](centered + 1e-3, centered, scale)[0] == \
         pytest.approx(1e-6)
     assert script['disagreement'](centered, centered, scale) == (0.0, 0.0)
+    # a -inf ll (a rate of 0 at a valid event) or a NaN one (NaN rates)
+    # in both agrees; in one only, not
+    low = centered.clone()
+    low[1, 2] = -float('inf')
+    assert script['disagreement'](low, low, scale) == (0.0, 0.0)
+    assert script['disagreement'](low, centered, scale)[0] == float('inf')
+    nan = low.clone()
+    nan[0, 0] = float('nan')
+    assert script['disagreement'](nan, nan, scale) == (0.0, 0.0)
+    assert np.isnan(script['disagreement'](nan, low, scale)[0])
+    assert script['nonfinite']([low, nan, centered]) == 3
 
 
 def test_value_replay_bins_calls_by_lanes():
@@ -341,3 +352,24 @@ def test_value_replay_bins_calls_by_lanes():
         assert script['lanes_and_A'](call(value, L, 12, 1), value) == (
             12, label)
         assert script['lanes_and_A'](call(vgh, L, 1), vgh) == (1, label)
+
+
+def test_value_replay_bins_calls_by_cells():
+    """measure_value_replay.py --by cells counts the grid cells (corner-id
+    tuples) of each lane's candidates and breaks a value replay down by
+    candidate count and bin of the call's mean cells a lane."""
+    import runpy
+    script = runpy.run_path(str(Path(__file__).resolve().parents[1]
+                                / 'measure_value_replay.py'))
+    spec = script['CALLS']['value']['unbinned']
+    args = [None] * 10
+    args[0] = torch.zeros((2, 3, 2, 5))            # ps (B, G, S, E)
+    args[spec.strides] = (1,)
+    # lane 0: four candidates in cell 0; lane 1: two in cell 0, two in 1
+    args[spec.idx] = torch.tensor([[[0], [0], [0], [0]],
+                                   [[0], [1], [0], [1]]])
+    assert script['lane_cells'](tuple(args), spec).tolist() == [1, 2]
+    assert script['cells_and_A'](tuple(args), spec) == (4, '2')
+    for cells, label in ((1, '1'), (2, '2'), (3, '3-4'), (4, '3-4'),
+                         (5, '5-8'), (8, '5-8'), (9, '9+'), (30, '9+')):
+        assert script['cell_bin'](cells) == label

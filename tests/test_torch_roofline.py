@@ -95,16 +95,62 @@ def test_bound_and_work():
     # XENON vgh at 512 toys: rows of 20 distinct anchors
     nbytes, flops = roofline.work('vgh', 6, 4, (512,), 6 * 20 * 3100,
                                   512 * 3100 * 4, 512 * 3100)
+    # a bin: six rows by the corner tree (93 flops each), m-weighted into
+    # lambda, Dbar and Xbar (6 x 11 FMAs), then g, H, q v, D r and Xbar r
     assert (nbytes, flops) == (6 * 20 * 3100 * 4 + 512 * 3100 * 4
                                + 512 * (16 * 11 + 6) * 4
                                + 512 * (1 + 10 + 100) * 4,
-                               float(16 * 6 * 23 + 60 + 20 + 110 + 10 + 48
+                               float(6 * 93 + 132 + 20 + 110 + 10 + 48
                                      + 12) * 512 * 3100)
     ids = torch.tensor([[0, 1, 3, 4], [1, 2, 4, 5]])
     assert roofline.distinct_rows(ids) == 6
     # unbinned: rows are per lane, each read at its lane's valid events
     ids = torch.tensor([[0, 1, 1, 2], [0, 0, 3, 3]])
     assert roofline.row_events(ids, torch.tensor([10, 7])) == 3 * 10 + 2 * 7
+
+
+def _corner_tree(x, t):
+    """A replica of the vgh kernels' corner tree (``csrc/bt_ranges.cuh``
+    ``corner_tree``) on one row x of 2^K corners (corner c's bit K-1-d its
+    side of axis d) at lerp weights t: axis K-1 first, each step halves
+    every array by lo + t (hi - lo) and keeps hi - lo of the value and of
+    each first difference. Returns ({axes: value} for the value (), the
+    differences (d,) and the cross differences (d, e), and the flops: a
+    subtraction and an FMA a pair)."""
+    arrays, flops = {(): np.asarray(x, dtype=float)}, 0
+    for d in reversed(range(len(t))):
+        step = {}
+        for axes, a in arrays.items():
+            lo, diff = a[0::2], a[1::2] - a[0::2]
+            flops += 3 * len(lo)
+            step[axes] = lo + t[d] * diff
+            if len(axes) < 2:
+                step[(d,) + axes] = diff
+        arrays = step
+    return {axes: float(a[0]) for axes, a in arrays.items()}, flops
+
+
+@pytest.mark.parametrize('K', range(5))
+def test_tree_flops_counts_the_corner_tree(K):
+    """``roofline.tree_flops`` is the flop count of the corner tree, whose
+    value, differences and cross differences are the weight tables' sums
+    with fewer operations than the tables' FMAs."""
+    from blueice_tpu_torch.ops.binned_vgh import corner_weight_tables
+    rng = np.random.default_rng(K)
+    x, t = rng.uniform(-1, 1, 2 ** K), rng.uniform(0, 1, K)
+    got, flops = _corner_tree(x, t)
+    w, wd, wx = (a.numpy() for a in corner_weight_tables(torch.tensor(t)))
+    want = {(): w @ x}
+    for d in range(K):
+        want[(d,)] = wd[d] @ x
+        for e in range(d + 1, K):
+            want[(d, e)] = wx[d, e] @ x
+    assert got.keys() == want.keys()
+    assert got == pytest.approx(want, abs=1e-12)
+    assert roofline.tree_flops(K) == flops
+    tables = 2 * 2 ** K * len(want)
+    assert flops < tables
+    assert roofline.tree_flops(4) == 93
 
 
 @pytest.mark.parametrize('nbytes, copies', [
