@@ -10,7 +10,6 @@
 namespace bt {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr float kPenalty = 1e6f;
 
 // Sum each of NV per-thread values (float or double) over the block of NT

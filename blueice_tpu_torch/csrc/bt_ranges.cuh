@@ -1,11 +1,12 @@
 // Bin ranges over a thread-block cluster: the layout of the port's kernels
 // that sum over a toy's bins (or events) on few toys. The value kernels
 // (bt_cells.cuh: ll_kernel, bb_ll_kernel, bblite_ll_kernel, and the
-// unbinned ull_kernel over event ranges) and the binned vgh kernels
-// (vgh_kernel, bb_vgh_kernel, bblite_vgh_kernel) run one CTA per (toy, bin
-// range[, candidate group]); the CTAs of one toy's bin ranges form a
-// thread-block cluster (up to 8, the portable size). The parts that
-// do not depend on the likelihood live here, one copy for all of them:
+// unbinned ull_kernel over event ranges) and the vgh kernels (vgh_kernel,
+// bb_vgh_kernel, bblite_vgh_kernel, and the unbinned uvgh_kernel over
+// event ranges) run one CTA per (toy, bin range[, candidate group]); the
+// CTAs of one toy's bin ranges form a thread-block cluster (up to 8, the
+// portable size). The parts that do not depend on the likelihood live
+// here, one copy for all of them:
 //
 //   * bin_range: the CTA's range, its rank in the cluster, its bins split
 //     evenly over the ranges in whole warps' worth;
@@ -22,9 +23,10 @@
 //     the ranges a toy for the batch (ranges_for_bins,
 //     ranges_for_clusters), so that few toys fill the card.
 //
-// And, for the three vgh kernels, the per-bin combine of the corner rows
+// And, for the four vgh kernels, the per-bin combine of the corner rows
 // (corner_tree; tree_rows with the Beeston-Barlow kernels' MC-count row,
-// tree_pmf_rows without, for vgh_kernel): a cell's value, first differences
+// tree_pmf_rows without, for vgh_kernel; uvgh_kernel loads its rows
+// itself, predicated on the event mask): a cell's value, first differences
 // and cross second differences by K lerp steps over its 2^K corners in
 // registers, where the corner-weight tables took 2^K (1 + K + K(K-1)/2)
 // FMAs a row (a third of the operations at K = 4).
@@ -352,8 +354,8 @@ __host__ __device__ constexpr int pair_id(int d, int e) {
   return d * K - d * (d + 1) / 2 + (e - d - 1);
 }
 
-// The binned vgh kernels' CTA: 128 threads, two an SM at up to 255
-// registers
+// The vgh kernels' CTA: 128 threads, two an SM at up to 255 registers
+// (uvgh_kernel's of few corner rows an event, eight an SM)
 constexpr int kVghThreads = 128;
 constexpr int kVghBlocks = 2;
 

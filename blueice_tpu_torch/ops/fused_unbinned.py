@@ -111,10 +111,16 @@ def unbinned_vgh_launcher(ps, strides, lanes, idx, t, m, mask, inv_ref, moff,
     L = lanes.shape[0]
     B, G, S, E, K = _check_shapes(ps, strides, lanes, idx, t, m, mask,
                                   inv_ref, moff, (L,))
+    if max(G * S * E, B * E) >= 2 ** 32:
+        raise ValueError("the vgh kernel addresses a toy's (G, S, E) block "
+                         "and the (B, E) mask and inv_ref with 32-bit "
+                         "offsets: each takes fewer than 2^32 entries")
     fused._check_cuda(ps, 'unbinned_vgh_fused')
     fused._check_kernel_inputs(ps, K, S, (lanes, m, mask, inv_ref, moff))
     lib = load_library()
     P = S + K
+    # wd and wx_pairs are passed and not read: the kernel takes the
+    # differences by its corner tree (the C entry keeps its arguments)
     ids, w, wd, wx_pairs = fused.vgh_tables(strides, idx, t, G)
     ll = ps.new_empty((L,))
     g = ps.new_empty((L, P))

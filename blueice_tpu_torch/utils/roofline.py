@@ -224,9 +224,8 @@ def work(kind, S, K, lead, row_floats, data_bytes, items, mc_rows=False):
     tables and the outputs. Operations: per bin or event (``items``, summed
     over the call's toys and candidates; unbinned, the valid events only,
     as the others add nothing) the corner combination (2 flops per FMA;
-    vgh: by the corner tree, :func:`tree_flops`, the least of the port's
-    combines, which the binned vgh kernels use and ``uvgh_kernel``, on
-    weight tables, does not), the rate sum and the g / H accumulation;
+    vgh: by the corner tree, :func:`tree_flops`, as the four vgh kernels
+    do it), the rate sum and the g / H accumulation;
     the logarithm, division and Beeston-Barlow root are not counted, so
     this is a lower bound.
 

@@ -12,11 +12,11 @@ earlier commit unpacked with ``git archive`` into a directory that
 ``.gitignore`` lists) whose kernels' C entries take the arguments this
 checkout's take: for the value contract (the default) ``bt_binned_ll_multi``,
 ``bt_bb_ll_multi``, ``bt_bblite_ll_multi``, ``bt_unbinned_ll_multi``; for the
-vgh contract ``bt_binned_vgh``, ``bt_bb_vgh``, ``bt_bblite_vgh``. Several
-baselines, separated by commas, are measured on the same calls. For each
-path (value: ``xenon``, ``bb``, ``bblite``, ``unbinned_xenon``,
-``unbinned``; vgh: the three binned ones; or the ones named), float32 on
-the card:
+vgh contract ``bt_binned_vgh``, ``bt_bb_vgh``, ``bt_bblite_vgh``,
+``bt_unbinned_vgh``. Several baselines, separated by commas, are measured
+on the same calls. For each path (``xenon``, ``bb``, ``bblite``,
+``unbinned_xenon``, ``unbinned``, or the ones named), float32 on the
+card:
 
 1. every call of the path's wrapper of the contract in one ``profile_ts``
    (seed ``--seed``, default 0; the path's toys) is recorded with this
@@ -28,7 +28,8 @@ the card:
    cells`` by the bin of the call's mean cells a lane, ``CELL_BINS``) with each library
    in turns, the baselines, this checkout's twice, the
    baselines in reverse (one baseline: baseline, current, current,
-   baseline); each replay's summed time is printed, then each library's
+   baseline); each bin's calls and summed bound (``chip_smoke.call_work``)
+   are printed first, then each replay's summed time, then each library's
    median and the ratio baseline / current;
 3. in the same turns, each library's kernel alone at phase 1's inputs of
    ``chip_smoke.py`` (binned: 512 toys; unbinned: the path's scored event
@@ -39,11 +40,14 @@ the card:
    value baseline's agree with this checkout's to relative 1e-5 (0:
    bit-identical; an unbinned ll relative to the magnitudes of its terms,
    ``chip_smoke.term_scale``; equal values agree, infinities and NaNs
-   too, and the non-finite outputs of both are counted); the vgh kernels are held to the plain version in
-   float64 on the same calls (ll relative, g and H relative to each toy's
-   largest entry), this checkout's within 1e-5 and 1e-4 or within twice a
-   baseline's error (where float32 itself loses digits, next to an anchor
-   whose MC-count row is empty). The errors are printed, and for the vgh
+   too, and the non-finite outputs of both are counted); the vgh kernels are
+   held to a float64 reference on the same calls (binned: the plain
+   version; unbinned: ``unbinned_vgh_double``, the closed form on the
+   call's gathered corner rows), the ll relative (unbinned: to
+   ``term_scale``), g and H relative to each toy's largest entry, this
+   checkout's within 1e-5 and 1e-4 or within twice a baseline's error
+   (where float32 itself loses digits, next to an anchor whose MC-count
+   row is empty). The errors are printed, and for the vgh
    the largest difference between the two libraries' outputs (0:
    bit-identical).
 
@@ -62,15 +66,12 @@ import numpy as np
 import torch
 
 from chip_smoke import (CALLS, PATHS, binned_data, build_model,
-                        call_candidates, log, random_point, record_calls,
-                        rel_to_toy_max, sass_functions, term_scale,
-                        time_calls, unbinned_data)
+                        call_candidates, call_work, log, random_point,
+                        record_calls, rel_to_toy_max, sass_functions,
+                        term_scale, time_calls, unbinned_data)
 
-BINNED = ('xenon', 'bb', 'bblite')
-#: The paths of each contract's A/B (the vgh outputs are held to the plain
-#: version in float64, which on unbinned_xenon would copy its 1 GB event
-#: tensor into float64 for every call)
-AB_PATHS = {'value': tuple(PATHS), 'vgh': BINNED}
+#: The paths of each contract's A/B
+AB_PATHS = {'value': tuple(PATHS), 'vgh': tuple(PATHS)}
 
 
 def baseline_source(module, root):
@@ -177,25 +178,55 @@ def cells_and_A(args, spec):
     return call_candidates(args, spec), cell_bin(int(mean + 0.5))
 
 
+def bins_and_bounds(calls, spec, contract, compiled, bin_of):
+    """'A, bin: n calls, bound x ms' of each bin (``bin_of``) of a
+    contract's recorded calls, the bound summed (``chip_smoke.call_work``)."""
+    from blueice_tpu_torch.utils.roofline import bound
+    K, S = len(compiled.shape_names), len(compiled.rate_names)
+    G = compiled.mus_tensor.numel() // S
+    bins = {}
+    for args in calls:
+        n, ms = bins.get(bin_of(args, spec), (0, 0.0))
+        bins[bin_of(args, spec)] = (n + 1, ms + bound(*call_work(
+            contract, args, spec, S, K, G)[:2])[0])
+    return ', '.join('A=%d, %s: %d calls, bound %.4f ms' % (A, b, n, ms)
+                     for (A, b), (n, ms) in sorted(bins.items()))
+
+
 def disagreement(out, ref, scale=None):
     """(ll, g and H) relative differences of ``out`` from ``ref``: the ll
     (a value call's, or the first of a vgh call's (ll, g, H)) relative to
-    ``scale`` (default: itself; an unbinned value call's, the magnitudes of
-    its terms, ``chip_smoke.term_scale``), g and H relative to each toy's
+    ``scale`` (default: itself; an unbinned call's, the magnitudes of its
+    terms, ``chip_smoke.term_scale``), g and H relative to each toy's
     largest entry (0 for a value call). Equal values count 0, and so do
     infinities of one sign and NaNs in both (a candidate whose rate is 0 at
     a valid event, or whose rates are NaN: the plain version gives the
     same); a NaN or an infinity in one only counts NaN or inf, which no
     bound holds."""
+    ll, ll_ref = (out[0], ref[0]) if isinstance(out, tuple) else (out, ref)
+    scale = ll_ref.abs() if scale is None else scale
+    same = (ll == ll_ref) | (ll.isnan() & ll_ref.isnan())
+    err = torch.where(same, torch.zeros_like(ll),
+                      (ll - ll_ref).abs() / scale)
     if not isinstance(out, tuple):
-        scale = ref.abs() if scale is None else scale
-        same = (out == ref) | (out.isnan() & ref.isnan())
-        err = torch.where(same, torch.zeros_like(out),
-                          (out - ref).abs() / scale)
         return float(err.max()), 0.0
-    return (float(((out[0] - ref[0]).abs() / ref[0].abs()).max()),
-            max(rel_to_toy_max(out[1], ref[1]),
-                rel_to_toy_max(out[2], ref[2])))
+    return (float(err.max()), max(rel_to_toy_max(out[1], ref[1]),
+                                  rel_to_toy_max(out[2], ref[2])))
+
+
+def unbinned_vgh_double(ps, strides, lanes, idx, t, m, mask, inv_ref, moff,
+                        outlier=0.0):
+    """The unbinned vgh contract in float64 on one call's arguments: the
+    lanes' corner rows gathered (``ps[lanes[:, None], ids]``, (L, C, S, E),
+    so the (B, G, S, E) event tensor is never copied whole), then
+    ``unbinned_vgh.vgh_parts`` on them in float64. Returns (ll, g, H)."""
+    from blueice_tpu_torch.ops import fused
+    from blueice_tpu_torch.ops.unbinned_vgh import vgh_parts
+    ids = fused.corner_ids(strides, idx, ps.shape[1])             # (L, C)
+    corners = ps[lanes[:, None], ids].double()
+    log_sum, g, H = vgh_parts(corners, m.double(), t.double(), mask[lanes],
+                              outlier, inv_ref[lanes].double())
+    return log_sum - moff.double(), g, H
 
 
 def ab(label, study, mods, baselines, contract, seed=0, by='lanes'):
@@ -218,6 +249,8 @@ def ab(label, study, mods, baselines, contract, seed=0, by='lanes'):
             "calls: %s" % (label, seed, len(cells), len(calls), ', '.join(
                 '%s: %d' % (b, sum(cell_bin(c) == b for c in cells))
                 for b in dict.fromkeys(cell_bin(c) for c in range(1, 10)))))
+    log("%s %s calls by bin: %s" % (label, contract, bins_and_bounds(
+        calls, spec, contract, study.compiled, bin_of)))
     libs = dict(current=module.load_library())
     libs.update((b, lib[spec.module]) for b, lib in baselines.items())
     order = list(baselines) + ['current', 'current'] + list(baselines)[::-1]
@@ -256,20 +289,25 @@ def ab(label, study, mods, baselines, contract, seed=0, by='lanes'):
     finally:
         module.load_library = load
     torch.cuda.synchronize()
-    # What the outputs are held to: value, this checkout's outputs; vgh, the
-    # plain version in float64 on the same calls (in a bin next to an anchor
-    # whose MC-count row is empty float32 itself loses digits, so two
-    # float32 kernels may differ there by more than their tolerance)
+    # What the outputs are held to: value, this checkout's outputs; vgh, a
+    # float64 reference on the same calls (in a bin next to an anchor whose
+    # MC-count row is empty float32 itself loses digits, so two float32
+    # kernels may differ there by more than their tolerance): binned, the
+    # plain version; unbinned, the closed form on the gathered corner rows
+    # (the plain version on float64 arguments would copy the whole event
+    # tensor, 1 GB on unbinned_xenon, every call)
     scales = [None] * len(calls)
-    if contract == 'vgh':
+    if spec.module == 'fused_unbinned':
+        scales = [term_scale(*args) for args in calls]
+    if contract == 'vgh' and spec.module == 'fused_unbinned':
+        refs = [unbinned_vgh_double(*args) for args in calls]
+    elif contract == 'vgh':
         plain = getattr(module, spec.wrapper.replace('_fused', '_plain'))
         refs = [plain(*(a.double() if torch.is_tensor(a)
                         and a.is_floating_point() else a for a in args))
                 for args in calls]
     else:
         refs = outs['current']
-        if spec.module == 'fused_unbinned':
-            scales = [term_scale(*args) for args in calls]
     errs = {kind: np.array([disagreement(double(o), double(r), s)
                             for o, r, s in zip(outs[kind], refs, scales)])
             for kind in libs}
@@ -283,9 +321,16 @@ def ab(label, study, mods, baselines, contract, seed=0, by='lanes'):
             bad = errs['current']
             apart = max(float((x - y).abs().max()) for a, b in zip(
                 outs[kind], outs['current']) for x, y in zip(a, b))
-            held = "the float64 plain version (current %.3g, %.3g; %s %.3g, " \
-                "%.3g); largest difference between the two %.3g" % (
-                    *worst['current'], kind, *worst[kind], apart)
+            # the largest absolute ll error, non-finite pairs (counted
+            # by ``disagreement``) left out
+            ll_abs = {k: max(float((o[0].double() - r[0]).abs().nan_to_num(
+                0.0, 0.0).max()) for o, r in zip(outs[k], refs))
+                      for k in (kind, 'current')}
+            held = "the float64 reference (current %.3g, %.3g, ll within " \
+                "%.3g; %s %.3g, %.3g, ll within %.3g); largest difference " \
+                "between the two %.3g" % (
+                    *worst['current'], ll_abs['current'], kind,
+                    *worst[kind], ll_abs[kind], apart)
         else:
             ok = (worst[kind] <= (1e-5, 0.0)).all()
             bad = errs[kind]

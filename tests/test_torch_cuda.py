@@ -517,27 +517,36 @@ ULL_CASES = {
 }
 
 
-def _ull_case(width, case, outlier, device, seed=0):
-    """The unbinned value wrapper's args of a ``ULL_CASES`` case: masked
-    tails (a prefix of each toy's events valid, as the study's sampler
-    makes them), events of zero and of negative summed density (valid only
-    with an outlier floor, else in the masked tail), centered."""
-    grid, S_ = ULL_WIDTHS[width]
-    B_, L, A_, E_, kind, lanes = ULL_CASES[case]
-    K = len(grid)
-    G = int(np.prod(grid))
-    strides = tuple(int(np.prod(grid[d + 1:])) for d in range(K))
-    rng = np.random.default_rng(seed + S_)
+def _event_sets(rng, G, S_, B_, E_, outlier, all_masked=None):
+    """(ps, mask, inv_ref, ref_msum) of B toys' event sets: masked tails (a
+    prefix of each toy's events valid, as the study's sampler makes them;
+    toy ``all_masked`` has none), events of zero and of negative summed
+    density (valid only with an outlier floor, else in the masked tail)."""
     ps = rng.uniform(0.001, 0.4, (B_, G, S_, E_))
     n_valid = rng.integers(E_ // 2, E_ - 2, B_)
-    if kind == 'all_masked':
-        n_valid[lanes[1]] = 0
+    if all_masked is not None:
+        n_valid[all_masked] = 0
     mask = np.arange(E_)[None, :] < n_valid[:, None]
     bad = [0, 1] if outlier else [E_ - 2, E_ - 1]
     ps[:, :, :, bad[0]] = 0.0
     ps[:, :, 0, bad[1]] = -50.0
     inv_ref = np.where(mask, rng.uniform(0.5, 2.0, (B_, E_)), 1.0)
     ref_msum = rng.uniform(500, 3000, B_)
+    return ps, mask, inv_ref, ref_msum
+
+
+def _ull_case(width, case, outlier, device, seed=0):
+    """The unbinned value wrapper's args of a ``ULL_CASES`` case
+    (``_event_sets``), centered."""
+    grid, S_ = ULL_WIDTHS[width]
+    B_, L, A_, E_, kind, lanes = ULL_CASES[case]
+    K = len(grid)
+    G = int(np.prod(grid))
+    strides = tuple(int(np.prod(grid[d + 1:])) for d in range(K))
+    rng = np.random.default_rng(seed + S_)
+    ps, mask, inv_ref, ref_msum = _event_sets(
+        rng, G, S_, B_, E_, outlier,
+        lanes[1] if kind == 'all_masked' else None)
     lanes = np.arange(L) if lanes is None else np.asarray(lanes)
     cells = np.array(list(np.ndindex((2,) * K)))       # lower corners
     idx = cells[rng.integers(0, len(cells), (L, A_))]
@@ -615,6 +624,125 @@ def test_ull_kernel_cases(cuda_device, width, case, outlier):
     again = fused_unbinned.unbinned_ll_fused_multi(*args)
     torch.cuda.synchronize()
     assert torch.equal(out, again)
+
+
+#: The unbinned vgh kernel's cases, at ``ULL_WIDTHS``: name -> (B, L, E,
+#: lerp weights, lanes). The kernel runs one 128-thread block per (lane,
+#: event range), a lane's ranges one cluster: one lane (6 ranges at E =
+#: 700), one lane of 16,384 events (8 ranges, the most a cluster takes),
+#: L below one wave of the card and above it at both widths (1,100 lanes
+#: over 300 toys, where a lane alone must agree with the same lane in the
+#: batch), lanes permuted and
+#: repeated, a lane whose events are all masked, E = 37 (fewer events than
+#: a block's threads); and it combines the corner rows by lerp steps over
+#: the reflected cell, which must keep the plain version's precision next
+#: to an anchor (t within 1e-5 of 1 on every axis, rows at 1e-4 of their
+#: size on the anchors with an odd index along axis 0 at events 41-60) and
+#: its corners exactly at one (t exactly 0 or 1 on the even axes).
+UVGH_CASES = {
+    'one_lane': (3, 1, 700, 'random', [1]),
+    'eight_ranges': (2, 1, 16384, 'random', [1]),
+    'below_one_wave': (6, 4, 700, 'random', [4, 0, 5, 2]),
+    'above_one_wave': (300, 1100, 300, 'random', None),
+    'lanes_permuted_repeated': (5, 6, 700, 'random', [3, 0, 3, 4, 0, 1]),
+    'all_masked_lane': (6, 4, 700, 'random', [2, 0, 5, 1]),
+    'E37': (6, 4, 37, 'random', [4, 0, 5, 2]),
+    't_near_one': (6, 4, 700, 'near_one', [4, 0, 5, 2]),
+    't_at_anchors': (6, 4, 700, 'at_anchors', [4, 0, 5, 2]),
+}
+
+
+def _uvgh_case(width, case, outlier, device, seed=0):
+    """The unbinned vgh wrapper's args of a ``UVGH_CASES`` case
+    (``_event_sets``), centered."""
+    grid, S_ = ULL_WIDTHS[width]
+    B_, L, E_, kind, lanes = UVGH_CASES[case]
+    K = len(grid)
+    G = int(np.prod(grid))
+    strides = tuple(int(np.prod(grid[d + 1:])) for d in range(K))
+    rng = np.random.default_rng(300 + seed + S_)
+    ps, mask, inv_ref, ref_msum = _event_sets(
+        rng, G, S_, B_, E_, outlier,
+        lanes[1] if case == 'all_masked_lane' else None)
+    lanes = np.arange(L) % B_ if lanes is None else np.asarray(lanes)
+    cells = np.array(list(np.ndindex((2,) * K)))       # lower corners
+    idx = cells[rng.integers(0, len(cells), L)]
+    t = rng.uniform(0, 1, (L, K))
+    if kind == 'near_one':
+        t[:] = 1.0 - rng.uniform(0.0, 1e-5, (L, K))
+        odd = np.array([(g // strides[0]) % 2 == 1 for g in range(G)])
+        ps[:, odd, :, 41:61] *= 1e-4
+    elif kind == 'at_anchors':
+        t[:, ::2] = rng.integers(0, 2, (L, (K + 1) // 2))
+    m = rng.uniform(100, 2000, (L, S_))
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+    return (f32(ps), strides,
+            torch.as_tensor(lanes, dtype=torch.int64, device=device),
+            torch.as_tensor(idx, device=device), f32(t), f32(m),
+            torch.as_tensor(mask, device=device), f32(inv_ref),
+            f32(m.sum(-1) - ref_msum[lanes]), outlier)
+
+
+def _uvgh_errors(out, ref, args, rows=None):
+    """(ll, g, H) errors of a vgh call's outputs against ``ref``: the ll
+    relative to the magnitudes of its terms (``_ull_term_scale``), g and H
+    to each lane's largest entry, over the lanes ``rows`` (default all)."""
+    ps, strides, lanes, idx, t, m, mask, inv_ref, moff, outlier = args
+    scale = _ull_term_scale(ps, strides, lanes, idx[:, None], t[:, None],
+                            m[:, None], mask, inv_ref, moff[:, None],
+                            outlier)[:, 0]
+    rows = slice(None) if rows is None else rows
+    return (float(((out[0].double() - ref[0].double()).abs()
+                   / scale)[rows].max()),
+            _rel_to_toy_max(out[1][rows], ref[1][rows]),
+            _rel_to_toy_max(out[2][rows], ref[2][rows]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("outlier", [0.0, 1e-12])
+@pytest.mark.parametrize("case", sorted(UVGH_CASES))
+@pytest.mark.parametrize("width", sorted(ULL_WIDTHS))
+def test_uvgh_kernel_cases(cuda_device, width, case, outlier):
+    """The unbinned vgh kernel against its plain version: ll within 1e-5
+    of the magnitudes of its terms, g and H within 1e-4 of each lane's
+    largest entry, finite, and bit-identical on a rerun (fixed-order sums,
+    no float atomics)."""
+    args = _uvgh_case(width, case, outlier, cuda_device)
+    L, P = args[3].shape[0], args[0].shape[2] + len(args[1])
+    fused_unbinned.reset_launch_counts()
+    out = fused_unbinned.unbinned_vgh_fused(*args)
+    ref = fused_unbinned.unbinned_vgh_plain(*args)
+    torch.cuda.synchronize()
+    assert fused_unbinned.launch_counts()['unbinned_vgh_fused'] == 1
+    assert out[0].shape == (L,) and out[1].shape == (L, P)
+    assert out[2].shape == (L, P, P)
+    assert all(torch.isfinite(x).all() for x in out)
+    rows = None
+    if case == 'all_masked_lane':
+        # no valid event: ll = -moff, g = -1 on the rates, 0 on t, H = 0
+        S_ = args[0].shape[2]
+        assert torch.equal(out[0][1], -args[8][1])
+        assert torch.equal(out[1][1, :S_], -torch.ones_like(out[1][1, :S_]))
+        assert torch.equal(out[1][1, S_:], torch.zeros_like(out[1][1, S_:]))
+        assert torch.equal(out[2][1], torch.zeros_like(out[2][1]))
+        rows = [0, 2, 3]
+    ll_err, g_err, h_err = _uvgh_errors(out, ref, args, rows)
+    assert ll_err <= 1e-5 and g_err <= 1e-4 and h_err <= 1e-4
+    if case in ('above_one_wave', 'lanes_permuted_repeated'):
+        # a lane alone (all of a cluster's ranges on its events) gives its
+        # ll, g and H inside the batch to float32 tolerance
+        for lane in (0, 2, 137, 1099)[:4 if L == 1100 else 2]:
+            one_args = tuple(a[[lane]] if i in (2, 3, 4, 5, 8) else a
+                             for i, a in enumerate(args))
+            one = fused_unbinned.unbinned_vgh_fused(*one_args)
+            part = tuple(x[[lane]] for x in out)
+            ll_err, g_err, h_err = _uvgh_errors(one, part, one_args)
+            assert ll_err <= 1e-5 and g_err <= 1e-4 and h_err <= 1e-4
+    again = fused_unbinned.unbinned_vgh_fused(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
 
 
 @pytest.mark.cuda

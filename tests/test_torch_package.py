@@ -321,6 +321,13 @@ def test_value_replay_ab_compares_both_contracts():
     assert script['disagreement'](centered + 1e-3, centered, scale)[0] == \
         pytest.approx(1e-6)
     assert script['disagreement'](centered, centered, scale) == (0.0, 0.0)
+    # an unbinned vgh call: its ll relative to the magnitudes of its terms
+    # too, g and H to each toy's largest entry
+    uvgh = (centered[:, 0], vgh[1], vgh[2])
+    near = (uvgh[0] + 1e-3, uvgh[1], H)
+    assert script['disagreement'](near, uvgh, scale[:, 0]) == (
+        pytest.approx(1e-6), pytest.approx(1e-3))
+    assert script['disagreement'](uvgh, uvgh, scale[:, 0]) == (0.0, 0.0)
     # a -inf ll (a rate of 0 at a valid event) or a NaN one (NaN rates)
     # in both agrees; in one only, not
     low = centered.clone()
@@ -373,3 +380,68 @@ def test_value_replay_bins_calls_by_cells():
     for cells, label in ((1, '1'), (2, '2'), (3, '3-4'), (4, '3-4'),
                          (5, '5-8'), (8, '5-8'), (9, '9+'), (30, '9+')):
         assert script['cell_bin'](cells) == label
+
+
+def _gaussian_vgh_call(seed=0):
+    """The unbinned vgh contract's arguments at the Gaussian model's width
+    (S = 2 sources on a 3-anchor axis), float32 on the CPU: masked tails,
+    centered, on a lane subset in a non-trivial order."""
+    rng = np.random.default_rng(seed)
+    B, G, S, E, lanes = 6, 3, 2, 90, [4, 0, 5, 2, 0]
+    L = len(lanes)
+    ps = rng.uniform(0.001, 0.4, (B, G, S, E))
+    mask = np.arange(E)[None, :] < rng.integers(E // 2, E - 2, B)[:, None]
+    inv_ref = np.where(mask, rng.uniform(0.5, 2.0, (B, E)), 1.0)
+    m = rng.uniform(20, 80, (L, S))
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32)
+    return (f32(ps), (1,), torch.as_tensor(lanes),
+            torch.as_tensor(rng.integers(0, 2, (L, 1))),
+            f32(rng.uniform(0, 1, (L, 1))), f32(m), torch.as_tensor(mask),
+            f32(inv_ref), f32(m.sum(-1) - rng.uniform(50, 150, L)), 0.0)
+
+
+def test_value_replay_ab_takes_the_unbinned_vgh_calls():
+    """measure_value_replay.py --contract vgh A/Bs both unbinned paths, and
+    its float64 reference of an unbinned vgh call (the closed form on the
+    call's gathered corner rows) equals the plain version run in float64
+    on the same arguments."""
+    import runpy
+    script = runpy.run_path(str(Path(__file__).resolve().parents[1]
+                                / 'measure_value_replay.py'))
+    assert {'unbinned_xenon', 'unbinned'} <= set(script['AB_PATHS']['vgh'])
+    args = _gaussian_vgh_call()
+    ref = script['unbinned_vgh_double'](*args)
+    as64 = tuple(a.double() if torch.is_tensor(a) and a.is_floating_point()
+                 else a for a in args)
+    plain = fused_unbinned.unbinned_vgh_plain(*as64)
+    for x, y in zip(ref, plain):
+        assert x.dtype == torch.float64
+        torch.testing.assert_close(x, y, rtol=1e-12, atol=1e-12)
+    # and the float32 plain version agrees within the A/B's tolerances
+    smoke = runpy.run_path(str(Path(__file__).resolve().parents[1]
+                               / 'chip_smoke.py'))
+    out = tuple(x.double() for x in fused_unbinned.unbinned_vgh_plain(*args))
+    ll_err, gh_err = script['disagreement'](out, ref,
+                                            smoke['term_scale'](*args))
+    assert ll_err <= 1e-5 and gh_err <= 1e-4
+
+
+@pytest.mark.parametrize('shape', [(2, 2 ** 16, 8, 2 ** 13),
+                                   (2 ** 20, 1, 1, 2 ** 12)])
+def test_unbinned_vgh_launcher_refuses_32bit_offsets(shape):
+    """The unbinned vgh kernel addresses a toy's (G, S, E) block and the
+    (B, E) mask and inv_ref at 32-bit offsets: a tensor of 2^32 entries or
+    more is refused before anything is built or launched (meta tensors:
+    shapes without memory)."""
+    B, G, S, E = shape
+    L = 2
+
+    def meta(*size, dtype=torch.float32):
+        return torch.empty(size, dtype=dtype, device='meta')
+    with pytest.raises(ValueError, match='32-bit'):
+        fused_unbinned.unbinned_vgh_launcher(
+            meta(B, G, S, E), (1,), meta(L, dtype=torch.int64),
+            meta(L, 1, dtype=torch.int64), meta(L, 1), meta(L, S),
+            meta(B, E, dtype=torch.bool), meta(B, E), meta(L))
