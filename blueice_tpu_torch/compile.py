@@ -12,7 +12,7 @@ carries the metadata the closed-form fit engines read (anchor tensors and
 arrays, names, priors).
 
 Sums, re-parametrisations and ancillary terms are ROADMAP queue 1 item 11;
-exposing the livetime as a parameter is item 16.
+exposing the livetime as a parameter is item 16c.
 """
 
 from collections import OrderedDict
@@ -46,7 +46,7 @@ def build_logl(lf, dtype=None, device=None, include_livetime=False,
     from .convert import state_from_reference, build_logl_from_state
     if include_livetime:
         raise NotImplementedError(
-            "include_livetime is not ported yet (ROADMAP queue 1 item 16)")
+            "include_livetime is not ported yet (ROADMAP queue 1 item 16c)")
     if not lf.is_prepared:
         if len(lf.shape_parameters):
             raise RuntimeError("Call prepare() before compiling the likelihood")

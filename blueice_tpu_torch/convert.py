@@ -30,7 +30,7 @@ def _prior_state(name, prior):
     raise TypeError(
         "The log prior of parameter %r (%r) cannot be compiled: use "
         "NormalPrior or UniformPrior (other priors are ROADMAP queue 1 "
-        "item 16)" % (name, prior))
+        "item 16c)" % (name, prior))
 
 
 def _is_a(lf, name):
@@ -65,7 +65,7 @@ def state_from_reference(lf):
     if getattr(lf, 'source_wise_interpolation', False):
         raise NotImplementedError(
             "source-wise interpolation is not ported yet (ROADMAP queue 1 "
-            "item 17)")
+            "item 17b)")
     source_names = list(lf.source_name_list)
     shape_names = list(lf.shape_parameters.keys())
     ps_build = lf._builds.get('ps')
@@ -92,7 +92,7 @@ def state_from_reference(lf):
         anchor_arrays = []
     else:
         raise NotImplementedError(
-            "%r template builds are not ported yet (ROADMAP queue 1 item 16)"
+            "%r template builds are not ported yet (ROADMAP queue 1 item 16c)"
             % (ps_build[0],))
 
     rate_names = [sn + '_rate_multiplier' for sn in source_names]

@@ -100,7 +100,7 @@ class LogLikelihoodBase:
         self.config.setdefault('morpher', 'GridInterpolator')
         if self.config['morpher'] not in MORPHERS:
             raise NotImplementedError(
-                "morpher %r is not ported yet (ROADMAP queue 1 item 16); "
+                "morpher %r is not ported yet (ROADMAP queue 1 item 16c); "
                 "use 'GridInterpolator'" % (self.config['morpher'],))
         if self.config.get('template_interpolation', 'linear') != 'linear':
             raise NotImplementedError(
@@ -112,7 +112,7 @@ class LogLikelihoodBase:
         if self.source_wise_interpolation:
             raise NotImplementedError(
                 "source_wise_interpolation is not ported yet (ROADMAP queue "
-                "1 item 17)")
+                "1 item 17b)")
 
         # Base model: no variation of any setting
         self.base_model = Model(self.pdf_base_config)
@@ -160,12 +160,12 @@ class LogLikelihoodBase:
         combination and stack their rate payloads into the mus anchor tensor.
 
         :param n_cores: only 1 is ported (parallel template builds are ROADMAP
-          queue 1 item 16).
+          queue 1 item 16c).
         """
         if n_cores != 1 or ipp_client is not None:
             raise NotImplementedError(
                 "parallel template builds (n_cores > 1, ipp_client) are not "
-                "ported yet (ROADMAP queue 1 item 16)")
+                "ported yet (ROADMAP queue 1 item 16c)")
         if len(self.shape_parameters):
             self.morpher = MORPHERS[self.config['morpher']](
                 self.config.get('morpher_config', {}), self.shape_parameters)

@@ -38,13 +38,15 @@ def _lam_eff(lam, outlier_likelihood):
                        torch.full_like(lam, outlier_likelihood))
 
 
-def _log_sum(lam, mask, outlier_likelihood, inv_ref):
-    """sum_e mask_e log(lam_eff_e [* inv_ref_e]) over the last axis."""
+def _log_sum(lam, mask, outlier_likelihood, inv_ref, sum_dtype=None):
+    """sum_e mask_e log(lam_eff_e [* inv_ref_e]) over the last axis (summed
+    in ``sum_dtype``, default the terms' own)."""
     arg = _lam_eff(lam, outlier_likelihood)
     if inv_ref is not None:
         arg = arg * inv_ref
     return torch.sum(torch.where(mask, torch.log(arg),
-                                 torch.zeros_like(arg)), dim=-1)
+                                 torch.zeros_like(arg)), dim=-1,
+                     dtype=sum_dtype)
 
 
 def _rate_term(m, ref_msum, centered):
@@ -53,37 +55,52 @@ def _rate_term(m, ref_msum, centered):
     return -(msum - ref_msum) if centered else -msum
 
 
-def vgh_parts(corners, m, t, mask, outlier_likelihood=0.0, inv_ref=None):
+def vgh_parts(corners, m, t, mask, outlier_likelihood=0.0, inv_ref=None,
+              sum_dtype=None):
     """(log-term sum (...), g (..., S+K), H (..., S+K, S+K)) of the extended
     LL: everything but the rate part of the value, which the caller
-    subtracts (``sum m`` uncentered, ``sum m - ref_msum`` centered)."""
+    subtracts (``sum m`` uncentered, ``sum m - ref_msum`` centered).
+
+    Every per-event quantity is in the corners' dtype; with ``sum_dtype``
+    the sums over events are in that dtype instead (float32 events summed
+    in float64 is float32's own error on each event's terms, as the fused
+    kernel sums g: at a converged fit g is a sum of large terms that
+    nearly cancel, and a float32 sum of them loses more than that)."""
     K = t.shape[-1]
     dtype = corners.dtype
+
+    def esum(eq, *ops):
+        """``torch.einsum(eq, *ops)``, whose operands all end in the event
+        axis and whose output drops it, summed over events in
+        ``sum_dtype``."""
+        if sum_dtype is None:
+            return torch.einsum(eq, *ops)
+        return torch.einsum(eq + 'e', *ops).to(sum_dtype).sum(-1)
     w, wd, wx = corner_weight_tables(t)
     P = torch.einsum('...c,...cse->...se', w, corners)         # (..., S, E)
     lam = torch.einsum('...s,...se->...e', m, P)               # (..., E)
-    log_sum = _log_sum(lam, mask, outlier_likelihood, inv_ref)
+    log_sum = _log_sum(lam, mask, outlier_likelihood, inv_ref, sum_dtype)
 
     pos = lam > 0
     lam_safe = torch.where(pos, lam, torch.ones_like(lam))
     inv = (mask & pos).to(dtype) / lam_safe                    # (..., E)
     q = inv / lam_safe
 
-    g_m = torch.einsum('...se,...e->...s', P, inv) - 1.0
-    H_mm = -torch.einsum('...se,...e,...ze->...sz', P, q, P)
+    g_m = esum('...se,...e->...s', P, inv) - 1.0
+    H_mm = -esum('...se,...e,...ze->...sz', P, q, P)
     if K == 0:
         return log_sum, g_m, H_mm
     D = torch.einsum('...kc,...cse->...kse', wd, corners)      # (..., K, S, E)
     Dbar = torch.einsum('...s,...kse->...ke', m, D)            # (..., K, E)
-    g_t = torch.einsum('...ke,...e->...k', Dbar, inv)
-    H_mt = (-torch.einsum('...se,...e,...ke->...sk', P, q, Dbar)
-            + torch.einsum('...kse,...e->...sk', D, inv))
+    g_t = esum('...ke,...e->...k', Dbar, inv)
+    H_mt = (-esum('...se,...e,...ke->...sk', P, q, Dbar)
+            + esum('...kse,...e->...sk', D, inv))
     # Xbar_kz = sum_s m_s d2P_s/dt_k dt_z, through each corner's lam_c, so
     # the (..., K, K, S, E) table is never formed
     lam_c = torch.einsum('...s,...cse->...ce', m, corners)     # (..., C, E)
     Xbar = torch.einsum('...kzc,...ce->...kze', wx, lam_c)
-    H_tt = (-torch.einsum('...ke,...e,...ze->...kz', Dbar, q, Dbar)
-            + torch.einsum('...kze,...e->...kz', Xbar, inv))
+    H_tt = (-esum('...ke,...e,...ze->...kz', Dbar, q, Dbar)
+            + esum('...kze,...e->...kz', Xbar, inv))
     g = torch.cat([g_m, g_t], dim=-1)
     top = torch.cat([H_mm, H_mt], dim=-1)
     bottom = torch.cat([H_mt.transpose(-1, -2), H_tt], dim=-1)

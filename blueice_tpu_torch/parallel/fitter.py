@@ -830,7 +830,7 @@ def make_toy_fitter(compiled, fixed=None, guess=None, max_iter=60, tol=1e-8,
     if engine not in ('auto', 'analytic', 'fused'):
         raise NotImplementedError(
             "engine=%r is not ported (the autodiff engine is ROADMAP queue 1 "
-            "item 16); use 'analytic', 'fused' or 'auto'" % (engine,))
+            "item 16b); use 'analytic', 'fused' or 'auto'" % (engine,))
     runtime_fixed = list(runtime_fixed)
     fixed = dict(fixed or {})
     check_fixed_in_bounds(compiled, fixed)

@@ -12,6 +12,14 @@ Counterpart of :mod:`blueice_tpu.parallel.toys`:
 
 Every fit of an ensemble runs as one batch. Multi-device sharding
 (``mesh=``) is not ported yet (ROADMAP queue 1 item 14).
+
+Seeds. Where the JAX package takes a PRNG key, the port takes
+``seed_or_generator``: an int seed or a ``torch.Generator``. A key's
+``fold_in(key, i)`` and ``split(key, n)`` become child int seeds
+(:func:`child_seed`), and a function that draws from one seed more than
+once (a free-fit pass, then the grid over the same toys) reads one int
+seed from a Generator at entry (:func:`seed_of`) and uses only that seed
+from then on, so every draw regenerates the same toys.
 """
 
 import itertools
@@ -25,11 +33,32 @@ import torch
 from ..compile import build_logl
 from .fitter import make_toy_fitter, check_fixed_in_bounds, unbinned_center
 
-__all__ = ['BinnedToyStudy', 'UnbinnedToyStudy', 'ToyResults']
+__all__ = ['BinnedToyStudy', 'UnbinnedToyStudy', 'ToyResults', 'seed_of',
+           'child_seed']
 
 #: toys per scoring step of :meth:`UnbinnedToyStudy.score_events` (bounds
 #: the (toys, G*S, E) gather's memory)
 SCORE_CHUNK = 32
+
+
+def seed_of(seed_or_generator):
+    """The int seed of a call: an int as given, or one int drawn from a
+    ``torch.Generator`` (which advances by that one draw)."""
+    if isinstance(seed_or_generator, torch.Generator):
+        return int(torch.randint(0, 2 ** 62, (1,),
+                                 generator=seed_or_generator,
+                                 device=seed_or_generator.device))
+    return int(seed_or_generator)
+
+
+def child_seed(seed, i):
+    """The ``i``-th child int seed of ``seed`` (the port's
+    ``jax.random.fold_in(key, i)``, and element ``i`` of
+    ``jax.random.split(key, n)``): a 64-bit word of
+    ``np.random.SeedSequence([seed, i])``, deterministic and independent
+    across ``i``."""
+    return int(np.random.SeedSequence([int(seed) % 2 ** 64, int(i)])
+               .generate_state(1, np.uint64)[0])
 
 
 def _refine_stragglers(fit_long, data, x, ll, it, cap, fixed_values=None,
@@ -68,6 +97,75 @@ def _warm_cols(names_free, names_cond):
     if set(names_cond) <= set(names_free):
         return [names_free.index(n) for n in names_cond]
     return None
+
+
+def _best_of_two(a, b):
+    """Per lane, the better of two (x, max_ll, n_iter) fit results (NaN
+    lls lose); the iteration counts add (both fits were paid for)."""
+    xa, lla, ita = a
+    xb, llb, itb = b
+    lla = np.where(np.isnan(lla), -np.inf, lla)
+    llb = np.where(np.isnan(llb), -np.inf, llb)
+    take_a = lla >= llb
+    return (np.where(take_a[:, None], xa, xb), np.maximum(lla, llb),
+            ita + itb)
+
+
+def _cond_scan(hypotheses, call_cond, refine_cond, llf, names_cond, cap,
+               need_cond=True):
+    """The per-hypothesis conditional loop of ``profile_ts_grid``: run the
+    conditional fit at each hypothesis, refine its stragglers, compute the
+    statistic from the refined optima.
+
+    :param call_cond: h -> (xc, llc, itc) tensors.
+    :param refine_cond: (xc, llc, itc, h) -> refined numpy (xc, llc, itc),
+      or None when no refiner exists (then the free fit was not refined
+      either: a one-sided refinement would bias t).
+    :param need_cond: when False, the conditional parameters are not copied
+      to the host (unless stragglers need them); the conds list then holds
+      None.
+    :return: (ts (n_hypotheses, n_toys), list of conditional ToyResults).
+    """
+    ts, conds = [], []
+    for h in hypotheses:
+        xc_d, llc_d, itc_d = call_cond(float(h))
+        llc, itc = llc_d.cpu().numpy(), itc_d.cpu().numpy()
+        refine = refine_cond is not None and (itc >= cap).any()
+        xc = xc_d.cpu().numpy() if need_cond or refine else None
+        if refine:
+            xc, llc, itc = refine_cond(xc, llc, itc, float(h))
+        ts.append(np.maximum(2.0 * (llf - llc), 0.0))
+        conds.append(ToyResults(names_cond, xc, llc, itc)
+                     if need_cond else None)
+    return np.stack(ts), conds
+
+
+def _check_map_space(compiled, space, fixed=None):
+    """Validate a profile_map ``space``: 1 or 2 distinct (name, grid)
+    pairs, none also in ``fixed`` (a duplicated name would let the last
+    grid value win, a fixed one would constrain the free fit), nonempty
+    grids, every grid point inside the parameter's range. Returns (names,
+    grids)."""
+    space = list(space)
+    if len(space) not in (1, 2):
+        raise ValueError(
+            "space must be 1 or 2 (name, grid) pairs, got %d" % len(space))
+    targets = [name for name, _ in space]
+    if len(set(targets)) != len(targets):
+        raise ValueError("space names a parameter twice: %s" % targets)
+    clash = sorted(set(targets) & set(fixed or {}))
+    if clash:
+        raise ValueError(
+            "space parameters %s are also in fixed= — a fixed target would "
+            "constrain the free fit too, so the map would not be a "
+            "profile-LR surface" % clash)
+    grids = [np.asarray(g, dtype=float).ravel() for _, g in space]
+    for name, g in zip(targets, grids):
+        if g.size == 0:
+            raise ValueError("empty grid for %r" % name)
+        for v in g:
+            check_fixed_in_bounds(compiled, {name: float(v)})
+    return targets, grids
 
 
 def _check_target_not_fixed(target, fixed):
@@ -212,6 +310,132 @@ class _ToyStudy:
                 names_cond, _warm_cols(names_free, names_cond))
         return self._profile_cache[key]
 
+    def _profile_grid(self, data, target, hypotheses, fixed,
+                      return_cond=True):
+        """(ts (H, n_toys), hypotheses, free ToyResults, conditional
+        ToyResults per hypothesis) of the fitters' ``data``: one free fit,
+        its stragglers refined once (only where a conditional refiner
+        exists), then at each hypothesis a conditional fit warm-started
+        from it, with that hypothesis's own stragglers refined. (The
+        pairing of :meth:`_profile` cannot apply: the free fit is shared by
+        every hypothesis.)"""
+        (fit_free, free_long, fit_cond, cond_long, names_free, names_cond,
+         warm_cols) = self._profile_fn(target, fixed)
+        xf, llf, itf = (v.cpu().numpy() for v in fit_free(data))
+        if free_long is not None:
+            xf, llf, itf = _refine_stragglers(free_long, data, xf, llf, itf,
+                                              self.max_iter)[:3]
+        x0c = xf[:, warm_cols] if warm_cols else None
+        refine = None
+        if cond_long is not None:
+            def refine(xc, llc, itc, h):
+                return _refine_stragglers(cond_long, data, xc, llc, itc,
+                                          self.max_iter,
+                                          fixed_values=[h])[:3]
+        ts, conds = _cond_scan(
+            hypotheses, lambda h: fit_cond(data, [h], x0=x0c), refine, llf,
+            names_cond, self.max_iter, need_cond=return_cond)
+        return ts, hypotheses, ToyResults(names_free, xf, llf, itf), conds
+
+    def profile_ts_grid(self, seed_or_generator, target, hypotheses, n_toys,
+                        truth=None, fixed=None, mesh=None, return_cond=True):
+        """Profile-LR statistics of one toy ensemble across a hypothesis
+        grid: the free fit runs once, then each hypothesis adds a
+        conditional fit warm-started from it, all through the same two
+        fitters. The engine of per-toy limits
+        (:mod:`blueice_tpu_torch.parallel.limits`); :meth:`profile_ts_scan`
+        draws a fresh ensemble per hypothesis instead.
+
+        :param return_cond: False skips copying the per-hypothesis
+          conditional parameters to the host (the conds list holds None).
+        :return: (ts (n_hypotheses, n_toys), sorted hypotheses, free
+          ToyResults, list of per-hypothesis conditional ToyResults).
+        """
+        _check_target_not_fixed(target, fixed)
+        hypotheses = np.sort(np.asarray(hypotheses, dtype=float))
+        for h in hypotheses:
+            check_fixed_in_bounds(self.compiled, {target: float(h)})
+        toys = self.simulate(seed_or_generator, n_toys, truth, mesh)
+        return self._run_profile_grid(toys, target, hypotheses, fixed,
+                                      return_cond)
+
+    def profile_ts_scan(self, seed_or_generator, target, hypotheses, n_toys,
+                        fixed=None, mesh=None, truth=None,
+                        truth_at_hypothesis=True, return_free=False):
+        """Profile-LR toy distributions across a hypothesis grid (the
+        engine of a Neyman construction): a fresh ensemble per hypothesis,
+        drawn from the child seed ``child_seed(seed, i)`` of the i-th
+        hypothesis.
+
+        :param truth_at_hypothesis: simulate each ensemble with the target
+          at the hypothesis (the standard construction); otherwise at
+          ``truth`` for all.
+        :param return_free: also return the per-hypothesis free ToyResults.
+        :return: (n_hypotheses, n_toys) t values; with ``return_free``,
+          (t array, list of free ToyResults).
+        """
+        seed = seed_of(seed_or_generator)
+        out, frees = [], []
+        for i, h in enumerate(np.asarray(hypotheses, dtype=float)):
+            sim_truth = dict(truth or {})
+            if truth_at_hypothesis:
+                sim_truth[target] = float(h)
+            toys = self.simulate(child_seed(seed, i), n_toys, sim_truth, mesh)
+            t, free, _ = self._run_profile(toys, target, h, fixed)
+            out.append(t)
+            frees.append(free)
+        ts = np.stack(out)
+        return (ts, frees) if return_free else ts
+
+    def _map_fitter(self, targets, fixed):
+        """(fit, names, default start) of a map's conditional lanes: one
+        stage at the long cap (a map is one dataset lockstep across its
+        lanes, so the straggler pass would buy nothing), the map's
+        parameters fixed at run time."""
+        key = (tuple(targets), _freeze_opts(fixed), 'map')
+        if key not in self._profile_cache:
+            fit, names = make_toy_fitter(
+                self.compiled, fixed=dict(fixed or {}),
+                runtime_fixed=list(targets), tol=self.tol,
+                max_iter=(4 * self.max_iter if self.two_stage
+                          else self.max_iter),
+                engine=self.engine, polish=self.polish)
+            x0 = np.array([float(self.compiled.defaults[n]) for n in names])
+            self._profile_cache[key] = (fit, names, x0)
+        return self._profile_cache[key]
+
+    def _map(self, data, targets, grids, fixed, free):
+        """(t, free, conditional ToyResults) of a profile map on one
+        dataset: the grid's P points as lanes of one call of the map
+        fitter. With a warm start (the free optimum ``free``'s columns)
+        every point takes two lanes, the warm start and the default start,
+        and keeps the better optimum: far from the best fit the warm start
+        can sit across an anchor kink from the conditional optimum and
+        stall short of it. ``data``: binned, the counts (1, N), one row a
+        lane; unbinned, (ps, mask, center) of one toy, every lane on toy
+        0."""
+        fit, names_cond, x_cold = self._map_fitter(targets, fixed)
+        warm = _warm_cols(free.names, names_cond)
+        points = np.asarray(list(itertools.product(*grids)), dtype=float)
+        P = len(points)
+        fv, x0 = points, None
+        if names_cond and warm is not None:
+            fv = np.concatenate([points, points])
+            x0 = np.concatenate([np.tile(free.x[0][warm], (P, 1)),
+                                 np.tile(x_cold, (P, 1))])
+        if self.compiled.is_binned:
+            data, lanes = data.expand(len(fv), -1).contiguous(), None
+        else:
+            lanes = torch.zeros(len(fv), dtype=torch.int64,
+                                device=self.device)
+        out = [v.cpu().numpy() for v in fit(data, fv, x0=x0, lanes=lanes)]
+        if x0 is not None:
+            out = _best_of_two([v[:P] for v in out], [v[P:] for v in out])
+        xc, llc, itc = out
+        t = np.maximum(2.0 * (free.max_ll[0] - llc), 0.0)
+        return (t.reshape(tuple(len(g) for g in grids)), free,
+                ToyResults(names_cond, xc, llc, itc))
+
 
 class BinnedToyStudy(_ToyStudy):
     """Batched binned-likelihood toy fits on one device.
@@ -284,29 +508,54 @@ class BinnedToyStudy(_ToyStudy):
     def _run_profile(self, counts, target, hypothesis, fixed):
         return self._profile(self._counts(counts), target, hypothesis, fixed)
 
-    # The reference's grid, scan and map surface. Methods (not attributes
-    # that fail): the reference's statistics tell a binned study from an
-    # unbinned one by ``hasattr(study, 'observed_counts')``.
+    def _run_profile_grid(self, counts, target, hypotheses, fixed,
+                          return_cond=True):
+        return self._profile_grid(self._counts(counts), target, hypotheses,
+                                  fixed, return_cond)
 
-    def profile_ts_grid(self, *args, **kwargs):
-        raise NotImplementedError(
-            "BinnedToyStudy.profile_ts_grid is not ported yet (ROADMAP "
-            "queue 1 item 16a)")
+    def observed_counts(self, counts=None):
+        """The observed count tensor of one dataset on the study's device,
+        shape-checked against :meth:`expected_counts`; ``counts=None``
+        takes the histogram of the likelihood's own ``set_data`` events.
+        (The statistics tell a binned study from an unbinned one by this
+        method.)"""
+        if counts is None:
+            h = getattr(self.lf, 'data_events_per_bin', None)
+            if h is None:
+                raise ValueError(
+                    "No counts given and the likelihood has no data bound — "
+                    "call lf.set_data(...) first or pass counts= explicitly")
+            counts = h.values
+        expected = self.expected_counts()
+        counts = self._counts(counts)
+        if counts.shape != expected.shape:
+            raise ValueError(
+                "counts shape %s does not match the analysis space %s"
+                % (tuple(counts.shape), tuple(expected.shape)))
+        return counts
 
-    def profile_ts_scan(self, *args, **kwargs):
-        raise NotImplementedError(
-            "BinnedToyStudy.profile_ts_scan is not ported yet (ROADMAP "
-            "queue 1 item 16a)")
+    def profile_map(self, space, counts=None, fixed=None, _free=None):
+        """Profiled likelihood-ratio map on one observed dataset:
+        t(theta) = 2(LL_free - LL(theta fixed, rest profiled)) over a 1- or
+        2-dimensional parameter grid, every grid point two lanes (a warm
+        and a cold start) of one conditional-fit call after one free fit:
+        the batched twin of ``plot_likelihood_ratio``'s per-point fits.
 
-    def observed_counts(self, *args, **kwargs):
-        raise NotImplementedError(
-            "BinnedToyStudy.observed_counts is not ported yet (ROADMAP "
-            "queue 1 item 16a)")
-
-    def profile_map(self, *args, **kwargs):
-        raise NotImplementedError(
-            "BinnedToyStudy.profile_map is not ported yet (ROADMAP queue 1 "
-            "item 16a)")
+        :param space: 1 or 2 ``(param_name, grid values)`` pairs.
+        :param counts: observed counts shaped like :meth:`expected_counts`;
+          default the likelihood's ``set_data`` histogram.
+        :param fixed: extra parameters held fixed everywhere.
+        :param _free: a previous call's free ToyResults on the same dataset
+          (``observed_interval``'s adaptive retries), which skips the free
+          fit.
+        :return: (t shaped ``(len(grid1)[, len(grid2)])``, free ToyResults
+          (1 row), conditional ToyResults (one row per grid point, C
+          order)).
+        """
+        targets, grids = _check_map_space(self.compiled, space, fixed)
+        counts1 = self.observed_counts(counts).reshape(1, -1)
+        free = _free if _free is not None else self._fit(counts1, fixed)
+        return self._map(counts1, targets, grids, fixed, free)
 
 
 class UnbinnedToyStudy(_ToyStudy):
@@ -343,7 +592,7 @@ class UnbinnedToyStudy(_ToyStudy):
         if len(methods) > 1:
             raise NotImplementedError(
                 "sources with mixed pdf interpolation methods are not ported "
-                "yet (ROADMAP queue 1 item 17)")
+                "yet (ROADMAP queue 1 item 17b)")
         self._method = methods.pop()
         if self._method not in ('linear', 'piecewise'):
             raise NotImplementedError(
@@ -566,17 +815,45 @@ class UnbinnedToyStudy(_ToyStudy):
         return self._profile(self._fit_data(events), target, hypothesis,
                              fixed)
 
-    def profile_ts_grid(self, *args, **kwargs):
-        raise NotImplementedError(
-            "UnbinnedToyStudy.profile_ts_grid is not ported yet (ROADMAP "
-            "queue 1 item 17)")
+    def _run_profile_grid(self, events, target, hypotheses, fixed,
+                          return_cond=True):
+        # The JAX package re-samples and re-scores the toys for every
+        # hypothesis from the same keys; here the event set is drawn and
+        # scored once and its (B, G, S, E) tensor and centering reused by
+        # every hypothesis. The events are identical, so is the result.
+        return self._profile_grid(self._fit_data(events), target, hypotheses,
+                                  fixed, return_cond)
 
-    def profile_ts_scan(self, *args, **kwargs):
-        raise NotImplementedError(
-            "UnbinnedToyStudy.profile_ts_scan is not ported yet (ROADMAP "
-            "queue 1 item 17)")
+    def profile_map(self, space, fixed=None):
+        """Profiled likelihood-ratio map on the observed dataset (the events
+        bound by ``lf.set_data``): the unbinned twin of
+        :meth:`BinnedToyStudy.profile_map`. The per-event anchor densities
+        are read from the likelihood's current ``set_data`` build, viewed
+        as one toy (1, G, S, E) with every event valid; the free fit and
+        every map lane run on that toy (the lanes' rows all 0). Both fits
+        are one stage at the long cap.
 
-    def profile_map(self, *args, **kwargs):
-        raise NotImplementedError(
-            "UnbinnedToyStudy.profile_map is not ported yet (ROADMAP queue 1 "
-            "item 17)")
+        :return: (t shaped ``(len(grid1)[, len(grid2)])``, free ToyResults
+          (1 row), conditional ToyResults (one row per grid point, C
+          order)).
+        """
+        targets, grids = _check_map_space(self.compiled, space, fixed)
+        build = getattr(self.lf, '_builds', {}).get('ps')
+        if build is None:
+            raise ValueError(
+                "No observed dataset bound — call lf.set_data(...) first")
+        if build[0] == 'source_wise':
+            raise NotImplementedError(
+                "profile_map needs a dense global anchor grid (or no shape "
+                "parameters); source-wise morphing is not ported yet "
+                "(ROADMAP queue 1 item 17b)")
+        tensor = self.compiled._tensor(build[2] if build[0] == 'global'
+                                       else build[1])
+        S, E = tensor.shape[-2:]
+        ps = tensor.reshape(1, -1, S, E).contiguous()
+        mask = torch.ones((1, E), dtype=torch.bool, device=self.device)
+        data = (ps, mask, unbinned_center(self.compiled, ps, mask))
+        fit_free, names_free, _ = self._map_fitter((), fixed)
+        free = ToyResults(names_free,
+                          *(v.cpu().numpy() for v in fit_free(data)))
+        return self._map(data, targets, grids, fixed, free)

@@ -4,7 +4,7 @@ Counterpart of :mod:`blueice_tpu.priors`: :class:`NormalPrior` and
 :class:`UniformPrior` compute with numpy for plain python/numpy values and
 with torch ops for tensors, so one likelihood carries them on the host path
 and in the compiled torch likelihood alike. ``MultivariateNormalPrior`` is
-not ported yet (ROADMAP queue 1 item 16).
+not ported yet (ROADMAP queue 1 item 16c).
 """
 
 import math

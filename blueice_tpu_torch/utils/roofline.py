@@ -544,7 +544,7 @@ def measure_unbinned_jnp(G=81, S=6, E=2048, K=4, B=64, chip='h100-sxm',
     (``ops/unbinned_dense.py``), which the port does not have yet."""
     raise NotImplementedError(
         "measure_unbinned_jnp runs ops/unbinned_dense.py, which is not "
-        "ported (ROADMAP queue 1 item 17); the port's record measures "
+        "ported (ROADMAP queue 1 item 17c); the port's record measures "
         "measure_unbinned_kernel(G=81, S=6, E=2048, K=4, B=64) instead")
 
 

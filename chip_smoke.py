@@ -61,9 +61,40 @@ Then the roofline part (``blueice_tpu_torch.utils.roofline``):
    (``roofline_record``), printed as a table, and per kernel warm and
    L2-cold (an L2-cold HBM share above 100% fails).
 
+Between the paths and the roofline part runs the statistics part
+(``STATS``), on the studies of the paths above
+(``blueice_tpu_torch.parallel``), each phase between reset and read of
+every launch counter, its path's two kernels launched and no other:
+
+6. the xenon sensitivity band: ``sensitivity_band`` over 256
+   background-only toys with the 'auto' grid, seed 0 and then warm with
+   seed 1 (a finite median, fewer than a quarter of the toys beyond the
+   grid, quantiles ascending, every limit at or above the grid start),
+   then the first 8 toys' grid on the card against a float64 CPU study
+   at the same hypotheses (``referee_grid``: max |d max_ll| <= 0.05,
+   median |d t| <= 0.01 over every (hypothesis, toy) pair);
+7. the xenon observed upper limit (90%) on one simulated background-only
+   dataset bound with ``set_data``: ``observed_interval``, cold and three
+   times warm, against float64 on the CPU at the same grid (relative gap
+   <= 0.01); then every vgh and value call of one ``profile_map`` (66
+   lanes on the one dataset) recorded, and each kernel held to the
+   float64 closed form within phase 1's tolerances, the unbinned ll lane
+   by lane within an allowance derived from float32 itself
+   (``map_calls_row``, ``ll_allowance``);
+8. the Gaussian unbinned band, as 6 over 1,024 toys;
+9. the unbinned_xenon observed upper limit, as 7, on one simulated event
+   set bound with ``set_data``.
+
+The statistics part runs at full size, uncut: 256 toys in the xenon band
+and 1,024 in the Gaussian one. It takes longer than the two bands alone
+because the float64 CPU referees (the grid of 8 toys x the band's
+hypotheses, and each interval at its final grid) take about half of it;
+cutting the band's toys would not shorten them, and the referees hold
+every hypothesis of the grid.
+
 Run with no arguments, as above, it is the smoke test. Path names as
 arguments (``python3 chip_smoke.py bb bblite``) run those paths alone and
-no roofline part: a quicker measurement of their kernels, which prints the
+no statistics or roofline part: a quicker measurement of their kernels, which prints the
 same lines for them. ``measure_unbinned.py`` holds the torch.profiler
 account and the engine A/B of the unbinned paths.
 
@@ -86,6 +117,12 @@ import torch
 
 KERNEL_TOYS = 512
 TIMED_RUNS = 20
+#: phase 1's tolerances: the ll relative (to |ll|; unbinned, to the
+#: magnitudes of its terms, ``term_scale``), g and H relative to each toy's
+#: largest entry
+TOLERANCE = (1e-5, 1e-4)
+#: float32's unit roundoff
+F32_UNIT = 2.0 ** -24
 CSRC = 'blueice_tpu_torch/csrc/'
 TPU = 'blueice_tpu/ops/'
 
@@ -379,13 +416,17 @@ def check_pair(label, name, out, ref, ll_scale):
     return abs_err, rel, detail
 
 
-def term_scale(ps, strides, lanes, idx, t, m, mask, inv_ref, moff, outlier):
-    """Per lane (and candidate) sum of the magnitudes of the centered
-    unbinned ll's terms, sum_e |log(lam_e * inv_ref_e)| + |moff|, in
-    float64: the scale of that ll's float32 rounding. (A centered ll near
-    the reference point is a small difference of O(1) terms, so its own
-    magnitude is no scale for a relative error; the binned deviance ll has
-    terms of one sign, so there the scale is |ll|.)"""
+def term_scales(ps, strides, lanes, idx, t, m, mask, inv_ref, moff, outlier):
+    """Per lane (and candidate), in float64, (terms, rounding): the sum of
+    the magnitudes of the centered unbinned ll's terms, sum_e |log(lam_e *
+    inv_ref_e)| + |moff|, the scale of that ll's float32 rounding (a
+    centered ll near the reference point is a small difference of O(1)
+    terms, so its own magnitude is no scale for a relative error; the
+    binned deviance ll has terms of one sign, so there the scale is |ll|);
+    and float32's rounding of each valid event's product lam_e *
+    inv_ref_e, summed, F32_UNIT sum_e |lam_e inv_ref_e| (at the centering
+    point every term log(lam_e inv_ref_e) is smaller than that rounding,
+    so the terms alone are no scale for the ll there)."""
     from blueice_tpu_torch.ops import fused
     from blueice_tpu_torch.ops.binned_vgh import corner_weight_tables
     single = idx.dim() == 2
@@ -403,11 +444,113 @@ def term_scale(ps, strides, lanes, idx, t, m, mask, inv_ref, moff, outlier):
                 'ls,lse->le', m[:, a].double(), rows)
         if outlier:
             lam = torch.where(lam > 0, lam, torch.full_like(lam, outlier))
-        terms = torch.where(mk, torch.log(lam * ir).abs(),
-                            torch.zeros_like(lam))
-        cols.append(terms.sum(-1) + moff[:, a].double().abs())
-    out = torch.stack(cols, dim=1)
-    return out[:, 0] if single else out
+        zero = torch.zeros_like(lam)
+        cols.append((torch.where(mk, torch.log(lam * ir).abs(), zero).sum(-1)
+                     + moff[:, a].double().abs(),
+                     F32_UNIT * torch.where(mk, (lam * ir).abs(),
+                                            zero).sum(-1)))
+    out = tuple(torch.stack(x, dim=1) for x in zip(*cols))
+    return tuple(x[:, 0] for x in out) if single else out
+
+
+def term_scale(*args):
+    """The first of ``term_scales``: the magnitudes of the terms."""
+    return term_scales(*args)[0]
+
+
+def disagreement(out, ref, scale=None):
+    """(ll, g and H) relative differences of ``out`` from ``ref``: the ll
+    (a value call's, or the first of a vgh call's (ll, g, H)) relative to
+    ``scale`` (default: itself; an unbinned call's, the magnitudes of its
+    terms, ``term_scale``; an allowance, ``ll_allowance``, makes it the
+    share of the allowance used), g and H relative to each toy's largest
+    entry (0 for a value call). Equal values count 0, and so do infinities of one
+    sign and NaNs in both (a candidate whose rate is 0 at a valid event, or
+    whose rates are NaN: the plain version gives the same); a NaN or an
+    infinity in one only counts NaN or inf, which no bound holds."""
+    ll, ll_ref = (out[0], ref[0]) if isinstance(out, tuple) else (out, ref)
+    scale = ll_ref.abs() if scale is None else scale
+    same = (ll == ll_ref) | (ll.isnan() & ll_ref.isnan())
+    err = torch.where(same, torch.zeros_like(ll),
+                      (ll - ll_ref).abs() / scale)
+    if not isinstance(out, tuple):
+        return float(err.max()), 0.0
+    return (float(err.max()), max(rel_to_toy_max(out[1], ref[1]),
+                                  rel_to_toy_max(out[2], ref[2])))
+
+
+def double(out):
+    """A call's outputs in float64."""
+    return tuple(x.double() for x in out) if isinstance(out, tuple) \
+        else out.double()
+
+
+def unbinned_vgh_double(ps, strides, lanes, idx, t, m, mask, inv_ref, moff,
+                        outlier=0.0, event_dtype=torch.float64):
+    """The unbinned vgh contract on one call's arguments, the lanes' corner
+    rows gathered (``ps[lanes[:, None], ids]``, (L, C, S, E), so the (B, G,
+    S, E) event tensor is never copied whole), then
+    ``unbinned_vgh.vgh_parts`` on them: every per-event quantity in
+    ``event_dtype``, every sum over events in float64 (float64: the float64
+    reference; float32: float32 itself on each event's terms, as the kernel
+    sums g). Returns (ll, g, H) in float64."""
+    from blueice_tpu_torch.ops import fused
+    from blueice_tpu_torch.ops.unbinned_vgh import vgh_parts
+    ids = fused.corner_ids(strides, idx, ps.shape[1])             # (L, C)
+    corners = ps[lanes[:, None], ids].to(event_dtype)
+    log_sum, g, H = vgh_parts(corners, m.to(event_dtype),
+                              t.to(event_dtype), mask[lanes], outlier,
+                              inv_ref[lanes].to(event_dtype),
+                              sum_dtype=torch.float64)
+    return log_sum - moff.double(), g, H
+
+
+def closed_forms(module, wrapper, args):
+    """(float32, float64) closed forms of a recorded call of ``wrapper``
+    (a vgh or value wrapper of ``module``): the plain version on the call's
+    arguments, and on them cast to float64; an unbinned vgh call's, the
+    closed form on its gathered corner rows with float32 and with float64
+    events (``unbinned_vgh_double``)."""
+    if wrapper == 'unbinned_vgh_fused':
+        return (unbinned_vgh_double(*args, event_dtype=torch.float32),
+                unbinned_vgh_double(*args))
+    plain = getattr(module, wrapper.replace('_fused_multi', '_plain')
+                    .replace('_fused', '_plain'))
+    return plain(*args), plain(*(a.double() if torch.is_tensor(a)
+                                 and a.is_floating_point() else a
+                                 for a in args))
+
+
+def ll_allowance(spec, args, f32, f64):
+    """The allowance of a kernel's ll against the float64 reference
+    ``f64`` on one recorded call, derived from float32 itself lane by lane
+    (and candidate by candidate), in absolute terms: the larger of
+    ``TOLERANCE``'s 1e-5 of the ll's scale (binned |ll|; unbinned the
+    magnitudes of its terms, ``term_scale``) and float32's rounding of the
+    lane's terms (unbinned, F32_UNIT sum_e |lam_e inv_ref_e|,
+    ``term_scales``; binned none) plus twice the float32 closed form
+    ``f32``'s own error on that lane (0 where it is not finite). So the
+    centering point's rounding widens the bound only on the lanes where it
+    exceeds the terms, and on none of the others."""
+    ll32, ll64 = (x[0] if isinstance(x, tuple) else x for x in (f32, f64))
+    err = (ll32.double() - ll64).abs()
+    err = torch.where(torch.isfinite(err), err, torch.zeros_like(err))
+    if spec.module != 'fused_unbinned':
+        scale, rounding = ll64.abs(), 0.0
+    else:
+        scale, rounding = term_scales(*args)
+    return torch.maximum(TOLERANCE[0] * scale, rounding + 2 * err)
+
+
+def float32_allowance(f32_gh):
+    """The allowance of a kernel's g and H errors (relative to each toy's
+    largest entry) against the float64 reference on a set of recorded
+    calls, derived from float32 itself: twice the float32 closed form's
+    worst error on the same calls (``closed_forms``), and at least
+    ``TOLERANCE``'s 1e-4. (Over the calls, not call by call: two float32
+    evaluations of one call scatter by several times each other's error
+    where a lane's g nearly vanishes.)"""
+    return max(TOLERANCE[1], 2 * float(np.max(f32_gh)))
 
 
 def kernel_rows(label, study, mods):
@@ -565,6 +708,27 @@ def check_statistics(label, t, free, band):
     return mean_target, med
 
 
+def read_launches(mods):
+    """Every wrapper's launch count since the last reset."""
+    launches = {}
+    for module in mods.values():
+        launches.update(module.launch_counts())
+    return launches
+
+
+def check_own_launches(label, launches, what):
+    """Print a phase's launches; raise unless both of the path's kernels
+    launched in it and no other kernel did."""
+    log("%s kernel launches in %s: %s" % (label, what, launches))
+    own = [name for name, _, _, _ in META[label]]
+    if not all(launches[name] > 0 for name in own):
+        raise AssertionError("%s: a kernel of the path never launched in %s"
+                             % (label, what))
+    if any(count for name, count in launches.items() if name not in own):
+        raise AssertionError("%s: another path's kernel launched in %s"
+                             % (label, what))
+
+
 def main_path(label, study, mods, rows):
     """Phase 2: the path twice between reset and read of every counter."""
     _, target, n_toys, _, band = PATHS[label]
@@ -577,16 +741,8 @@ def main_path(label, study, mods, rows):
                                          hypothesis=1.0)
         torch.cuda.synchronize()
         results.append((time.time() - t0, t, free, cond))
-    launches = {}
-    for module in mods.values():
-        launches.update(module.launch_counts())
-    log("%s kernel launches in the main path: %s" % (label, launches))
-    own = [name for name, _, _, _ in META[label]]
-    if not all(launches[name] > 0 for name in own):
-        raise AssertionError("%s: a kernel of the path never launched"
-                             % label)
-    if any(count for name, count in launches.items() if name not in own):
-        raise AssertionError("%s: another path's kernel launched" % label)
+    launches = read_launches(mods)
+    check_own_launches(label, launches, 'the main path')
     for (secs, t, free, cond), run in zip(results, ('first', 'warm')):
         mean_target, med = check_statistics(label, t, free, band)
         log("%s profile_ts %s run: %d toys in %.3f s (%.1f profile fits/s); "
@@ -640,13 +796,13 @@ CALLS = {'value': VALUE_CALLS, 'vgh': VGH_CALLS}
 
 
 def record_calls(label, study, mods, contract='value', seed=0,
-                 n_toys=None):
+                 n_toys=None, run=None):
     """Every call of the path's wrapper of ``contract`` (``CALLS``) in one
-    ``profile_ts`` of ``n_toys`` toys (default: the path's; a fresh study
-    like ``study``, whose fitters take the wrapper through a recorder; the
-    wrapper is put back after): a list of each call's arguments, the
-    per-call inputs cloned and the shared tensors passed through, as on
-    the path."""
+    ``profile_ts`` of ``n_toys`` toys (default: the path's), or in
+    ``run(fresh)``, on a fresh study like ``study`` (whose fitters take the
+    wrapper through a recorder; the wrapper is put back after): a list of
+    each call's arguments, the per-call inputs cloned and the shared
+    tensors passed through, as on the path."""
     spec = CALLS[contract][label]
     module = mods[spec.module]
     _, target, path_toys, _, _ = PATHS[label]
@@ -664,8 +820,11 @@ def record_calls(label, study, mods, contract='value', seed=0,
         fresh = type(study)(study.lf, dtype=study.compiled.dtype,
                             device=study.device, max_iter=study.max_iter,
                             tol=study.tol, engine=study.engine, **extra)
-        fresh.profile_ts(seed, n_toys=n_toys or path_toys, target=target,
-                         hypothesis=1.0)
+        if run is None:
+            fresh.profile_ts(seed, n_toys=n_toys or path_toys,
+                             target=target, hypothesis=1.0)
+        else:
+            run(fresh)
     finally:
         setattr(module, spec.wrapper, wrapper)
     return calls
@@ -845,7 +1004,302 @@ def run_path(label, mods, api):
     for contract in CALLS:
         replay_calls(label, study, mods, rows, contract)
     two_precisions(label, study, cls)
-    return rows
+    return rows, study, cls
+
+
+# -- the statistics part --------------------------------------------------
+
+#: phase: (the path whose study it runs on, 'band' (``sensitivity_band``
+#: over that many toys) or 'interval' (``observed_interval`` on one
+#: simulated dataset bound with ``set_data``), toys)
+STATS = collections.OrderedDict([
+    ('xenon band', ('xenon', 'band', 256)),
+    ('xenon interval', ('xenon', 'interval', None)),
+    ('unbinned band', ('unbinned', 'band', 1024)),
+    ('unbinned_xenon interval', ('unbinned_xenon', 'interval', None)),
+])
+#: toys of a band's float32-vs-float64 grid referee
+REFEREE_TOYS = 8
+
+
+def counted(mods, fn):
+    """(fn(), every wrapper's launches in it): the counters set to 0 just
+    before and read just after."""
+    for module in mods.values():
+        module.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, read_launches(mods)
+
+
+def path_rows(rows, label):
+    return [r for r in rows if r.get('path') == label]
+
+
+def cpu_referee_study(study, cls):
+    """A float64 CPU study of the same likelihood (plain versions)."""
+    extra = {} if study.compiled.is_binned else dict(n_max=study.n_max)
+    return cls(study.lf, dtype=torch.float64, device='cpu', max_iter=96,
+               tol=3e-4, **extra)
+
+
+def referee_grid(cpu, toys, target, hyps, f32, c32):
+    """(ts, free, conds) of the float64 referee of a float32 grid on the
+    same toys: ``cpu._run_profile_grid``, then every fit also started at
+    the float32 optimum, the better of the two kept (as bench.py's interval
+    referee takes the better of its two chains): where the float32 fit
+    found a better optimum than the float64 fit's own start, float64 from
+    there measures the precision, not the start."""
+    from blueice_tpu_torch.parallel.toys import ToyResults, _best_of_two
+    _, _, f64, c64 = cpu._run_profile_grid(toys, target, hyps, None)
+    data = (cpu._counts(toys) if cpu.compiled.is_binned
+            else cpu._fit_data(toys))
+    fit_free, _, fit_cond, _, names_free, names_cond, _ = cpu._profile_fn(
+        target, None)
+
+    def better(ref, start, fit, *args):
+        again = [v.cpu().numpy() for v in fit(data, *args, x0=start.x)]
+        return _best_of_two((ref.x, ref.max_ll, ref.n_iter), again)
+    free = ToyResults(names_free, *better(f64, f32, fit_free))
+    conds = [ToyResults(names_cond, *better(a, b, fit_cond, [h]))
+             for h, a, b in zip(hyps, c64, c32)]
+    ts = np.stack([np.maximum(2.0 * (free.max_ll - c.max_ll), 0.0)
+                   for c in conds])
+    return ts, free, conds
+
+
+def band_phase(phase, label, study, cls, mods, rows, n_toys):
+    """``sensitivity_band`` on the path's study (background-only truth,
+    'auto' grid), seed 0 and then warm with seed 1, between reset and read
+    of every counter; gates on the band; then the first REFEREE_TOYS toys
+    of seed 1 through ``_run_profile_grid`` at the warm run's final grid,
+    on the card and on a float64 CPU study (``referee_grid``)."""
+    from blueice_tpu_torch.parallel import sensitivity_band, limits
+    target = PATHS[label][1]
+    grids = []
+    grid_fn = study.profile_ts_grid
+
+    def recording(*args, **kwargs):
+        out = grid_fn(*args, **kwargs)
+        grids.append(out[1])
+        return out
+
+    def run():
+        out = []
+        for seed in (0, 1):
+            t0 = time.time()
+            band = sensitivity_band(study, seed, target, 'auto', n_toys)
+            torch.cuda.synchronize()
+            out.append((time.time() - t0, band, grids[-1], len(grids)))
+        return out
+    study.profile_ts_grid = recording
+    try:
+        results, launches = counted(mods, run)
+    finally:
+        del study.profile_ts_grid
+    check_own_launches(label, launches, phase)
+    calls = 0
+    for (secs, band, hyps, n_grids), run in zip(results, ('first', 'warm')):
+        lims, qs = band['limits'], np.array(list(band['band'].values()))
+        log("%s %s run: %d toys in %.3f s (%.1f limits/s); band %s; %d "
+            "beyond the grid; final grid [%.5g, %.5g] of %d points, %d grid "
+            "runs" % (phase, run, n_toys, secs, n_toys / secs, json.dumps(
+                band['band']), band['n_beyond_grid'], hyps[0], hyps[-1],
+                len(hyps), n_grids - calls))
+        calls = n_grids
+        if not (np.isfinite(band['band'][0.5])
+                and band['n_beyond_grid'] < n_toys // 4
+                and (np.diff(qs) >= 0).all()
+                and (lims[np.isfinite(lims)] >= hyps[0]).all()):
+            raise AssertionError("%s: the %s band fails its gates" % (phase,
+                                                                       run))
+    for row in path_rows(rows, label):
+        row['launches_band'] = launches[row['name']]
+        row['band_s'] = results[1][0]
+        row['band_limits_per_s'] = n_toys / results[1][0]
+
+    hyps = results[1][2]
+    toys = study.simulate(1, n_toys, {target: 0.0})     # the band's truth
+    if study.compiled.is_binned:
+        toys = toys[:REFEREE_TOYS]
+        cpu_toys = toys.cpu().double()
+    else:
+        toys = tuple(x[:REFEREE_TOYS] for x in toys)
+        cpu_toys = tuple(x.cpu() for x in toys)
+    t32, _, f32, c32 = study._run_profile_grid(toys, target, hyps, None)
+    t0 = time.time()
+    t64, f64, c64 = referee_grid(cpu_referee_study(study, cls), cpu_toys,
+                                 target, hyps, f32, c32)
+    d_ll = max([float(np.abs(f32.max_ll - f64.max_ll).max())]
+               + [float(np.abs(a.max_ll - b.max_ll).max())
+                  for a, b in zip(c32, c64)])
+    d_t = np.abs(t32 - t64)
+    crit = limits._checked_crit(hyps, 0.9, None)
+    d_lim = np.abs(limits._edge_from_curves(t32, hyps, f32[target], crit,
+                                            'upper')
+                   - limits._edge_from_curves(t64, hyps, f64[target], crit,
+                                              'upper'))
+    log("%s float32 (CUDA) vs float64 (CPU, %.1f s), %d toys x %d "
+        "hypotheses: max |d max_ll| %.4g, median |d t| %.4g (max %.4g); "
+        "largest |d limit| %.4g (grid step %.4g)"
+        % (phase, time.time() - t0, REFEREE_TOYS, len(hyps), d_ll,
+           np.median(d_t), d_t.max(), np.nanmax(d_lim),
+           (hyps[-1] - hyps[0]) / (len(hyps) - 1)))
+    if not (d_ll <= 0.05 and np.median(d_t) <= 0.01):
+        raise AssertionError("%s: the float32 grid disagrees with float64"
+                             % phase)
+
+
+def observed_dataset(lf):
+    """One dataset of the background-only model (the wimp rate at 0),
+    drawn from a seeded generator and bound with ``set_data``."""
+    lf.set_data(lf.base_model.simulate({'wimp': 0.0},
+                                       rng=np.random.default_rng(1)))
+
+
+def map_calls_row(phase, label, study, mods, contract, hyps):
+    """Every call of the path's wrapper of ``contract`` in one
+    ``profile_map`` at the interval's final grid (``record_calls``: the
+    lanes all on the observed dataset): the kernel held to the float64
+    closed form within phase 1's tolerances (``TOLERANCE``: the binned ll
+    relative to |ll|, g and H relative to each toy's largest entry), except
+    the unbinned ll, which phase 1's 1e-5 of its terms cannot hold at the
+    centering point where every map lane starts: that is held lane by lane
+    to ``ll_allowance``, derived from float32 itself. Timed (replayed from
+    CUDA graphs) beside the plain version and the summed bound. Returns
+    the kernel's row of this phase."""
+    from blueice_tpu_torch.utils.roofline import bound
+    target = PATHS[label][1]
+    spec = CALLS[contract][label]
+    module = mods[spec.module]
+    calls = record_calls(label, study, mods, contract,
+                         run=lambda s: s.profile_map([(target, hyps)]))
+    torch.cuda.synchronize()
+    if not calls:
+        raise AssertionError("%s: the map made no %s-kernel call"
+                             % (phase, contract))
+    wrapper = getattr(module, spec.wrapper)
+    used, f32_errs, abs_err = [], [], 0.0
+    for args in calls:
+        out = double(wrapper(*args))
+        f32, f64 = (double(x) for x in closed_forms(module, spec.wrapper,
+                                                     args))
+        if spec.module == 'fused_unbinned':
+            allow = ll_allowance(spec, args, f32, f64)
+            f32_errs.append(disagreement(f32, f64, term_scale(*args)))
+        else:
+            allow = TOLERANCE[0] * (f64[0] if contract == 'vgh'
+                                    else f64).abs()
+            f32_errs.append(disagreement(f32, f64))
+        ll_used, gh = disagreement(out, f64, allow)
+        used.append((ll_used, gh / TOLERANCE[1]))
+        for a, b in zip(*((x,) if torch.is_tensor(x) else x
+                          for x in (out, f32))):
+            abs_err = max(abs_err, float((a - b).abs().nan_to_num(
+                0.0, 0.0).max()))
+    used = np.max(used, axis=0)
+    compiled = study.compiled
+    K, S = len(compiled.shape_names), len(compiled.rate_names)
+    G = compiled.mus_tensor.numel() // S
+    bounds = [bound(*call_work(contract, args, spec, S, K, G)[:2])
+              for args in calls]
+    ms = sum(time_calls(getattr(module, spec.launcher), calls,
+                        spec).values())
+    plain = getattr(module, spec.wrapper.replace('_fused_multi', '_plain')
+                    .replace('_fused', '_plain'))
+    plain_ms = cuda_ms(lambda: [plain(*args) for args in calls], runs=3,
+                       warmup=1)
+    lanes = [a[spec.idx].shape[0] for a in calls]
+    bound_ms = sum(b for b, _ in bounds)
+    by = collections.Counter()
+    for b, kind in bounds:
+        by[kind] += b
+    log("%s: the %s kernel over one map's %d calls (%d-%d lanes, all on "
+        "one dataset): against float64, the ll uses %.3g of its allowance "
+        "(%s), g/H %.3g of 1e-4 (float32 closed form: ll %.3g of %s, g/H "
+        "%.3g); kernel time summed %.4f ms, plain %.4f ms, bound summed "
+        "%.4f ms" % (
+            phase, contract, len(calls), min(lanes), max(lanes), used[0],
+            'float32 lane by lane' if spec.module == 'fused_unbinned'
+            else '1e-5 of |ll|', used[1], *np.max(f32_errs, axis=0)[:1],
+            'its terms' if spec.module == 'fused_unbinned' else '|ll|',
+            np.max(f32_errs, axis=0)[1], ms, plain_ms, bound_ms))
+    if not (used <= 1).all():
+        raise AssertionError("%s: the %s kernel disagrees with float64 on "
+                             "the map's calls beyond its allowance"
+                             % (phase, contract))
+    return dict(name=spec.wrapper, path=label + ' interval map',
+                max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by.most_common(1)[0][0],
+                map_calls=len(calls), allowance_used=list(used))
+
+
+def interval_phase(phase, label, study, cls, mods, rows):
+    """``observed_interval(kind='upper', cl=0.9)`` on one background-only
+    dataset bound with ``set_data``, cold and then three times warm,
+    between reset and read of every counter; the same interval on a
+    float64 CPU study at the last call's final grid (relative gap <=
+    0.01); the kernels on one map's own calls (``map_calls_row``).
+    Returns this phase's kernel rows."""
+    from blueice_tpu_torch.parallel import observed_interval
+    target = PATHS[label][1]
+    observed_dataset(study.lf)
+
+    def run():
+        out = []
+        for _ in range(4):
+            t0 = time.time()
+            ul, _, hyps, _ = observed_interval(study, target, kind='upper',
+                                               cl=0.9, return_grid=True)
+            torch.cuda.synchronize()
+            out.append((time.time() - t0, ul, hyps))
+        return out
+    results, launches = counted(mods, run)
+    check_own_launches(label, launches, phase)
+    warm = float(np.median([secs for secs, _, _ in results[1:]]))
+    ul, hyps = results[-1][1:]
+    t0 = time.time()
+    # the float64 map at the float32 call's final grid: the same
+    # hypotheses and interpolation, one map where 'auto' takes 3-6
+    ul64 = observed_interval(cpu_referee_study(study, cls), target, hyps,
+                             kind='upper', cl=0.9)
+    gap = abs(ul - ul64) / abs(ul64)
+    log("%s: upper limit (90%%) %.6g, float64 CPU %.6g at the same grid "
+        "(%.1f s): relative gap %.3g; cold %.3f s, warm %.3f s (median of "
+        "3); final grid [%.5g, %.5g] of %d points"
+        % (phase, ul, ul64, time.time() - t0, gap, results[0][0], warm,
+           hyps[0], hyps[-1], len(hyps)))
+    if not (np.isfinite(ul) and gap <= 0.01):
+        raise AssertionError("%s: the float32 upper limit disagrees with "
+                             "float64" % phase)
+    for row in path_rows(rows, label):
+        row['launches_interval'] = launches[row['name']]
+        row['interval_s'] = warm
+    new = []
+    for (name, src, rep, alt), contract in zip(META[label],
+                                               ('vgh', 'value')):
+        row = dict(route='cuda', source=CSRC + src, replaces=TPU + rep,
+                   also_replaces=TPU + alt, library_ms=None,
+                   launches=launches[name])
+        row.update(map_calls_row(phase, label, study, mods, contract, hyps))
+        new.append(row)
+    return new
+
+
+def statistics_part(studies, mods, rows):
+    """The statistics on the paths' studies (``STATS``): each phase between
+    reset and read of every counter, its own kernels launched and no
+    other's. Returns the interval phases' kernel rows (the map's calls)."""
+    new = []
+    for phase, (label, kind, n_toys) in STATS.items():
+        study, cls = studies[label]
+        t0 = time.time()
+        if kind == 'band':
+            band_phase(phase, label, study, cls, mods, rows, n_toys)
+        else:
+            new += interval_phase(phase, label, study, cls, mods, rows)
+        log("%s: %.1f s" % (phase, time.time() - t0))
+    return new
 
 
 def roofline_part(mods):
@@ -977,10 +1431,15 @@ def main(labels):
     for line in sass_census(libs):
         log("sass " + line)
 
-    rows = []
+    rows, studies = [], {}
     for label in labels or PATHS:
-        rows += run_path(label, mods, api)
+        path_rows, study, cls = run_path(label, mods, api)
+        rows += path_rows
+        studies[label] = (study, cls)
     if not labels:
+        t0 = time.time()
+        rows += statistics_part(studies, mods, rows)
+        log("statistics part: %.1f s" % (time.time() - t0))
         t0 = time.time()
         rows += roofline_part(mods)
         log("roofline part: %.1f s" % (time.time() - t0))

@@ -40,9 +40,27 @@ def run_profile(study, label):
     return study.profile_ts(1, n_toys=n_toys, target=target, hypothesis=1.0)
 
 
+def device_kernels(prof):
+    """{name: (summed device time in us, calls)} of the kernels that ran
+    on the card in a torch.profiler run."""
+    from torch.autograd import DeviceType
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            total, count = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (total + e.time_range.elapsed_us(), count + 1)
+    return by_name
+
+
+def log_kernels(by_name, top):
+    """The ``top`` kernels of ``device_kernels`` by summed time."""
+    for name, (total, count) in sorted(by_name.items(),
+                                       key=lambda kv: -kv[1][0])[:top]:
+        log("  %10.2f ms  %7d calls  %s" % (total / 1e3, count, name[:90]))
+
+
 def profile_account(label, study):
     """torch.profiler over one warm profile_ts, then one unprofiled."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     run_profile(study, label)
     torch.cuda.synchronize()
@@ -56,20 +74,14 @@ def profile_account(label, study):
     run_profile(study, label)
     torch.cuda.synchronize()
     bare = time.time() - t0
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            total, count = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (total + e.time_range.elapsed_us(), count + 1)
+    by_name = device_kernels(prof)
     busy_us = sum(total for total, _ in by_name.values())
     log("%s profile (torch.profiler, one warm profile_ts on seed 1): wall "
         "%.3f s; %d kernels on the device, %.1f ms in all (%.1f%% of the "
         "wall time; the card idles the rest); unprofiled %.3f s (%.1f%%)"
         % (label, wall, sum(c for _, c in by_name.values()), busy_us / 1e3,
            100 * busy_us / 1e6 / wall, bare, 100 * busy_us / 1e6 / bare))
-    for name, (total, count) in sorted(by_name.items(),
-                                       key=lambda kv: -kv[1][0])[:12]:
-        log("  %10.2f ms  %7d calls  %s" % (total / 1e3, count, name[:90]))
+    log_kernels(by_name, 12)
     for symbol in ('uvgh_kernel<', 'ull_kernel<'):
         hits = [v for name, v in by_name.items() if '::' + symbol in name]
         total = sum(us for us, _ in hits)

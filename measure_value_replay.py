@@ -41,15 +41,24 @@ card:
    bit-identical; an unbinned ll relative to the magnitudes of its terms,
    ``chip_smoke.term_scale``; equal values agree, infinities and NaNs
    too, and the non-finite outputs of both are counted); the vgh kernels are
-   held to a float64 reference on the same calls (binned: the plain
-   version; unbinned: ``unbinned_vgh_double``, the closed form on the
-   call's gathered corner rows), the ll relative (unbinned: to
-   ``term_scale``), g and H relative to each toy's largest entry, this
-   checkout's within 1e-5 and 1e-4 or within twice a baseline's error
-   (where float32 itself loses digits, next to an anchor whose MC-count
-   row is empty). The errors are printed, and for the vgh
-   the largest difference between the two libraries' outputs (0:
-   bit-identical).
+   held to a float64 reference on the same calls (``chip_smoke.closed_forms``:
+   binned, the plain version; unbinned, ``chip_smoke.unbinned_vgh_double``,
+   the closed form on the call's gathered corner rows), g and H relative
+   to each toy's largest entry, the ll in absolute terms, this checkout's
+   within the smaller of two bounds (``held_bounds``), so that a change of
+   the gate can only tighten it: the old bound, twice the baseline's own
+   worst error (at least 1e-5 and 1e-4; the ll relative to |ll|,
+   unbinned to ``term_scale``), and the new bound, derived from float32
+   itself on the same calls: g and H twice the float32 closed form's
+   worst error (unbinned: float32 an event and float64 sums over events,
+   as the kernel sums g; at least 1e-4, ``chip_smoke.float32_allowance``),
+   the ll lane by lane (``chip_smoke.ll_allowance``: 1e-5 of its scale,
+   or float32's rounding of the lane's terms plus twice the float32
+   closed form's error on that lane, the larger). A baseline with a large
+   error no longer widens the bound. Both bounds are printed side by
+   side, the ll's as the new/old ratio over every lane. The errors are
+   printed, and for the vgh the largest difference between the two
+   libraries' outputs (0: bit-identical).
 
 Before the turns it prints, per kernel source and baseline, which kernels
 compile to the same SASS in both builds, instantiation by instantiation.
@@ -65,9 +74,10 @@ import sys
 import numpy as np
 import torch
 
-from chip_smoke import (CALLS, PATHS, binned_data, build_model,
-                        call_candidates, call_work, log, random_point,
-                        record_calls, rel_to_toy_max, sass_functions,
+from chip_smoke import (CALLS, PATHS, TOLERANCE, binned_data, build_model,
+                        call_candidates, call_work, closed_forms,
+                        disagreement, double, float32_allowance, ll_allowance,
+                        log, random_point, record_calls, sass_functions,
                         term_scale, time_calls, unbinned_data)
 
 #: The paths of each contract's A/B
@@ -193,40 +203,30 @@ def bins_and_bounds(calls, spec, contract, compiled, bin_of):
                      for (A, b), (n, ms) in sorted(bins.items()))
 
 
-def disagreement(out, ref, scale=None):
-    """(ll, g and H) relative differences of ``out`` from ``ref``: the ll
-    (a value call's, or the first of a vgh call's (ll, g, H)) relative to
-    ``scale`` (default: itself; an unbinned call's, the magnitudes of its
-    terms, ``chip_smoke.term_scale``), g and H relative to each toy's
-    largest entry (0 for a value call). Equal values count 0, and so do
-    infinities of one sign and NaNs in both (a candidate whose rate is 0 at
-    a valid event, or whose rates are NaN: the plain version gives the
-    same); a NaN or an infinity in one only counts NaN or inf, which no
-    bound holds."""
-    ll, ll_ref = (out[0], ref[0]) if isinstance(out, tuple) else (out, ref)
-    scale = ll_ref.abs() if scale is None else scale
-    same = (ll == ll_ref) | (ll.isnan() & ll_ref.isnan())
-    err = torch.where(same, torch.zeros_like(ll),
-                      (ll - ll_ref).abs() / scale)
-    if not isinstance(out, tuple):
-        return float(err.max()), 0.0
-    return (float(err.max()), max(rel_to_toy_max(out[1], ref[1]),
-                                  rel_to_toy_max(out[2], ref[2])))
+def held_bounds(baseline_worst, old_scales, new_ll, f32_gh):
+    """What this checkout's vgh outputs are held to against the float64
+    reference: (ll allowance of each call, absolute, lane by lane; g and H
+    bound, relative to each toy's largest entry; old (ll, g/H) bound), the
+    smaller of two bounds on every lane. Old: twice the baseline's worst
+    error (at least ``TOLERANCE``), the ll relative to ``old_scales`` (|ll|
+    or ``term_scale``), which grows with that baseline's own error. New,
+    from float32 itself on the same calls: ``new_ll`` (each call's
+    ``chip_smoke.ll_allowance``) and ``chip_smoke.float32_allowance`` of
+    the float32 closed form's g and H errors ``f32_gh``. A baseline with a
+    large error does not widen the bound; one with a small error keeps
+    it as tight as it was."""
+    old = np.maximum(TOLERANCE, 2 * np.asarray(baseline_worst))
+    ll = [torch.minimum(old[0] * s, n) for s, n in zip(old_scales, new_ll)]
+    return ll, min(old[1], float32_allowance(f32_gh)), old
 
 
-def unbinned_vgh_double(ps, strides, lanes, idx, t, m, mask, inv_ref, moff,
-                        outlier=0.0):
-    """The unbinned vgh contract in float64 on one call's arguments: the
-    lanes' corner rows gathered (``ps[lanes[:, None], ids]``, (L, C, S, E),
-    so the (B, G, S, E) event tensor is never copied whole), then
-    ``unbinned_vgh.vgh_parts`` on them in float64. Returns (ll, g, H)."""
-    from blueice_tpu_torch.ops import fused
-    from blueice_tpu_torch.ops.unbinned_vgh import vgh_parts
-    ids = fused.corner_ids(strides, idx, ps.shape[1])             # (L, C)
-    corners = ps[lanes[:, None], ids].double()
-    log_sum, g, H = vgh_parts(corners, m.double(), t.double(), mask[lanes],
-                              outlier, inv_ref[lanes].double())
-    return log_sum - moff.double(), g, H
+def ll_ratios(old, old_scales, new_ll):
+    """The new/old ratio of the ll allowances, in absolute terms, over
+    every finite lane of every call (above 1 where the new bound alone
+    would be looser)."""
+    ratio = torch.cat([(n / (old * s)).flatten()
+                       for s, n in zip(old_scales, new_ll)])
+    return ratio[torch.isfinite(ratio)]
 
 
 def ab(label, study, mods, baselines, contract, seed=0, by='lanes'):
@@ -290,22 +290,26 @@ def ab(label, study, mods, baselines, contract, seed=0, by='lanes'):
         module.load_library = load
     torch.cuda.synchronize()
     # What the outputs are held to: value, this checkout's outputs; vgh, a
-    # float64 reference on the same calls (in a bin next to an anchor whose
-    # MC-count row is empty float32 itself loses digits, so two float32
-    # kernels may differ there by more than their tolerance): binned, the
-    # plain version; unbinned, the closed form on the gathered corner rows
-    # (the plain version on float64 arguments would copy the whole event
-    # tensor, 1 GB on unbinned_xenon, every call)
+    # float64 reference on the same calls (``chip_smoke.closed_forms``:
+    # binned, the plain version; unbinned, the closed form on the gathered
+    # corner rows, as the plain version on float64 arguments would copy the
+    # whole event tensor, 1 GB on unbinned_xenon, every call), within the
+    # smaller of the old bound and one derived from float32 itself on the
+    # same calls (``held_bounds``)
     scales = [None] * len(calls)
     if spec.module == 'fused_unbinned':
         scales = [term_scale(*args) for args in calls]
-    if contract == 'vgh' and spec.module == 'fused_unbinned':
-        refs = [unbinned_vgh_double(*args) for args in calls]
-    elif contract == 'vgh':
-        plain = getattr(module, spec.wrapper.replace('_fused', '_plain'))
-        refs = [plain(*(a.double() if torch.is_tensor(a)
-                        and a.is_floating_point() else a for a in args))
-                for args in calls]
+    if contract == 'vgh':
+        refs, new_ll, f32_errs = [], [], []
+        for args, s in zip(calls, scales):
+            f32, f64 = (double(x) for x in closed_forms(
+                module, spec.wrapper, args))
+            refs.append(f64)
+            new_ll.append(ll_allowance(spec, args, f32, f64))
+            f32_errs.append(disagreement(f32, f64, s))
+        f32_errs = np.array(f32_errs)
+        old_scales = [r[0].abs() if s is None else s
+                      for r, s in zip(refs, scales)]
     else:
         refs = outs['current']
     errs = {kind: np.array([disagreement(double(o), double(r), s)
@@ -316,21 +320,40 @@ def ab(label, study, mods, baselines, contract, seed=0, by='lanes'):
     failures = []
     for kind in baselines:
         if contract == 'vgh':
-            bound = np.maximum((1e-5, 1e-4), 2 * worst[kind])
-            ok = (worst['current'] <= bound).all()
-            bad = errs['current']
+            held_ll, held_gh, old = held_bounds(worst[kind], old_scales,
+                                                new_ll, f32_errs[:, 1])
+            # the share of the held bound this checkout uses, call by call
+            bad = np.array([disagreement(double(o), r, a) for o, r, a in
+                            zip(outs['current'], refs, held_ll)])
+            bad[:, 1] /= held_gh
+            ok = (bad <= 1).all()
+            ratio = ll_ratios(old[0], old_scales, new_ll)
+            new_gh = float32_allowance(f32_errs[:, 1])
+            log("%s vgh gate, seed %d, %s: old bound (twice %s's worst "
+                "error, at least 1e-5, 1e-4): ll %.3g of %s, g/H %.3g; new "
+                "bound (from float32: the float32 closed form's worst "
+                "error ll %.3g of %s, g/H %.3g): g/H %.3g, ll lane by lane "
+                "(1e-5 of the scale, or float32's rounding plus twice the "
+                "float32 closed form's error), new/old over %d lanes: "
+                "median %.3g, max %.3g, %d lanes looser; held to the "
+                "smaller: g/H %.3g (new/old %.3g), this checkout uses ll "
+                "%.3g, g/H %.3g of it" % (
+                    label, seed, kind, kind, old[0],
+                    '|ll|' if scales[0] is None else 'term_scale', old[1],
+                    f32_errs[:, 0].max(),
+                    '|ll|' if scales[0] is None else 'term_scale',
+                    f32_errs[:, 1].max(), new_gh, ratio.numel(),
+                    float(ratio.median()), float(ratio.max()),
+                    int((ratio > 1).sum()), held_gh, new_gh / old[1],
+                    *bad.max(axis=0)))
             apart = max(float((x - y).abs().max()) for a, b in zip(
                 outs[kind], outs['current']) for x, y in zip(a, b))
-            # the largest absolute ll error, non-finite pairs (counted
-            # by ``disagreement``) left out
-            ll_abs = {k: max(float((o[0].double() - r[0]).abs().nan_to_num(
-                0.0, 0.0).max()) for o, r in zip(outs[k], refs))
-                      for k in (kind, 'current')}
-            held = "the float64 reference (current %.3g, %.3g, ll within " \
-                "%.3g; %s %.3g, %.3g, ll within %.3g); largest difference " \
-                "between the two %.3g" % (
-                    *worst['current'], ll_abs['current'], kind,
-                    *worst[kind], ll_abs[kind], apart)
+            held = "the float64 reference within the held bound (this " \
+                "checkout uses ll %.3g, g/H %.3g of it; errors of %s ll " \
+                "%.3g, g/H %.3g, of this checkout %.3g, %.3g); largest " \
+                "difference between the two %.3g" % (
+                    *bad.max(axis=0), kind, *worst[kind],
+                    *worst['current'], apart)
         else:
             ok = (worst[kind] <= (1e-5, 0.0)).all()
             bad = errs[kind]
@@ -379,12 +402,6 @@ def sass_comparison(lib, base, label):
 def nonfinite(outs):
     """Non-finite entries of a list of value calls' outputs."""
     return sum(int((~torch.isfinite(out)).sum()) for out in outs)
-
-
-def double(out):
-    """A call's outputs in float64."""
-    return tuple(x.double() for x in out) if isinstance(out, tuple) \
-        else out.double()
 
 
 def main(argv):

@@ -821,3 +821,83 @@ def test_measure_unbinned_kernel_counts_the_rows_it_reads(cuda_device):
     per_toy = cost['hbm_bytes'] - 4 * 81 * 6 * 256 + 4 * 16 * 6 * 256
     assert v['gbps_hbm_achieved'] == pytest.approx(
         8 * per_toy / v['elapsed_s'] / 1e9)
+
+
+#: A profile map's calls (``BinnedToyStudy.profile_map``,
+#: ``UnbinnedToyStudy.profile_map``): two lanes a grid point (a warm and a
+#: cold start), 33 points, all on ONE dataset: the binned contracts'
+#: observed rows are one toy's, the unbinned lanes all read toy 0. At the
+#: XENON width (S = 6 on a 3^4 grid; 3,100 bins, or 300 events a toy).
+MAP_LANES = 66
+MAP_CONTRACTS = [(mode, contract) for mode in VGH_MODES + ('unbinned',)
+                 for contract in ('vgh', 'value')]
+
+
+def _one_dataset(observed):
+    return observed[:1].expand(MAP_LANES, -1).contiguous()
+
+
+def _map_call(mode, contract, device):
+    """(args, module, wrapper name, kernel, plain) of a map call."""
+    L = slice(0, MAP_LANES)
+    if mode == 'unbinned':
+        if contract == 'vgh':
+            args = _uvgh_case('S6K4', 'above_one_wave', 0.0, device)
+            name = 'unbinned_vgh_fused'
+        else:
+            args = _ull_case('S6K4', 'above_one_wave', 0.0, device)
+            name = 'unbinned_ll_fused_multi'
+        args = (args[0], args[1],
+                torch.zeros(MAP_LANES, dtype=torch.int64, device=device),
+                args[3][L], args[4][L], args[5][L], args[6], args[7],
+                args[8][L], args[9])
+        return (args, fused_unbinned, name, getattr(fused_unbinned, name),
+                getattr(fused_unbinned, name.replace('_fused_multi', '_plain')
+                        .replace('_fused', '_plain')))
+    if contract == 'value':
+        anchor, strides, idx, t, m, observed, nme = _value_case(
+            6, 4, 3100, MAP_LANES, 12, 'random', device)
+        module, name, kernel, plain = _value_ops(mode, nme, BB_I)
+        return ((anchor, strides, idx, t, m, _one_dataset(observed)),
+                module, name, kernel, plain)
+    args, module, kernel, plain = _bb_vgh_case('B300', mode, device)
+    at = 1 if mode == 'binned' else 2                 # strides' position
+    args = (args[:at + 1] + tuple(a[L] for a in args[at + 1:at + 4])
+            + (_one_dataset(args[at + 4]),) + args[at + 5:])
+    return args, module, kernel.__name__, kernel, plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,contract", MAP_CONTRACTS)
+def test_map_calls_match_plain(cuda_device, mode, contract):
+    """Every fused contract on a profile map's call (66 lanes on one
+    dataset) against its plain version, at phase 1's tolerances: the ll
+    relative (unbinned: to the magnitudes of its terms), g and H within
+    1e-4 of each lane's largest entry; finite, and bit-identical on a
+    rerun."""
+    args, module, name, kernel, plain = _map_call(mode, contract,
+                                                  cuda_device)
+    module.reset_launch_counts()
+    out = kernel(*args)
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    assert module.launch_counts()[name] == 1
+    outs = out if contract == 'vgh' else (out,)
+    assert all(torch.isfinite(x).all() for x in outs)
+    assert outs[0].shape[0] == MAP_LANES
+    if mode == 'unbinned' and contract == 'vgh':
+        assert max(_uvgh_errors(out, ref, args)) <= 1e-4
+        assert _uvgh_errors(out, ref, args)[0] <= 1e-5
+    elif mode == 'unbinned':
+        err = (out.double() - ref.double()).abs() / _ull_term_scale(*args)
+        assert float(err.max()) <= 1e-5
+    else:
+        np.testing.assert_allclose(outs[0].cpu(), (ref[0] if contract == 'vgh'
+                                                   else ref).cpu(), rtol=1e-5)
+        if contract == 'vgh':
+            assert _rel_to_toy_max(out[1], ref[1]) < 1e-4
+            assert _rel_to_toy_max(out[2], ref[2]) < 1e-4
+    again = kernel(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(
+        outs, again if contract == 'vgh' else (again,)))

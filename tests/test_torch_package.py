@@ -16,7 +16,7 @@ import blueice_tpu_torch
 from blueice_tpu_torch.device import resolve
 from blueice_tpu_torch.examples.xenon_like import build_config, build_likelihood
 from blueice_tpu_torch.likelihood import UnbinnedLogLikelihood
-from blueice_tpu_torch.ops import fused, fused_unbinned
+from blueice_tpu_torch.ops import fused, fused_bb, fused_unbinned
 from blueice_tpu_torch.parallel import (BinnedToyStudy, UnbinnedToyStudy,
                                         make_toy_fitter)
 from blueice_tpu_torch.utils import set_progress
@@ -37,6 +37,9 @@ def test_imports_without_jax():
             'blueice_tpu_torch.ops.unbinned_vgh',
             'blueice_tpu_torch.test_helpers',
             'blueice_tpu_torch.utils.roofline'} <= set(modules)
+    assert {'blueice_tpu_torch.parallel.' + m for m in (
+        '_stats', 'limits', 'neyman', 'cls', 'discovery', 'asymptotics',
+        'coverage', 'gof', 'ranking')} <= set(modules)
     code = textwrap.dedent("""
         import importlib, sys
         sys.modules['jax'] = None
@@ -55,7 +58,8 @@ def test_imports_without_jax():
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="runs without CUDA")
 @pytest.mark.parametrize('script', ['chip_smoke.py', 'measure_unbinned.py',
-                                    'measure_value_replay.py'])
+                                    'measure_value_replay.py',
+                                    'measure_statistics.py'])
 def test_chip_scripts_exit_without_cuda(script):
     """The GPU scripts stop with code 2 and print no result line when CUDA
     is missing, in a process that cannot import jax."""
@@ -170,10 +174,11 @@ def test_kernel_inputs_are_checked():
                                     torch.ones((3, 1, 2)), torch.ones((3, 5)))
 
 
-def _recorded_calls(label, contract):
+def _recorded_calls(label, contract, dtype=None):
     """chip_smoke.py's record of one 3-toy profile's calls of the path's
-    wrapper of ``contract`` on the CPU: (the module's namespace, the call
-    spec, the wrapper, the calls); the wrapper is put back after."""
+    wrapper of ``contract`` on the CPU (the study in ``dtype``, default
+    float64): (the module's namespace, the call spec, the wrapper, the
+    calls); the wrapper is put back after."""
     import runpy
     from blueice_tpu_torch import test_helpers
     from blueice_tpu_torch.examples import xenon_like
@@ -192,13 +197,13 @@ def _recorded_calls(label, contract):
         import blueice_tpu_torch.likelihood as likelihood
         lf = smoke['build_model'](label, xenon_like, test_helpers, likelihood)
         study = UnbinnedToyStudy(lf, device='cpu', max_iter=30,
-                                 engine='fused')
+                                 engine='fused', dtype=dtype)
     else:
         lf = build_likelihood('binned', bb={'xenon': False, 'bb': True,
                                             'bblite': 'bb_lite'}[label],
                               **SIZE)
         study = BinnedToyStudy(lf, device='cpu', max_iter=30,
-                               engine='fused')
+                               engine='fused', dtype=dtype)
     calls = smoke['record_calls'](label, study, mods, contract=contract,
                                   n_toys=3)
     assert getattr(module, spec.wrapper) is wrapper
@@ -339,6 +344,38 @@ def test_value_replay_ab_compares_both_contracts():
     assert script['disagreement'](nan, nan, scale) == (0.0, 0.0)
     assert np.isnan(script['disagreement'](nan, low, scale)[0])
     assert script['nonfinite']([low, nan, centered]) == 3
+    # the vgh gate holds this checkout to the smaller of the old bound
+    # (twice the baseline's worst error, at least 1e-5 and 1e-4; the ll
+    # relative to its scale) and the new one from float32 itself (g/H
+    # twice the float32 closed form's worst error, the ll lane by lane):
+    # a baseline with a large error no longer widens the bound, and one
+    # with a small error keeps it as tight as it was
+    old_scales = [torch.tensor([1.0, 2.0, 1e-3]), torch.tensor([4.0])]
+    new_ll = [torch.tensor([3e-5, 1e-5, 5e-4]), torch.tensor([2e-5])]
+    f32_gh = np.array([3e-5, 1e-3])
+    for baseline_worst in ((0.3, 0.05), (0.65, 0.045), (0.277, 0.00156)):
+        ll, gh, old = script['held_bounds'](baseline_worst, old_scales,
+                                            new_ll, f32_gh)
+        assert gh == pytest.approx(2e-3) and tuple(old) == tuple(
+            np.maximum((1e-5, 1e-4), 2 * np.array(baseline_worst)))
+        for held, new in zip(ll, new_ll):
+            torch.testing.assert_close(held, new)
+    ll, gh, old = script['held_bounds']((1e-6, 1e-6), old_scales, new_ll,
+                                        f32_gh)
+    assert gh == pytest.approx(1e-4) and tuple(old) == (1e-5, 1e-4)
+    torch.testing.assert_close(ll[0], torch.tensor([1e-5, 1e-5, 1e-8]))
+    torch.testing.assert_close(ll[1], torch.tensor([2e-5]))
+    # errors as large as the unbinned vgh kernel's at the centering point
+    # passed the old gate of a baseline as far off; not the held one
+    current = (old_scales[0] * 0.277, old_scales[1] * 0.277)
+    ll, _, _ = script['held_bounds']((0.277, 0.00156), old_scales, new_ll,
+                                     f32_gh)
+    assert any(bool((c > a).any()) for c, a in zip(current, ll))
+    # the new/old ll ratio lane by lane, non-finite lanes left out
+    ratio = script['ll_ratios'](
+        1e-4, [torch.tensor([1.0, 2.0, 0.0])],
+        [torch.tensor([3e-5, 4e-4, 0.0])])
+    torch.testing.assert_close(ratio, torch.tensor([0.3, 2.0]))
 
 
 def test_value_replay_bins_calls_by_lanes():
@@ -412,7 +449,9 @@ def test_value_replay_ab_takes_the_unbinned_vgh_calls():
                                 / 'measure_value_replay.py'))
     assert {'unbinned_xenon', 'unbinned'} <= set(script['AB_PATHS']['vgh'])
     args = _gaussian_vgh_call()
-    ref = script['unbinned_vgh_double'](*args)
+    smoke = runpy.run_path(str(Path(__file__).resolve().parents[1]
+                               / 'chip_smoke.py'))
+    ref = smoke['unbinned_vgh_double'](*args)
     as64 = tuple(a.double() if torch.is_tensor(a) and a.is_floating_point()
                  else a for a in args)
     plain = fused_unbinned.unbinned_vgh_plain(*as64)
@@ -420,12 +459,59 @@ def test_value_replay_ab_takes_the_unbinned_vgh_calls():
         assert x.dtype == torch.float64
         torch.testing.assert_close(x, y, rtol=1e-12, atol=1e-12)
     # and the float32 plain version agrees within the A/B's tolerances
-    smoke = runpy.run_path(str(Path(__file__).resolve().parents[1]
-                               / 'chip_smoke.py'))
     out = tuple(x.double() for x in fused_unbinned.unbinned_vgh_plain(*args))
     ll_err, gh_err = script['disagreement'](out, ref,
                                             smoke['term_scale'](*args))
     assert ll_err <= 1e-5 and gh_err <= 1e-4
+
+
+@pytest.mark.parametrize('label', ['bb', 'unbinned'])
+def test_value_replay_vgh_gate_on_a_profiles_calls(label):
+    """The vgh gate's pieces on one float32 profile's recorded calls on the
+    CPU (where the wrapper runs its plain version): the float32 and
+    float64 closed forms of each call (unbinned: float32 an event with
+    float64 sums, within 1e-4 of the plain version's outputs, g and H
+    relative to each lane's largest entry, and closer to float64 than the
+    plain version's float32 sums), the ll allowance lane by lane (at least
+    1e-5 of the ll's scale, and at least float32's rounding of the lane's
+    terms), and the allowances, which the binned wrapper's own outputs
+    keep."""
+    import runpy
+    script = runpy.run_path(str(Path(__file__).resolve().parents[1]
+                                / 'measure_value_replay.py'))
+    smoke, spec, wrapper, calls = _recorded_calls(label, 'vgh',
+                                                  torch.float32)
+    module = {'fused_bb': fused_bb,
+              'fused_unbinned': fused_unbinned}[spec.module]
+    f32_errs, errs, used = [], [], []
+    for args in calls:
+        f32, f64 = (smoke['double'](x) for x in smoke['closed_forms'](
+            module, spec.wrapper, args))
+        assert f64[0].dtype == torch.float64
+        allow = smoke['ll_allowance'](spec, args, f32, f64)
+        assert allow.shape == f64[0].shape
+        if label == 'unbinned':
+            plain = fused_unbinned.unbinned_vgh_plain(*args)
+            assert script['disagreement'](smoke['double'](plain), f32,
+                                          smoke['term_scale'](*args)) \
+                <= (1e-4, 1e-4)
+            terms, rounding = smoke['term_scales'](*args)
+            assert (rounding > 0).all() and (allow >= rounding).all()
+            assert (allow >= 1e-5 * terms).all()
+        else:
+            assert (allow >= 1e-5 * f64[0].abs()).all()
+        out = smoke['double'](wrapper(*args))
+        f32_errs.append(smoke['disagreement'](f32, f64))
+        errs.append(smoke['disagreement'](out, f64))
+        used.append(smoke['disagreement'](out, f64, allow)[0])
+    gh = smoke['float32_allowance'](np.array(f32_errs)[:, 1])
+    assert gh >= 1e-4
+    if label == 'unbinned':
+        # the plain version sums over events in float32: its g loses more
+        # than float32's own rounding of each event's terms
+        assert np.max(f32_errs, axis=0)[1] < np.max(errs, axis=0)[1]
+    else:
+        assert max(used) <= 1 and np.max(errs, axis=0)[1] <= gh
 
 
 @pytest.mark.parametrize('shape', [(2, 2 ** 16, 8, 2 ** 13),

@@ -147,13 +147,18 @@ def test_monte_carlo_templates_match():
 def test_binned_study_grid_surface_raises(name):
     """The reference's grid, scan and map methods exist on the port's
     binned study, as methods (the reference's statistics tell binned from
-    unbinned by ``hasattr(study, 'observed_counts')``), and raise naming
-    their ROADMAP item instead of failing with an AttributeError."""
+    unbinned by ``hasattr(study, 'observed_counts')``), and called without
+    their arguments or data they raise as the reference's do: a missing
+    argument, or (observed_counts) no data bound."""
     set_progress(False)
     tlf = _likelihood(BinnedLogLikelihood, txenon.GaussianBlobSource,
                       NormalPrior, 0)
     study = BinnedToyStudy(tlf, device='cpu')
     assert callable(getattr(JaxStudy, name))
     assert callable(getattr(BinnedToyStudy, name))
-    with pytest.raises(NotImplementedError, match='item 16a'):
-        getattr(study, name)()
+    if name == 'observed_counts':
+        with pytest.raises(ValueError, match='set_data'):
+            study.observed_counts()
+    else:
+        with pytest.raises(TypeError, match='missing'):
+            getattr(study, name)()

@@ -279,8 +279,12 @@ def test_default_device_is_the_card(xenon, small):
     with pytest.raises(TypeError, match='Unbinned'):
         UnbinnedToyStudy(txenon.build_likelihood('binned', **SIZE),
                          device='cpu')
+    # the grid, scan and map surface: called without its arguments it
+    # raises as the reference's does; no observed_counts (the statistics
+    # tell a binned study from an unbinned one by it)
     for name in ('profile_ts_grid', 'profile_ts_scan', 'profile_map'):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
+        with pytest.raises(TypeError, match='missing'):
             getattr(study, name)()
+    assert not hasattr(study, 'observed_counts')
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         study.simulate(0, 2, mesh=object())
