@@ -2,8 +2,11 @@
 
 Counterpart of :mod:`blueice_tpu.compile` for the global-grid branch of
 ``build_logl``: binned, with its Beeston-Barlow modes ('bb_single',
-'bb_lite'), and extended unbinned, data-bound or data-free (the toy studies
-supply each toy's per-event density tensor at call time). The anchor tensors
+'bb_lite') and geometric (log) template morphing, and extended unbinned,
+data-bound or data-free (the toy studies supply each toy's per-event density
+tensor at call time); and for the compositions of
+:mod:`blueice_tpu_torch.composition` (:func:`build_logl_sum`,
+:func:`build_logl_reparam`, :func:`build_logl_ancillary`). The anchor tensors
 move to the device once, and every evaluation (morphing, rate multipliers,
 efficiencies, priors, physicality, the finite-MC adjustment, the Poisson or
 extended reduction) is torch on that device. Out-of-bounds and unphysical
@@ -11,10 +14,10 @@ parameter points return -inf like the host path. The compiled object also
 carries the metadata the closed-form fit engines read (anchor tensors and
 arrays, names, priors).
 
-Sums, re-parametrisations and ancillary terms are ROADMAP queue 1 item 11;
-exposing the livetime as a parameter is item 16c.
+Exposing the livetime as a parameter is ROADMAP queue 1 item 16c.
 """
 
+import warnings
 from collections import OrderedDict
 
 import numpy as np
@@ -28,14 +31,18 @@ from .ops.poisson import (binned_poisson_logl, binned_poisson_logl_constant,
                           extended_logl)
 from .priors import PRIORS
 
-__all__ = ['CompiledLogLikelihood', 'build_logl']
+__all__ = ['CompiledLogLikelihood', 'CompiledLogLikelihoodSum',
+           'CompiledReParam', 'CompiledAncillary', 'build_logl',
+           'build_logl_sum', 'build_logl_reparam', 'build_logl_ancillary']
 
 
 def build_logl(lf, dtype=None, device=None, include_livetime=False,
                with_priors=True):
     """Compile the prepared likelihood ``lf`` onto ``device``: a binned
     one, or an unbinned one with its data set or without (data-free: for
-    toy studies, which pass each toy's density tensor).
+    toy studies, which pass each toy's density tensor), or a composition
+    of them (a LogLikelihoodSum, LogLikelihoodReParam or
+    LogAncillaryLikelihood of either package).
 
     :param dtype: tensor dtype (None: float32 on CUDA, float64 on the CPU).
     :param device: torch device (None: the CUDA device, raising without
@@ -47,12 +54,41 @@ def build_logl(lf, dtype=None, device=None, include_livetime=False,
     if include_livetime:
         raise NotImplementedError(
             "include_livetime is not ported yet (ROADMAP queue 1 item 16c)")
-    if not lf.is_prepared:
+    if hasattr(lf, 'is_prepared') and not lf.is_prepared:
         if len(lf.shape_parameters):
             raise RuntimeError("Call prepare() before compiling the likelihood")
         lf.prepare()
     return build_logl_from_state(state_from_reference(lf), device=device,
                                  dtype=dtype, with_priors=with_priors)
+
+
+def _build_composition(lf, name, **opts):
+    if not any(c.__name__ == name for c in type(lf).__mro__):
+        raise TypeError("expected a %s, got %r" % (name, type(lf).__name__))
+    return build_logl(lf, **opts)
+
+
+def build_logl_sum(sum_lf, dtype=None, device=None, with_priors=True):
+    """Compile a LogLikelihoodSum: each child compiles on its own anchor
+    tensors; the joint logl routes parameters by name and adds the weighted
+    child terms (:class:`CompiledLogLikelihoodSum`)."""
+    return _build_composition(sum_lf, 'LogLikelihoodSum', dtype=dtype,
+                              device=device, with_priors=with_priors)
+
+
+def build_logl_reparam(rp, dtype=None, device=None, with_priors=True):
+    """Compile a LogLikelihoodReParam: the wrapped likelihood compiles as
+    usual and the parameter transform runs in front of it
+    (:class:`CompiledReParam`)."""
+    return _build_composition(rp, 'LogLikelihoodReParam', dtype=dtype,
+                              device=device, with_priors=with_priors)
+
+
+def build_logl_ancillary(anc, dtype=None, device=None, with_priors=True):
+    """Compile a LogAncillaryLikelihood, whose func must compute with torch
+    tensors (:class:`CompiledAncillary`)."""
+    return _build_composition(anc, 'LogAncillaryLikelihood', dtype=dtype,
+                              device=device, with_priors=with_priors)
 
 
 class CompiledLogLikelihood:
@@ -76,7 +112,14 @@ class CompiledLogLikelihood:
       nme_tensor (*grid, S, *bins): the MC counts behind the templates on
         the device (None without a Beeston-Barlow mode), and
         nme_tensor_host, the same payload as float64 numpy.
+      log_morph: geometric (log) template morphing: ps_tensor is the log
+        anchor tensor, and masses_host (*grid, S) its per-anchor template
+        masses (float64 numpy; ``mass_tensor`` on the device), which the
+        morph's linear mass rescale lerps.
     """
+
+    #: dataset-free terms (ancillary constraints) have none
+    has_data = True
 
     def __init__(self, state, device=None, dtype=None, with_priors=True):
         self.device, self.dtype = resolve(device, dtype)
@@ -109,6 +152,11 @@ class CompiledLogLikelihood:
         self.nme_tensor_host = (None if nme is None
                                 else np.asarray(nme, dtype=float))
         self.nme_tensor = None if nme is None else self._tensor(nme)
+        self.log_morph = bool(state.get('log_morph', False))
+        masses = state.get('masses')
+        self.masses_host = (None if masses is None
+                            else np.asarray(masses, dtype=float))
+        self.mass_tensor = None if masses is None else self._tensor(masses)
         self._anchor_tensors = [self._tensor(a) for a in self.anchor_arrays]
         K = len(self.shape_names)
         self._shape_lo = self._tensor(
@@ -147,6 +195,18 @@ class CompiledLogLikelihood:
         return (tensor if zs is None
                 else morph_templates(tensor, self._anchor_tensors, zs))
 
+    def _morph_ps(self, ps, zs):
+        """The morphed pmfs (S, *bins) at zs; geometric with ``log_morph``
+        (:meth:`blueice_tpu_torch.morphers.LogMorpher.eval`, the masses
+        from the float64 host payload)."""
+        if not self.log_morph or zs is None:
+            return self._morph(ps, zs)
+        raw = torch.exp(self._morph(ps, zs))
+        axes = tuple(range(1, raw.dim()))
+        scale = self._morph(self.mass_tensor, zs) / torch.clamp(
+            raw.sum(dim=axes), min=torch.finfo(raw.dtype).tiny)
+        return raw * scale.reshape((-1,) + (1,) * len(axes))
+
     def _mus_at(self, params, zs):
         """Per-source expected counts: base rates at zs, scaled by rate
         multipliers and applied efficiencies (the analytic engines' rates
@@ -170,7 +230,7 @@ class CompiledLogLikelihood:
 
     def densities(self, params):
         """The morphed PMF grids (n_sources, *bins) at params."""
-        return self._morph(self.ps_tensor, self._clipped_zs(params)[0])
+        return self._morph_ps(self.ps_tensor, self._clipped_zs(params)[0])
 
     def expected_counts(self, params):
         """Expected counts per analysis-space bin at params."""
@@ -187,7 +247,8 @@ class CompiledLogLikelihood:
         zs, oob = self._clipped_zs(params)
         data = data if torch.is_tensor(data) else self._tensor(data)
         if self.is_binned:
-            ps = self._morph(self.ps_tensor, zs)
+            ps = self._morph_ps(self.ps_tensor, zs)
+            data = data.reshape(ps.shape[1:])
         else:
             grid = tuple(len(a) for a in self.anchor_arrays)
             ps = self._morph(data.reshape(grid + tuple(data.shape[-2:])), zs)
@@ -249,3 +310,245 @@ class CompiledLogLikelihood:
                                device=data.device)
         return binned_poisson_logl_constant(
             data.to(torch.float64), batch_dims=batch_dims).to(data.dtype)
+
+
+class _CompiledComposition:
+    """What the compiled compositions share: the parameter lookup and the
+    call on keyword arguments."""
+
+    has_data = True
+
+    def params_from_kwargs(self, **kwargs):
+        """Full params dict: defaults overridden by kwargs."""
+        unknown = set(kwargs) - set(self.param_names)
+        if unknown:
+            raise ValueError("Unknown parameters: %s" % sorted(unknown))
+        p = dict(self.defaults)
+        p.update(kwargs)
+        return p
+
+    def __call__(self, **kwargs):
+        return self.logl(self.params_from_kwargs(**kwargs))
+
+    def _split_names(self):
+        self.shape_names = [p for p in self.param_names
+                            if not p.endswith('_rate_multiplier')]
+        self.rate_names = [p for p in self.param_names
+                           if p.endswith('_rate_multiplier')]
+
+
+def _intersect(b0, b1):
+    """Joint bounds of a shared parameter (None = unbounded): the
+    intersection, as the host Sum's ``get_bounds``."""
+    lo = (b1[0] if b0[0] is None else b0[0] if b1[0] is None
+          else max(b0[0], b1[0]))
+    hi = (b1[1] if b0[1] is None else b0[1] if b1[1] is None
+          else min(b0[1], b1[1]))
+    return lo, hi
+
+
+class CompiledLogLikelihoodSum(_CompiledComposition):
+    """A compiled LogLikelihoodSum: each child compiled on its own tensors;
+    the joint logl routes parameters by name and adds the weighted child
+    terms.
+
+    Attributes (beyond the single likelihood's parameter metadata):
+      children: the compiled children; child_weights: the sum's weights;
+      child_routed: per child, the frozenset of joint parameter names it
+        declares. A joint parameter a child does not declare keeps that
+        child's default there (the host Sum's routing).
+      A dataset is a tuple, one entry per child (an empty tensor for a
+      dataset-free child).
+    """
+
+    def __init__(self, state, device=None, dtype=None, with_priors=True):
+        from .convert import build_logl_from_state
+        self.device, self.dtype = resolve(device, dtype)
+        self.children = [build_logl_from_state(
+            c, device=self.device, dtype=self.dtype, with_priors=with_priors)
+            for c in state['children']]
+        self.child_weights = [float(w) for w in state['weights']]
+        self.child_routed = [frozenset(r) for r in state['routed']]
+        self.registered = list(state['registered'])
+        self.defaults, self.bounds = OrderedDict(), OrderedDict()
+        self.param_names = []
+        for c, routed in zip(self.children, self.child_routed):
+            for p in c.param_names:
+                if p not in routed:
+                    continue
+                if p not in self.defaults:
+                    self.defaults[p] = c.defaults[p]
+                    self.bounds[p] = c.bounds[p]
+                    self.param_names.append(p)
+                    continue
+                self.bounds[p] = _intersect(self.bounds[p], c.bounds[p])
+                if float(c.defaults[p]) != float(self.defaults[p]):
+                    warnings.warn(
+                        "Children of this LogLikelihoodSum disagree on the "
+                        "default of shared parameter %r (%s vs %s); the "
+                        "compiled likelihood uses the first child's value "
+                        "as its default and starting point, while the host "
+                        "sum evaluated without kwargs uses each child's own "
+                        "base value" % (p, self.defaults[p], c.defaults[p]))
+        self._split_names()
+        # Dataset-free children (ancillary constraints) don't vote
+        self.is_binned = all(c.is_binned for c in self.children
+                             if c.has_data)
+        self.has_bb = any(c.has_bb for c in self.children)
+        self.has_bb_lite = any(c.has_bb_lite for c in self.children)
+        self.prior_terms = [t for c in self.children for t in c.prior_terms]
+        self.ps_tensor = self.anchor_arrays = None
+        self.log_morph = False
+        self.data = [c.data for c in self.children]
+
+    def _child_params(self, params, i):
+        c, routed = self.children[i], self.child_routed[i]
+        return {p: (params[p] if p in routed else c.defaults[p])
+                for p in c.param_names}
+
+    def logl(self, params):
+        return sum(w * c.logl(self._child_params(params, i))
+                   for i, (c, w) in enumerate(zip(self.children,
+                                                  self.child_weights)))
+
+    def logl_with_data(self, params, data, mask=None, include_constant=True):
+        """``data`` and ``mask`` are sequences, one entry per child."""
+        return sum(w * c.logl_with_data(self._child_params(params, i),
+                                        data[i],
+                                        None if mask is None else mask[i],
+                                        include_constant)
+                   for i, (c, w) in enumerate(zip(self.children,
+                                                  self.child_weights)))
+
+    def data_constant(self, data, batch_dims=0):
+        """The weighted children's constants, each and their sum in
+        float64, returned in the dtype of the data."""
+        total = sum(w * c.data_constant(d.to(torch.float64), batch_dims)
+                    for c, w, d in zip(self.children, self.child_weights,
+                                       data))
+        return total.to(data[0].dtype)
+
+    def expected_counts(self, params):
+        """Tuple of per-child expected-count tensors at params (an empty
+        tensor for a dataset-free child): the Poisson means a joint toy
+        study simulates from."""
+        return tuple(
+            c.expected_counts(self._child_params(params, i)) if c.has_data
+            else torch.zeros((0,), dtype=self.dtype, device=self.device)
+            for i, c in enumerate(self.children))
+
+
+class CompiledReParam(_CompiledComposition):
+    """A compiled LogLikelihoodReParam: the wrapped likelihood compiled as
+    usual, with the parameter transform ``func(*new)/func(*base)`` in front
+    of it, on tensors. Its fits are the autodiff engine's (ROADMAP queue 1
+    item 16b): there is no anchor grid in the new parameters."""
+
+    def __init__(self, state, device=None, dtype=None, with_priors=True):
+        from .composition import ParameterTransform
+        from .convert import build_logl_from_state
+        from .exceptions import InvalidParameter
+        self.device, self.dtype = resolve(device, dtype)
+        self.child = child = build_logl_from_state(
+            state['child'], device=self.device, dtype=self.dtype,
+            with_priors=with_priors)
+        self.transform = ParameterTransform(state['targets'],
+                                            state['base_values'])
+        targets = set(self.transform.targets)
+        inputs = list(state['input_bounds'])
+        unknown = targets - set(child.param_names)
+        if unknown:
+            # A typo'd target would make the new parameters silent no-ops
+            raise InvalidParameter(
+                "Transform target(s) %s are not parameters of the wrapped "
+                "likelihood (has: %s)"
+                % (sorted(unknown), list(child.param_names)))
+        passthrough = [p for p in child.param_names if p not in targets]
+        self.defaults = OrderedDict((p, child.defaults[p])
+                                    for p in passthrough)
+        self.bounds = OrderedDict((p, child.bounds[p]) for p in passthrough)
+        for p in inputs:
+            self.defaults[p] = float(state['base_values'][p])
+            self.bounds[p] = state['input_bounds'][p]
+        self.param_names = passthrough + inputs
+        self._inputs, self._targets = inputs, targets
+        self.registered = list(state['registered'])
+        self._split_names()
+        self.is_binned = child.is_binned
+        self.has_bb, self.has_bb_lite = child.has_bb, child.has_bb_lite
+        self.prior_terms = child.prior_terms
+        # the transform precedes the anchor morphing: no anchor grid here
+        self.ps_tensor = self.anchor_arrays = None
+        self.log_morph = False
+        self.data = child.data
+
+    def _child_params(self, params):
+        converted = self.transform({p: params[p] for p in self._inputs})
+        return {p: (converted[p] if p in self._targets else params[p])
+                for p in self.child.param_names}
+
+    def logl(self, params):
+        return self.child.logl(self._child_params(params))
+
+    def logl_with_data(self, params, data, mask=None, include_constant=True):
+        return self.child.logl_with_data(self._child_params(params), data,
+                                         mask, include_constant)
+
+    def rates(self, params):
+        return self.child.rates(self._child_params(params))
+
+    def densities(self, params):
+        return self.child.densities(self._child_params(params))
+
+    def expected_counts(self, params):
+        return self.child.expected_counts(self._child_params(params))
+
+    def data_constant(self, data, batch_dims=0):
+        return self.child.data_constant(data, batch_dims)
+
+
+class CompiledAncillary(_CompiledComposition):
+    """A compiled LogAncillaryLikelihood: its func on the parameter values
+    as tensors (any common batch shape). Dataset-free."""
+
+    has_data = False
+
+    def __init__(self, state, device=None, dtype=None, with_priors=True):
+        self.device, self.dtype = resolve(device, dtype)
+        self.param_names = list(state['parameters'])
+        self.defaults = OrderedDict(state['defaults'])
+        self.bounds = OrderedDict((p, (-np.inf, np.inf))
+                                  for p in self.param_names)
+        self.registered = list(state['registered'])
+        self.func, self.func_kwargs = state['func'], state['func_kwargs']
+        self.shape_names, self.rate_names = list(self.param_names), []
+        self.is_binned = None    # dataset-free: binned/unbinned-agnostic
+        self.has_bb = self.has_bb_lite = self.log_morph = False
+        self.prior_terms = []
+        self.ps_tensor = self.anchor_arrays = self.data = None
+        try:
+            out = self.logl({p: torch.zeros((), dtype=self.dtype,
+                                            device=self.device)
+                             for p in self.param_names})
+            if not torch.is_tensor(out):
+                raise TypeError("func returned %r, not a tensor" % (out,))
+        except Exception as e:
+            raise TypeError(
+                "The ancillary likelihood's func does not compute with torch "
+                "tensors, so it cannot be compiled (use torch/arithmetic "
+                "expressions instead of e.g. scipy.stats frozen logpdfs; the "
+                "host __call__ path still accepts those)") from e
+
+    def logl(self, params):
+        values = OrderedDict(
+            (p, torch.as_tensor(params[p], dtype=self.dtype,
+                                device=self.device))
+            for p in self.param_names)
+        return self.func(values, **self.func_kwargs)
+
+    def logl_with_data(self, params, data, mask=None, include_constant=True):
+        return self.logl(params)    # an analytic term has no dataset
+
+    def data_constant(self, data, batch_dims=0):
+        return torch.zeros(data.shape[:batch_dims], dtype=data.dtype,
+                           device=data.device)

@@ -2,9 +2,11 @@
 port's compiled likelihood.
 
 :func:`state_from_reference` reads a prepared ``BinnedLogLikelihood`` or
-``UnbinnedLogLikelihood`` — one of the JAX package or one of this package;
-the two keep the same attributes — into a plain dict of numpy arrays, names
-and numbers, without importing either framework.
+``UnbinnedLogLikelihood``, or a composition of them (``LogLikelihoodSum``,
+``LogLikelihoodReParam``, ``LogAncillaryLikelihood``) — one of the JAX
+package or one of this package; the two keep the same attributes — into a
+plain dict of numpy arrays, names and numbers, without importing either
+framework.
 :func:`build_logl_from_state` turns such a state into the port's
 :class:`~blueice_tpu_torch.compile.CompiledLogLikelihood` on a torch
 device. The tests use the pair to feed both packages bit-identical
@@ -37,8 +39,68 @@ def _is_a(lf, name):
     return any(c.__name__ == name for c in type(lf).__mro__)
 
 
+def _registered(lf):
+    """The parameters a fit floats by default: the registered rate
+    multipliers and every shape parameter."""
+    return ([sn + '_rate_multiplier' for sn in lf.rate_parameters]
+            + list(lf.shape_parameters.keys()))
+
+
+def _child_state(lf):
+    """State of a composition's member, preparing a shape-free binned or
+    unbinned likelihood first as :func:`~blueice_tpu_torch.compile.build_logl`
+    does."""
+    if (hasattr(lf, 'is_prepared') and not lf.is_prepared
+            and not len(lf.shape_parameters)):
+        lf.prepare()
+    return state_from_reference(lf)
+
+
+def _sum_state(lf):
+    return dict(kind='sum',
+                children=[_child_state(ll) for ll in lf.likelihood_list],
+                weights=[float(w) for w in lf.likelihood_weights],
+                routed=[list(names) for names in lf.likelihood_parameters],
+                registered=_registered(lf))
+
+
+def _reparam_state(rp):
+    transform = rp.transform
+    return dict(kind='reparam', child=_child_state(rp._likelihood),
+                targets=OrderedDict(transform.targets),
+                base_values=dict(transform.base_values),
+                input_bounds=OrderedDict(
+                    (p, tuple(float(b) for b in rp.get_bounds(p)))
+                    for p in transform.input_names),
+                registered=_registered(rp))
+
+
+def _ancillary_state(anc):
+    """An ancillary term's parameters, defaults and func. A JAX package
+    ``MultivariateNormalPrior`` becomes this package's; any other func is
+    carried as it is, and must compute with torch tensors."""
+    func = anc.func
+    if type(func).__name__ == 'MultivariateNormalPrior':
+        from .priors import MultivariateNormalPrior
+        func = MultivariateNormalPrior(func.mean, func.cov)
+    names = list(anc.shape_parameters)
+    return dict(kind='ancillary', parameters=names,
+                defaults=OrderedDict((p, float(anc.pdf_base_config[p]))
+                                     for p in names),
+                func=func, func_kwargs=dict(anc.func_kwargs),
+                registered=names)
+
+
 def state_from_reference(lf):
-    """Numpy state of a prepared binned or unbinned likelihood.
+    """Numpy state of a prepared binned or unbinned likelihood, or of a
+    composition (its members prepared).
+
+    A composition's state has ``kind`` 'sum' (``children``, their
+    ``weights`` and ``routed``: the joint parameter names each child
+    declares), 'reparam' (the wrapped ``child``, the transform's
+    ``targets`` {target: (inputs, func)} and ``base_values``, and the new
+    parameters' ``input_bounds``) or 'ancillary' (``parameters``,
+    ``defaults``, ``func``, ``func_kwargs``), and ``registered``.
 
     :return: dict with ``kind`` ('binned' or 'unbinned'), the anchor
       payloads ``mus`` (*grid, S) and ``ps`` (*grid, S, *bins), or for an
@@ -53,15 +115,23 @@ def state_from_reference(lf):
       and the finite-MC-statistics mode: ``mode`` (None, 'bb_single' or
       'bb_lite'), ``nme`` (the n_model_events payload on the layout of
       ``ps``, ``lf._builds['n_model_events']``, or None without a mode) and
-      ``bb_source_i`` (the finite source of 'bb_single', else None).
+      ``bb_source_i`` (the finite source of 'bb_single', else None);
+      ``log_morph`` (geometric template morphing: ``ps`` is the log anchor
+      tensor) with ``masses`` (*grid, S), the per-anchor template masses
+      in float64 from the full template, else None.
     """
+    for name, reader in (('LogLikelihoodSum', _sum_state),
+                         ('LogLikelihoodReParam', _reparam_state),
+                         ('LogAncillaryLikelihood', _ancillary_state)):
+        if _is_a(lf, name):
+            return reader(lf)
     if not getattr(lf, 'is_prepared', False):
         raise RuntimeError("Call prepare() before reading the likelihood")
     binned = _is_a(lf, 'BinnedLogLikelihood')
     if not binned and not _is_a(lf, 'UnbinnedLogLikelihood'):
-        raise NotImplementedError(
-            "only binned and unbinned likelihoods are ported (compositions "
-            "are ROADMAP queue 1 item 11)")
+        raise TypeError("Cannot read %r: expected a binned or unbinned "
+                        "likelihood or a composition of them"
+                        % type(lf).__name__)
     if getattr(lf, 'source_wise_interpolation', False):
         raise NotImplementedError(
             "source-wise interpolation is not ported yet (ROADMAP queue 1 "
@@ -74,12 +144,15 @@ def state_from_reference(lf):
         # each toy brings its own per-event densities
         ps_build = (('global', lf.morpher, None) if shape_names
                     else ('constant', None))
+    log_morph = False
     if ps_build[0] == 'global':
         morpher = ps_build[1]
+        if type(morpher).__name__ == 'LogMorpher':
+            morpher, log_morph = morpher.inner, True
         if type(morpher).__name__ != 'GridInterpolator':
             raise NotImplementedError(
                 "%s template morphing is not ported yet (ROADMAP queue 1 "
-                "items 11, 16)" % type(morpher).__name__)
+                "item 16c)" % type(morpher).__name__)
         mus = np.asarray(lf._builds['mus'][2], dtype=float)
         ps = None if ps_build[2] is None else np.asarray(ps_build[2],
                                                          dtype=float)
@@ -121,6 +194,12 @@ def state_from_reference(lf):
     data = (np.asarray(lf.data_events_per_bin.values, dtype=float)
             if binned and getattr(lf, 'is_data_set', False) else None)
 
+    masses = None
+    if log_morph:
+        # The linear mass rescale's anchor masses, from the full template
+        masses = np.exp(ps.reshape(ps.shape[:len(anchor_arrays) + 1]
+                                   + (-1,))).sum(axis=-1)
+
     mode = getattr(lf, 'model_statistical_uncertainty_handling', None)
     nme = bb_source_i = None
     if mode is not None:
@@ -141,18 +220,21 @@ def state_from_reference(lf):
         source_names=source_names, shape_names=shape_names,
         rate_names=rate_names, defaults=defaults, bounds=bounds,
         priors=priors,
-        registered=([sn + '_rate_multiplier' for sn in lf.rate_parameters]
-                    + shape_names),
+        registered=_registered(lf),
         allow_negative=[bool(a) for a in lf.source_allowed_negative],
         apply_efficiency=[bool(a) for a in lf.source_apply_efficiency],
         efficiency_names=[str(e) for e in lf.source_efficiency_names],
-        data=data, mode=mode, nme=nme, bb_source_i=bb_source_i)
+        data=data, mode=mode, nme=nme, bb_source_i=bb_source_i,
+        log_morph=log_morph, masses=masses)
 
 
 def build_logl_from_state(state, device=None, dtype=None, with_priors=True):
     """The port's compiled likelihood from a :func:`state_from_reference`
     state, its tensors on ``device`` in ``dtype`` (see
     :func:`blueice_tpu_torch.device.resolve`)."""
-    from .compile import CompiledLogLikelihood
-    return CompiledLogLikelihood(state, device=device, dtype=dtype,
-                                 with_priors=with_priors)
+    from . import compile as c
+    cls = {'sum': c.CompiledLogLikelihoodSum,
+           'reparam': c.CompiledReParam,
+           'ancillary': c.CompiledAncillary}.get(state.get('kind'),
+                                                 c.CompiledLogLikelihood)
+    return cls(state, device=device, dtype=dtype, with_priors=with_priors)

@@ -20,9 +20,14 @@ extended unbinned likelihood is ported with global morphing (``set_data``
 scores the events at every anchor model into a (*grid, n_sources,
 n_events) tensor) and without shape parameters.
 
+The binned likelihood also morphs its templates geometrically
+(``template_interpolation='log'``,
+:class:`~blueice_tpu_torch.morphers.LogMorpher`).
+The compositions (sum, re-parametrisation, ancillary terms) live in
+:mod:`blueice_tpu_torch.composition` and are re-exported here.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP item):
-log template morphing, source-wise interpolation, parallel template builds,
-and the likelihood compositions (sum, re-parametrisation, ancillary terms).
+source-wise interpolation and parallel template builds.
 """
 
 from collections import OrderedDict
@@ -35,7 +40,7 @@ from scipy.special import gammaln, xlogy
 from .exceptions import (NotPreparedException, InvalidParameterSpecification,
                          InvalidParameter)
 from .models import Model
-from .morphers import MORPHERS
+from .morphers import MORPHERS, LogMorpher
 from .ops.bb_lite import bb_lite_logl_host
 from .ops.hist import Hist
 from .ops.poisson import extended_logl_np
@@ -43,6 +48,7 @@ from .priors import NormalPrior
 from .utils import combine_dicts, inherit_docstring_from
 
 __all__ = ['LogLikelihoodBase', 'BinnedLogLikelihood', 'UnbinnedLogLikelihood',
+           'LogLikelihoodSum', 'LogLikelihoodReParam', 'LogAncillaryLikelihood',
            'beeston_barlow_root1', 'beeston_barlow_root2',
            'beeston_barlow_roots', 'extended_loglikelihood']
 
@@ -85,8 +91,14 @@ class LogLikelihoodBase:
 
     likelihood_config options:
         morpher ('GridInterpolator', the only one ported), morpher_config,
+        template_interpolation ('linear' default; 'log' for positive-definite
+          geometric template morphing, binned only — see morphers.LogMorpher),
         unphysical_behaviour ('error' to raise instead of returning -inf).
     """
+
+    #: Whether this class can morph its density payload geometrically
+    #: (BinnedLogLikelihood overrides; pmf grids have bin axes to rescale over)
+    _supports_log_morphing = False
 
     def __init__(self, pdf_base_config, likelihood_config=None, **kwargs):
         """
@@ -102,11 +114,20 @@ class LogLikelihoodBase:
             raise NotImplementedError(
                 "morpher %r is not ported yet (ROADMAP queue 1 item 16c); "
                 "use 'GridInterpolator'" % (self.config['morpher'],))
-        if self.config.get('template_interpolation', 'linear') != 'linear':
+        self.template_interpolation = self.config.get(
+            'template_interpolation', 'linear')
+        if self.template_interpolation not in ('linear', 'log'):
+            raise ValueError(
+                "template_interpolation must be 'linear' (morph templates "
+                "per-bin linearly between anchors) or 'log' (geometric / "
+                "positive-definite morphing); got %r"
+                % (self.template_interpolation,))
+        if self.template_interpolation == 'log' \
+                and not self._supports_log_morphing:
             raise NotImplementedError(
-                "template_interpolation=%r is not ported yet (ROADMAP queue "
-                "1 item 11, log morphing)"
-                % (self.config['template_interpolation'],))
+                "template_interpolation='log' is implemented for binned "
+                "likelihoods (per-event density tensors have no bin axis to "
+                "renormalize the geometric mean over)")
         self.source_wise_interpolation = self.pdf_base_config.get(
             'source_wise_interpolation', False)
         if self.source_wise_interpolation:
@@ -493,6 +514,8 @@ class BinnedLogLikelihood(LogLikelihoodBase):
     (likelihood_config 'model_statistical_uncertainty_handling': None,
     'bb_single' with 'bb_single_source', or 'bb_lite')."""
 
+    _supports_log_morphing = True
+
     def __init__(self, pdf_base_config, likelihood_config=None, **kwargs):
         LogLikelihoodBase.__init__(self, pdf_base_config, likelihood_config,
                                    **kwargs)
@@ -515,11 +538,18 @@ class BinnedLogLikelihood(LogLikelihoodBase):
         self.ps, self.n_model_events = self.base_model.pmf_grids()
 
         if len(self.shape_parameters):
+            # 'log' wraps the pmf morphing only: rates and MC counts keep
+            # linear anchor interpolation; the compiled likelihood carries
+            # the log anchor tensor and its masses
+            ps_morpher = self.morpher
+            if self.template_interpolation == 'log':
+                ps_morpher = LogMorpher(self.morpher,
+                                        n_template_axes=self.ps.ndim - 1)
             self.ps_interpolator, pmf_tensor = self._interp_and_tensor(
-                self.morpher, f=lambda m: m.pmf_grids()[0],
+                ps_morpher, f=lambda m: m.pmf_grids()[0],
                 extra_dims=list(self.ps.shape),
                 anchor_models=self.anchor_models)
-            self._builds['ps'] = ('global', self.morpher, pmf_tensor)
+            self._builds['ps'] = ('global', ps_morpher, pmf_tensor)
             if self.model_statistical_uncertainty_handling is not None:
                 self.n_model_events_interpolator, nme_tensor = \
                     self._interp_and_tensor(
@@ -667,3 +697,9 @@ def beeston_barlow_root2(a, p, U, d):
 
 def beeston_barlow_roots(a, p, U, d):
     return beeston_barlow_root1(a, p, U, d), beeston_barlow_root2(a, p, U, d)
+
+
+# Composition classes live in their own module; re-exported here so
+# ``from blueice_tpu_torch.likelihood import LogLikelihoodSum`` works
+from .composition import (LogLikelihoodSum, LogLikelihoodReParam,   # noqa: E402
+                          LogAncillaryLikelihood)

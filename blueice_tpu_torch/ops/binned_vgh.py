@@ -1,9 +1,10 @@
 """Analytic value+gradient+Hessian of the binned Poisson likelihood in the
 (morph-weight, rate) parameterization, batched over toys.
 
-Counterpart of :mod:`blueice_tpu.ops.binned_vgh` (linear morphing only; the
-log-morphing twins are ROADMAP queue 1 item 11). The JAX functions take one
-dataset and are vmapped; these take any number of leading batch dimensions
+Counterpart of :mod:`blueice_tpu.ops.binned_vgh`, with linear and geometric
+(log) template morphing (:func:`binned_vgh_log`, :func:`binned_ll_log`:
+closed forms that the JAX package too computes outside any kernel). The JAX
+functions take one dataset and are vmapped; these take any number of leading batch dimensions
 written out (``...`` below), so one call serves a whole toy ensemble, or a
 toy ensemble times its line-search candidates.
 
@@ -30,6 +31,7 @@ import numpy as np
 import torch
 
 __all__ = ['corner_weight_tables', 'binned_vgh', 'binned_ll',
+           'binned_vgh_log', 'binned_ll_log', 'log_morph_from_lerp',
            'gather_corners', 'corner_offsets']
 
 
@@ -185,3 +187,91 @@ def binned_ll(corners, m, t, observed):
     w = corner_weight_tables(t)[0]
     return _ll_from_P(torch.einsum('...c,...csn->...sn', w, corners),
                       m, observed)
+
+
+def log_morph_from_lerp(L, M):
+    """Morphed pmf P (..., S, N) of the geometric (log) template morph from
+    the lerped log templates ``L`` (..., S, N) and the lerped anchor masses
+    ``M`` (..., S): raw = exp(L), rescaled so each source's total mass is M
+    (raw-mass denominator clamped at the dtype's tiny), as
+    :meth:`blueice_tpu_torch.morphers.LogMorpher.eval`. Also returns raw and
+    1 / its mass (..., S), which the derivatives need."""
+    R = torch.exp(L)
+    tiny = torch.finfo(L.dtype).tiny
+    inv_mass_raw = 1.0 / torch.clamp(R.sum(-1), min=tiny)
+    return R * (M * inv_mass_raw)[..., None], R, inv_mass_raw
+
+
+def _log_morph_P(log_corners, mass_corners, w):
+    """Morphed pmf P of the geometric morph at corner weights w (..., 2^K),
+    plus the intermediates its derivatives need.
+
+    :param log_corners: (..., 2^K, S, N) log corner templates.
+    :param mass_corners: (..., 2^K, S) per-corner template masses (sum over
+      bins of exp(log template), computed on the full template).
+    :return: (P (..., S, N), R (..., S, N) raw exp-lerp, inv_mass_raw
+      (..., S), M (..., S) lerped target mass).
+    """
+    L = torch.einsum('...c,...csn->...sn', w, log_corners)
+    M = torch.einsum('...c,...cs->...s', w, mass_corners)
+    P, R, inv_mass_raw = log_morph_from_lerp(L, M)
+    return P, R, inv_mass_raw, M
+
+
+def binned_vgh_log(log_corners, mass_corners, m, t, observed):
+    """:func:`binned_vgh` for geometric (log) template morphing
+    (``template_interpolation='log'``): the pmf is exp(multilinear lerp of
+    log templates), rescaled to the linearly lerped anchor masses. Same
+    contract and parameter order as :func:`binned_vgh`; the t-derivatives
+    carry the exp and the mass-rescale quotient chain, so unlike the
+    multilinear case d2P/dt_d^2 != 0.
+
+    :param log_corners: (..., 2^K, S, N) log corner templates (the anchor
+      tensor a LogMorpher builds).
+    :param mass_corners: (..., 2^K, S) per-corner full-template masses.
+    """
+    K = t.shape[-1]
+    w, wd, wx = corner_weight_tables(t)
+    P, R, inv_mass_raw, M = _log_morph_P(log_corners, mass_corners, w)
+    if K == 0:
+        D = P.new_zeros(P.shape[:-2] + (0,) + P.shape[-2:])
+        X = P.new_zeros(P.shape[:-2] + (0, 0) + P.shape[-2:])
+        return _assemble_vgh(P, D, X, m, observed, K)
+
+    tiny = torch.finfo(P.dtype).tiny
+    Ld = torch.einsum('...kc,...csn->...ksn', wd, log_corners)    # (K, S, N)
+    Lx = torch.einsum('...kec,...csn->...kesn', wx, log_corners)  # (K, K, S, N)
+    Md = torch.einsum('...kc,...cs->...ks', wd, mass_corners)     # (K, S)
+    Mx = torch.einsum('...kec,...cs->...kes', wx, mass_corners)   # (K, K, S)
+    inv_M = 1.0 / torch.clamp(M, min=tiny)
+
+    # Raw-mass derivatives: A_d = d(sum R)/dt_d, B_de = d2(sum R)/dt_d dt_e
+    A = torch.einsum('...sn,...ksn->...ks', R, Ld)
+    B = (torch.einsum('...sn,...ksn,...esn->...kes', R, Ld, Ld)
+         + torch.einsum('...sn,...kesn->...kes', R, Lx))
+
+    # log-scale chain: scale = M / mass_raw, v_d = d log(scale)/dt_d,
+    # w_de = d2 log(scale)/dt_d dt_e
+    Mn = Md * inv_M[..., None, :]
+    An = A * inv_mass_raw[..., None, :]
+    v = Mn - An                                                   # (K, S)
+    w2 = (Mx * inv_M[..., None, None, :]
+          - Mn[..., :, None, :] * Mn[..., None, :, :]
+          - B * inv_mass_raw[..., None, None, :]
+          + An[..., :, None, :] * An[..., None, :, :])            # (K, K, S)
+
+    # dP/dt_d = P u_d with u_d = Ld + v_d; d2P = P (u_d u_e + Lx + w_de)
+    u = Ld + v[..., None]                                         # (K, S, N)
+    D = P[..., None, :, :] * u
+    X = P[..., None, None, :, :] * (u[..., :, None, :, :]
+                                    * u[..., None, :, :, :]
+                                    + Lx + w2[..., None])         # (K, K, S, N)
+    return _assemble_vgh(P, D, X, m, observed, K)
+
+
+def binned_ll_log(log_corners, mass_corners, m, t, observed):
+    """Value-only twin of :func:`binned_vgh_log` (the cheap accept-step
+    evaluation inside the Newton loop)."""
+    w = corner_weight_tables(t)[0]
+    return _ll_from_P(_log_morph_P(log_corners, mass_corners, w)[0], m,
+                      observed)

@@ -27,6 +27,7 @@ import torch
 from scipy import stats
 
 from ._stats import simulation_truth, tail_fraction
+from .fitter import tree_map
 
 __all__ = ['discovery_ts', 'observed_discovery', 'asimov_discovery',
            'discovery_reach']
@@ -195,7 +196,7 @@ def discovery_reach(study, target, signal_values, truth=None, fixed=None,
         t = dict(base)
         t[target] = float(s)
         counts.append(study.expected_counts(**t))
-    stacked = torch.stack(counts)
+    stacked = tree_map(lambda *cs: torch.stack(cs), *counts)
     free = study.fit_toys(stacked, fixed=fixed)
     cond_fixed = dict(fixed or {})
     cond_fixed[target] = null

@@ -27,6 +27,18 @@ An unbinned fit's data is each toy's per-event density tensor at every
 anchor point, (B, G, S, E), with its event mask and the per-toy centering
 data of :func:`unbinned_center`; the kernels read a lane's toy through an
 index tensor, so no lane subset of that tensor is ever copied.
+
+A compiled LogLikelihoodSum fits on the Sum engine
+(:func:`_make_sum_analytic_parts`): each binned child's (value, g, H)
+chained to the joint u space through its own parameter graph, which
+routes only the joint parameters the child declares, weighted by the
+sum's weights; a dataset-free child (an ancillary constraint) by
+``torch.func`` over its logl. Its data is a tuple, one count tensor per
+child. On the card each binned child takes the engine it would take on
+its own: the CUDA kernels where they take the model. A log-morphed model
+(``template_interpolation='log'``) runs the closed forms of
+:func:`~blueice_tpu_torch.ops.binned_vgh.binned_vgh_log`: the kernels
+bake in the linear lerp.
 """
 
 import numpy as np
@@ -34,12 +46,23 @@ import torch
 
 from ..exceptions import NoOpimizationNecessary
 from ..ops import fused, fused_bb, fused_bb_lite, fused_unbinned
-from ..ops.binned_vgh import corner_weight_tables
+from ..ops.binned_vgh import (_ll_from_P, binned_vgh_log,
+                              corner_weight_tables, log_morph_from_lerp)
 from ..ops.interp import cell_index, clip
 from ..ops.unbinned_vgh import reference_center
 
 __all__ = ['Transform', 'make_transform', 'minimize_newton',
-           'make_toy_fitter', 'check_fixed_in_bounds', 'unbinned_center']
+           'make_toy_fitter', 'check_fixed_in_bounds', 'unbinned_center',
+           'tree_map']
+
+
+def tree_map(fn, data, *rest):
+    """``fn`` over the leaves of a binned dataset: one count tensor, or a
+    compiled Sum's tuple of them, one per child (``rest``: datasets of the
+    same structure, passed alongside)."""
+    if isinstance(data, (tuple, list)):
+        return tuple(fn(*leaves) for leaves in zip(data, *rest))
+    return fn(data, *rest)
 
 
 class Transform:
@@ -451,14 +474,66 @@ def _fused_eligible(compiled):
     and type, and per mode what they compute. The bb_single kernels carry no
     negative-expectation penalty (as the reference's), so a bb_single model
     with an allow_negative source is not eligible; the plain and bb-lite
-    kernels keep the penalty. The unbinned kernels take any event count
-    (no memory budget, unlike the TPU's VMEM rule)."""
+    kernels keep the penalty. A log-morphed model is not eligible: the
+    kernels bake in the linear lerp. The unbinned kernels take any event
+    count (no memory budget, unlike the TPU's VMEM rule)."""
     K, S, _, _ = _grid_dims(compiled)
     return (compiled.device.type == 'cuda'
             and compiled.dtype == torch.float32
             and 1 <= S <= fused.MAX_SOURCES
             and 0 <= K <= fused.MAX_SHAPE_AXES
+            and not compiled.log_morph
             and not (compiled.has_bb and compiled.allowed_negative.any()))
+
+
+def _analytic_supported(compiled):
+    """The closed-form binned engine's models: a binned likelihood on a
+    dense global anchor grid (or without shape parameters); a log-morphed
+    one without a Beeston-Barlow mode (whose engines lerp linearly)."""
+    return bool(compiled.is_binned and compiled.ps_tensor is not None
+                and compiled.anchor_arrays is not None
+                and not (compiled.log_morph
+                         and (compiled.has_bb or compiled.has_bb_lite)))
+
+
+def _sum_analytic_supported(compiled):
+    """The Sum engine's models: a compiled LogLikelihoodSum whose every
+    dataset child is itself closed-form binned (:func:`_analytic_supported`),
+    with at least one such child; dataset-free children (ancillary
+    constraints) ride along through ``torch.func``."""
+    children = getattr(compiled, 'children', None)
+    if not children:
+        return False
+    data_children = [c for c in children if c.has_data]
+    return bool(data_children) and all(
+        getattr(c, 'children', None) is None and _analytic_supported(c)
+        for c in data_children)
+
+
+def _engine_family(compiled):
+    """'sum', 'binned' or 'unbinned': the closed-form engine that fits
+    ``compiled``; raises NotImplementedError, naming ROADMAP item 16b, for
+    what the JAX package fits with its autodiff engine."""
+    if getattr(compiled, 'children', None) is not None:
+        if _sum_analytic_supported(compiled):
+            return 'sum'
+        what = ("a LogLikelihoodSum with an unbinned, re-parametrised or "
+                "nested child, or a log-morphed child with a Beeston-Barlow "
+                "mode, or without a binned child")
+    elif _analytic_supported(compiled):
+        return 'binned'
+    elif compiled.is_binned is False and compiled.anchor_arrays is not None:
+        return 'unbinned'
+    elif compiled.log_morph:
+        what = "log template morphing with a Beeston-Barlow mode"
+    elif not compiled.has_data:
+        what = "a dataset-free LogAncillaryLikelihood on its own"
+    else:
+        what = ("a LogLikelihoodReParam (no anchor grid in its new "
+                "parameters)")
+    raise NotImplementedError(
+        "%s is fitted by the autodiff engine, which is not ported yet "
+        "(ROADMAP queue 1 item 16b)" % what)
 
 
 def _tie_slope(v, lo, hi):
@@ -472,6 +547,36 @@ def _tie_slope(v, lo, hi):
     return f1 * f2
 
 
+class _Routing:
+    """Each parameter's value in a fit: the floating coordinate of x, the
+    runtime-fixed value, the build-time fixed value or the default, in that
+    order. ``routed``: for a child of a compiled Sum, the set of joint names
+    the child declares; a joint parameter outside it, floating, fixed or
+    runtime-fixed, keeps the child's default there (the host Sum's
+    routing). None routes everything."""
+
+    def __init__(self, defaults, names, fixed, runtime_fixed=(), routed=None):
+        def routes(nm):
+            return routed is None or nm in routed
+        self.defaults = defaults
+        self.name_pos = {nm: i for i, nm in enumerate(names) if routes(nm)}
+        self.rt_pos = {nm: i for i, nm in enumerate(runtime_fixed)
+                       if routes(nm)}
+        self.fixed = {k: v for k, v in fixed.items() if routes(k)}
+
+    def value_of(self, nm, x, fv):
+        """Parameter ``nm`` as a tensor of x's batch shape (None: ones)."""
+        if nm is None:
+            return torch.ones(x.shape[:-1], dtype=x.dtype, device=x.device)
+        if nm in self.name_pos:
+            return x[..., self.name_pos[nm]]
+        if nm in self.rt_pos:
+            return fv[..., self.rt_pos[nm]]
+        v = self.fixed[nm] if nm in self.fixed else self.defaults[nm]
+        return torch.full(x.shape[:-1], float(v), dtype=x.dtype,
+                          device=x.device)
+
+
 class _ParamGraph:
     """The tiny graph from the optimizer's u vector to the likelihood's
     natural parameters: rates m (S), lerp weights t (K) and the summed log
@@ -482,19 +587,23 @@ class _ParamGraph:
     m_s = mus_s(t) R_s E_s are the mus anchor tensor lerped at t (multilinear)
     times the rate multiplier R_s and, for sources that apply one, the
     efficiency E_s, both linear in x. ``fv`` (..., R) holds the
-    runtime-fixed values, aligned with ``runtime_fixed``.
+    runtime-fixed values, aligned with ``runtime_fixed``. ``routed``: for a
+    child of a compiled Sum, the joint names it declares (see
+    :class:`_Routing`).
     """
 
-    def __init__(self, compiled, names, fixed, transform, runtime_fixed=()):
+    def __init__(self, compiled, names, fixed, transform, runtime_fixed=(),
+                 routed=None):
         dt, dev = compiled.dtype, compiled.device
-        self.compiled, self.transform, self.fixed = compiled, transform, fixed
+        self.compiled, self.transform = compiled, transform
+        self.routing = _Routing(compiled.defaults, names, fixed,
+                                runtime_fixed, routed)
         self.shape_names = list(compiled.shape_names)
         self.rate_names = list(compiled.rate_names)
         self.K = K = len(self.shape_names)
         self.S = S = len(self.rate_names)
         n = len(names)
-        self.name_pos = {nm: i for i, nm in enumerate(names)}
-        self.rt_pos = {nm: i for i, nm in enumerate(runtime_fixed)}
+        self.name_pos = self.routing.name_pos
         grid_shape = tuple(len(a) for a in compiled.anchor_arrays)
         G = int(np.prod(grid_shape)) if K else 1
         self.strides = tuple(int(np.prod(grid_shape[d + 1:]))
@@ -527,15 +636,7 @@ class _ParamGraph:
 
     def value_of(self, nm, x, fv):
         """Parameter ``nm`` as a tensor of x's batch shape."""
-        if nm is None:
-            return torch.ones(x.shape[:-1], dtype=x.dtype, device=x.device)
-        if nm in self.name_pos:
-            return x[..., self.name_pos[nm]]
-        if nm in self.rt_pos:
-            return fv[..., self.rt_pos[nm]]
-        v = self.fixed[nm] if nm in self.fixed else self.compiled.defaults[nm]
-        return torch.full(x.shape[:-1], float(v), dtype=x.dtype,
-                          device=x.device)
+        return self.routing.value_of(nm, x, fv)
 
     def cells(self, u, fv):
         """(x, idx (..., K) lower anchor-cell indices, lo and width (..., K)
@@ -670,20 +771,56 @@ def _likelihood_ops(compiled, G, S, n_bins, use_fused):
     return vgh_op, ll_op
 
 
+def _log_morph_ops(compiled, G, S):
+    """(vgh_op, ll_op) of a log-morphed model, called as the ops of
+    :func:`_likelihood_ops`: the closed forms of geometric template
+    morphing on each lane's corners of the log anchor tensor and of the
+    per-anchor masses (float64 host masses, in the working dtype). The
+    value op lerps candidate by candidate, corner by corner, so the
+    (B, A, 2^K, S, N) corner block is never materialized."""
+    masses = torch.as_tensor(compiled.masses_host.reshape(G, S),
+                             dtype=compiled.dtype, device=compiled.device)
+
+    def vgh_op(anchor, strides, idx, t, m, data):
+        ids = fused.corner_ids(strides, idx, G)
+        return binned_vgh_log(anchor[ids], masses[ids], m, t, data)
+
+    def ll_op(anchor, strides, idx, t, m, data):
+        ids = fused.corner_ids(strides, idx, G)              # (B, A, C)
+        w = corner_weight_tables(t)[0]                       # (B, A, C)
+        L = M = 0
+        for c in range(ids.shape[-1]):
+            L = L + w[..., c, None, None] * anchor[ids[..., c]]
+            M = M + w[..., c, None] * masses[ids[..., c]]
+        return _ll_from_P(log_morph_from_lerp(L, M)[0], m, data[:, None, :])
+    return vgh_op, ll_op
+
+
 def _make_analytic_parts(compiled, names, fixed, transform, use_fused,
-                         runtime_fixed=()):
+                         runtime_fixed=(), routed=None):
     """(value_many(u_cands, data, fv), vgh(u, data, fv)) computing the
     negated objective from the closed-form (m, t)-derivatives chained through
     the parameter graph: transforms, rate morphing, efficiencies, priors.
 
     ``use_fused`` routes the heavy (ll, g, H) and value ops to the CUDA
     kernel wrappers (their plain versions on the CPU); otherwise to those
-    plain versions directly (see :func:`_likelihood_ops`).
+    plain versions directly (see :func:`_likelihood_ops`). A log-morphed
+    model takes :func:`_log_morph_ops` (no kernel). ``routed``: see
+    :class:`_Routing`.
     """
     K, S, G, n_bins = _grid_dims(compiled)
     anchor = compiled.ps_tensor.reshape(G, S, n_bins).contiguous()
-    graph = _ParamGraph(compiled, names, fixed, transform, runtime_fixed)
-    vgh_op, ll_op = _likelihood_ops(compiled, G, S, n_bins, use_fused)
+    graph = _ParamGraph(compiled, names, fixed, transform, runtime_fixed,
+                        routed)
+    if compiled.log_morph:
+        if use_fused:
+            raise ValueError(
+                "the fused CUDA kernels bake in linear template morphing; "
+                "log-morphed (template_interpolation='log') models use "
+                "engine='analytic'")
+        vgh_op, ll_op = _log_morph_ops(compiled, G, S)
+    else:
+        vgh_op, ll_op = _likelihood_ops(compiled, G, S, n_bins, use_fused)
 
     def value_many(u_cands, data, fv):
         """Objective at candidates u_cands (L, A, n), data (L, N), fv (L, R)
@@ -705,6 +842,84 @@ def _make_analytic_parts(compiled, names, fixed, transform, use_fused,
         return -(ll + prior), g, H
 
     return value_many, vgh
+
+
+def _ancillary_parts(compiled, names, fixed, transform, runtime_fixed=(),
+                     routed=None):
+    """(value_many, vgh) of a dataset-free child of a Sum: the negated logl
+    of its routed parameters at u, any batch shape; (g, H) by
+    ``torch.func`` (``vmap`` of ``grad`` and ``hessian`` over the lanes).
+    Its func must be differentiable torch arithmetic, without ``.item()``
+    or branches on values."""
+    from torch.func import grad, hessian, vmap
+    routing = _Routing(compiled.defaults, names, fixed, runtime_fixed, routed)
+
+    def objective(u, fv):
+        x = transform.to_x(u)
+        return -compiled.logl({p: routing.value_of(p, x, fv)
+                               for p in compiled.param_names})
+
+    def value_many(u_cands, data, fv):
+        return objective(u_cands, fv[:, None, :].expand(
+            u_cands.shape[:2] + fv.shape[-1:]))
+
+    def vgh(u, data, fv):
+        return (objective(u, fv), vmap(grad(objective))(u, fv),
+                vmap(hessian(objective))(u, fv))
+    return value_many, vgh
+
+
+def _make_sum_analytic_parts(compiled, names, fixed, transform, engine,
+                             runtime_fixed=()):
+    """(value_many(u_cands, data, fv), vgh(u, data, fv)) of a compiled
+    LogLikelihoodSum: the weighted sum of its children's, each chained to
+    the joint u space through its own routed parameter graph; ``data`` is
+    the tuple of per-child count tensors (L, N_i) (empty for a dataset-free
+    child). Each binned child takes the CUDA kernels with ``engine`` 'fused'
+    and, with 'auto', where they take it on its own
+    (:func:`_fused_eligible`); 'analytic' keeps every child on the plain
+    versions."""
+    entries = []
+    for c, w, routed in zip(compiled.children, compiled.child_weights,
+                            compiled.child_routed):
+        if c.has_data:
+            use_fused = (engine == 'fused'
+                         or (engine == 'auto' and _fused_eligible(c)))
+            parts = _make_analytic_parts(c, names, fixed, transform,
+                                         use_fused, runtime_fixed, routed)
+        else:
+            parts = _ancillary_parts(c, names, fixed, transform,
+                                     runtime_fixed, routed)
+        entries.append((w,) + parts)
+
+    def value_many(u_cands, data, fv):
+        return sum(w * vm(u_cands, d, fv)
+                   for (w, vm, _), d in zip(entries, data))
+
+    def vgh(u, data, fv):
+        outs = [[w * x for x in vg(u, d, fv)]
+                for (w, _, vg), d in zip(entries, data)]
+        return tuple(sum(parts) for parts in zip(*outs))
+    return value_many, vgh
+
+
+def _sum_snap_anchors(compiled, names, kink_coords, transform):
+    """u-space snap candidates of a Sum's shape coordinates: the union of
+    the anchors of the children each routes to (the joint objective's kinks
+    are there), or None when a coordinate has none."""
+    per_coord = []
+    for ci in kink_coords:
+        nm = names[ci]
+        vals = [np.asarray(c.anchor_arrays[list(c.shape_names).index(nm)])
+                for c, routed in zip(compiled.children,
+                                     compiled.child_routed)
+                if nm in routed and c.anchor_arrays
+                and nm in c.shape_names]
+        if not vals:
+            return None
+        per_coord.append(transform.to_u_coord(
+            ci, np.unique(np.concatenate(vals))))
+    return per_coord
 
 
 def _reference_point(compiled):
@@ -808,18 +1023,19 @@ def make_toy_fitter(compiled, fixed=None, guess=None, max_iter=60, tol=1e-8,
                     kink_jumps=None):
     """Build the batched fit ``fit(data, fixed_values=None, x0=None,
     lanes=None) -> (x (B, n_floating), max_ll (B,), n_iter (B,))`` for toy
-    count tensors ``data`` (B, *bins) of a binned likelihood, or for an
-    unbinned one ``data = (ps (B, G, S, E), mask (B, E), center)`` with
-    ``center = unbinned_center(compiled, ps, mask)``; ``lanes`` fits only
-    those toys of the batch.
+    count tensors ``data`` (B, *bins) of a binned likelihood (a compiled
+    Sum: a tuple of them, one per child, (B, 0) for a dataset-free child),
+    or for an unbinned one ``data = (ps (B, G, S, E), mask (B, E),
+    center)`` with ``center = unbinned_center(compiled, ps, mask)``;
+    ``lanes`` fits only those toys of the batch.
 
     :param engine: 'analytic' runs the closed form in plain torch;
       'fused' the CUDA kernels (their plain versions for CPU tensors);
       'auto' takes 'fused' on a CUDA device for every model the kernels
-      take (float32, 1 <= S <= 8, K <= 4, and no allow_negative source
-      under bb_single, whose kernels have no negative-expectation penalty;
-      every unbinned model in that range, at any event count) and
-      'analytic' elsewhere.
+      take (float32, 1 <= S <= 8, K <= 4, linear morphing, and no
+      allow_negative source under bb_single, whose kernels have no
+      negative-expectation penalty; every unbinned model in that range, at
+      any event count) and 'analytic' elsewhere; for a Sum, child by child.
     :param runtime_fixed: parameter names fixed at call time; their values
       arrive as ``fixed_values`` ((R,) or (B, R), aligned with this list).
     :param kink_jumps: in-loop escape steps along each shape coordinate, or
@@ -837,14 +1053,7 @@ def make_toy_fitter(compiled, fixed=None, guess=None, max_iter=60, tol=1e-8,
     for rname in runtime_fixed:
         fixed.setdefault(rname, compiled.defaults[rname])  # placeholder
     dt, dev = compiled.dtype, compiled.device
-    if engine == 'auto':
-        engine = 'fused' if _fused_eligible(compiled) else 'analytic'
-    if engine == 'fused' and dev.type == 'cuda' \
-            and not _fused_eligible(compiled):
-        raise ValueError("engine='fused' on CUDA needs float32 and a model "
-                         "in the kernels' range (1 <= S <= %d, K <= %d; no "
-                         "allow_negative source under bb_single)"
-                         % (fused.MAX_SOURCES, fused.MAX_SHAPE_AXES))
+    is_sum = getattr(compiled, 'children', None) is not None
 
     def fixed_batch(fixed_values, B):
         if not torch.is_tensor(fixed_values):
@@ -857,14 +1066,18 @@ def make_toy_fitter(compiled, fixed=None, guess=None, max_iter=60, tol=1e-8,
 
     def batch_of(data, lanes):
         """(data on the device, toys of the fit (L,) or None, L): binned
-        counts (B, *bins) are indexed at ``lanes``; unbinned data is
-        (ps, mask, center), read in place at ``lanes``."""
+        counts (B, *bins), or a Sum's tuple of them, are indexed at
+        ``lanes``; unbinned data is (ps, mask, center), read in place at
+        ``lanes``."""
         if compiled.is_binned:
-            data = torch.as_tensor(data, dtype=dt, device=dev)
-            data = data.reshape(data.shape[0], -1)
-            if lanes is not None:
-                data = data[torch.as_tensor(lanes, device=dev)]
-            return data.contiguous(), None, data.shape[0]
+            def rows(d):
+                d = torch.as_tensor(d, dtype=dt, device=dev)
+                d = d.reshape(d.shape[0], -1)
+                if lanes is not None:
+                    d = d[torch.as_tensor(lanes, device=dev)]
+                return d.contiguous()
+            data = tree_map(rows, data)
+            return data, None, (data[0] if is_sum else data).shape[0]
         ps, mask, center = data
         if lanes is None:
             return data, torch.arange(ps.shape[0], device=dev), ps.shape[0]
@@ -885,7 +1098,8 @@ def make_toy_fitter(compiled, fixed=None, guess=None, max_iter=60, tol=1e-8,
                 p = dict(base)
                 p.update({r: fv[b, i] for i, r in enumerate(runtime_fixed)})
                 if compiled.is_binned:
-                    lls.append(compiled.logl_with_data(p, data[b]))
+                    lls.append(compiled.logl_with_data(
+                        p, tree_map(lambda d: d[b], data)))
                 else:
                     lls.append(compiled.logl_with_data(
                         p, data[0][rows[b]], data[1][rows[b]]).double())
@@ -894,6 +1108,21 @@ def make_toy_fitter(compiled, fixed=None, guess=None, max_iter=60, tol=1e-8,
                     torch.zeros(B, dtype=torch.int64, device=dev))
         return fit_fixed, []
 
+    family = _engine_family(compiled)
+    if family == 'sum':
+        kernel_models = [c for c in compiled.children if c.has_data]
+    else:
+        kernel_models = [compiled]
+        if engine == 'auto':
+            engine = 'fused' if _fused_eligible(compiled) else 'analytic'
+    if engine == 'fused' and dev.type == 'cuda' \
+            and not all(_fused_eligible(c) for c in kernel_models):
+        raise ValueError("engine='fused' on CUDA needs float32 and a model "
+                         "in the kernels' range (1 <= S <= %d, K <= %d; "
+                         "linear morphing; no allow_negative source under "
+                         "bb_single)"
+                         % (fused.MAX_SOURCES, fused.MAX_SHAPE_AXES))
+
     u0 = torch.as_tensor(transform.to_u_np(x0), dtype=dt, device=dev)
     kink_coords = tuple(i for i, nm in enumerate(names)
                         if nm in compiled.shape_names)
@@ -901,32 +1130,45 @@ def make_toy_fitter(compiled, fixed=None, guess=None, max_iter=60, tol=1e-8,
         kink_jumps = ((0.3, -0.3, 0.1, -0.1) if len(kink_coords) <= 2
                       else ())
     snap_anchors = None
-    if kink_coords:
+    if kink_coords and family == 'sum':
+        snap_anchors = _sum_snap_anchors(compiled, names, kink_coords,
+                                         transform)
+    elif kink_coords:
         shape_idx = {nm: d for d, nm in enumerate(compiled.shape_names)}
         snap_anchors = [
             transform.to_u_coord(
                 ci, np.asarray(compiled.anchor_arrays[shape_idx[names[ci]]]))
             for ci in kink_coords]
-    make_parts = (_make_analytic_parts if compiled.is_binned
-                  else _make_unbinned_parts)
-    value_many, vgh = make_parts(
-        compiled, names, fixed, transform, use_fused=(engine == 'fused'),
-        runtime_fixed=runtime_fixed)
+    if family == 'sum':
+        value_many, vgh = _make_sum_analytic_parts(
+            compiled, names, fixed, transform, engine,
+            runtime_fixed=runtime_fixed)
+    else:
+        make_parts = (_make_analytic_parts if family == 'binned'
+                      else _make_unbinned_parts)
+        value_many, vgh = make_parts(
+            compiled, names, fixed, transform, use_fused=(engine == 'fused'),
+            runtime_fixed=runtime_fixed)
 
     def fit(data, fixed_values=None, x0=None, lanes=None):
-        """Fit a batch: binned counts (B, *bins), or unbinned
-        ``(ps (B, G, S, E), mask (B, E), unbinned_center(...))``; with
-        ``lanes`` only those toys of the batch. Returns (x (L, n), max_ll
-        (L,), n_iter (L,)); an unbinned max_ll is float64 (the centered
-        optimum plus the float64 reference value)."""
+        """Fit a batch: binned counts (B, *bins) (a Sum: a tuple, one per
+        child), or unbinned ``(ps (B, G, S, E), mask (B, E),
+        unbinned_center(...))``; with ``lanes`` only those toys of the
+        batch. Returns (x (L, n), max_ll (L,), n_iter (L,)); an unbinned
+        max_ll is float64 (the centered optimum plus the float64 reference
+        value)."""
         data, rows, B = batch_of(data, lanes)
         fv = fixed_batch(fixed_values, B)
         u_start = (u0.expand(B, -1) if x0 is None else
                    transform.to_u(torch.as_tensor(x0, dtype=dt, device=dev)))
         if compiled.is_binned:
             const = compiled.data_constant(data, batch_dims=1)
-            f_many = lambda L, c: value_many(c, data[L], fv[L])  # noqa: E731
-            vgh_l = lambda L, v: vgh(v, data[L], fv[L])          # noqa: E731
+
+            def f_many(L, c):
+                return value_many(c, tree_map(lambda d: d[L], data), fv[L])
+
+            def vgh_l(L, v):
+                return vgh(v, tree_map(lambda d: d[L], data), fv[L])
         else:
             const = data[2][2][rows]
             f_many = lambda L, c: value_many(c, data, rows[L], fv[L])  # noqa

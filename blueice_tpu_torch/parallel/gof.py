@@ -14,8 +14,9 @@ The p-value is toy-calibrated by default and by design: the chi-squared
 shifted by any prior/constraint terms in the likelihood (they enter
 LL_bestfit but not LL_saturated). The bootstrap sidesteps both.
 
-The counterpart of :mod:`blueice_tpu.parallel.gof`. The port has no
-compositions (ROADMAP queue 1 item 11), so a dataset is one count tensor.
+The counterpart of :mod:`blueice_tpu.parallel.gof`. A compiled
+LogLikelihoodSum's dataset is a tuple, one count tensor per child; its
+saturated model carries the sum's weights.
 """
 
 import numpy as np
@@ -23,6 +24,7 @@ import torch
 from scipy import special
 
 from ._stats import simulation_truth, tail_fraction
+from .fitter import tree_map
 
 __all__ = ['saturated_logl', 'gof_ts', 'gof_pvalue']
 
@@ -38,16 +40,25 @@ def _sat_terms(k, axes):
 
 def saturated_logl(study, counts, batched=False):
     """Saturated-model log likelihood of a dataset (or a batch of them),
-    matching the compiled likelihood's data conventions.
+    matching the compiled likelihood's data conventions, including the
+    per-child likelihood weights of a compiled LogLikelihoodSum.
 
-    :param counts: a count tensor (or array) shaped like
+    :param counts: count tensor(s) (or arrays) shaped like
       ``study.expected_counts()``, with a leading toy axis when ``batched``.
     :return: float, or (n_toys,) array when ``batched``.
     """
-    if torch.is_tensor(counts):
-        counts = counts.cpu().numpy()
-    k = np.asarray(counts, dtype=float)
-    return _sat_terms(k, tuple(range(1, k.ndim)) if batched else None)
+    def sat(c):
+        k = np.asarray(c.cpu().numpy() if torch.is_tensor(c) else c,
+                       dtype=float)
+        return _sat_terms(k, tuple(range(1, k.ndim)) if batched else None)
+    children = getattr(study.compiled, 'children', None)
+    if children is None:
+        return sat(counts)
+    out = 0.0
+    for w, c, ci in zip(study.compiled.child_weights, children, counts):
+        if c.has_data:
+            out = out + w * sat(ci)
+    return out
 
 
 def gof_ts(study, counts=None, fixed=None):
@@ -70,7 +81,7 @@ def gof_ts(study, counts=None, fixed=None):
             "saturated density is unbounded); bin the data or use a "
             "binned study")
     counts = study.observed_counts(counts)
-    res = study.fit_toys(counts[None], fixed=fixed)
+    res = study.fit_toys(tree_map(lambda c: c[None], counts), fixed=fixed)
     t = 2.0 * (saturated_logl(study, counts) - float(res.max_ll[0]))
     return float(t), res
 

@@ -4,7 +4,9 @@ Counterpart of :mod:`blueice_tpu.parallel.toys`:
 
 * :class:`BinnedToyStudy`: the sufficient statistic of a binned likelihood
   is the per-bin count, so toys are Poisson draws over the expected count
-  tensor (``torch.poisson`` with an explicit ``torch.Generator``).
+  tensor (``torch.poisson`` with an explicit ``torch.Generator``). For a
+  compiled LogLikelihoodSum a dataset is a tuple, one count tensor per
+  child (empty for a dataset-free child); :func:`tree_map` maps over it.
 * :class:`UnbinnedToyStudy`: toys are event sets drawn from the per-(source,
   bin) expectation at the truth point (uniform inside a bin), padded to
   ``n_max`` with an event mask, and scored at every anchor point into a
@@ -31,7 +33,8 @@ import numpy as np
 import torch
 
 from ..compile import build_logl
-from .fitter import make_toy_fitter, check_fixed_in_bounds, unbinned_center
+from .fitter import (make_toy_fitter, check_fixed_in_bounds, unbinned_center,
+                     tree_map)
 
 __all__ = ['BinnedToyStudy', 'UnbinnedToyStudy', 'ToyResults', 'seed_of',
            'child_seed']
@@ -424,7 +427,9 @@ class _ToyStudy:
             x0 = np.concatenate([np.tile(free.x[0][warm], (P, 1)),
                                  np.tile(x_cold, (P, 1))])
         if self.compiled.is_binned:
-            data, lanes = data.expand(len(fv), -1).contiguous(), None
+            lanes = None
+            data = tree_map(lambda d: d.expand(len(fv), -1).contiguous(),
+                            data)
         else:
             lanes = torch.zeros(len(fv), dtype=torch.int64,
                                 device=self.device)
@@ -464,26 +469,32 @@ class BinnedToyStudy(_ToyStudy):
         self.profile_mode = profile_mode
 
     def expected_counts(self, **truth):
-        """Expected counts per analysis-space bin at the truth parameters."""
+        """Expected counts per analysis-space bin at the truth parameters.
+        For a compiled LogLikelihoodSum this is a tuple with one count tensor
+        per child (empty for dataset-free constraint terms)."""
         return self.compiled.expected_counts(
             self.compiled.params_from_kwargs(**truth))
 
     def simulate(self, seed_or_generator, n_toys, truth=None, mesh=None):
         """(n_toys, *bins) Poisson count tensors at the truth parameters,
-        drawn on the study's device.
+        drawn on the study's device (a tuple of them, one per child, for a
+        compiled Sum, drawn child after child from one generator).
 
         :param seed_or_generator: an int seed or a torch.Generator on the
           study's device.
         """
         _no_mesh(mesh)
         expected = self.expected_counts(**(truth or {}))
-        rates = expected.expand((int(n_toys),) + tuple(expected.shape))
-        return torch.poisson(rates.contiguous(),
-                             generator=self._generator(seed_or_generator))
+        gen = self._generator(seed_or_generator)
+
+        def draw(e):
+            rates = e.expand((int(n_toys),) + tuple(e.shape)).contiguous()
+            return torch.poisson(rates, generator=gen)
+        return tree_map(draw, expected)
 
     def _counts(self, counts):
-        return torch.as_tensor(counts, dtype=self.compiled.dtype,
-                               device=self.device)
+        return tree_map(lambda c: torch.as_tensor(
+            c, dtype=self.compiled.dtype, device=self.device), counts)
 
     def fit_toys(self, counts, fixed=None, guess=None):
         """Fit every toy dataset; returns ToyResults."""
@@ -524,15 +535,18 @@ class BinnedToyStudy(_ToyStudy):
             if h is None:
                 raise ValueError(
                     "No counts given and the likelihood has no data bound — "
-                    "call lf.set_data(...) first or pass counts= explicitly")
+                    "call lf.set_data(...) first or pass counts= explicitly "
+                    "(for a compiled Sum: one count tensor per child)")
             counts = h.values
-        expected = self.expected_counts()
-        counts = self._counts(counts)
-        if counts.shape != expected.shape:
-            raise ValueError(
-                "counts shape %s does not match the analysis space %s"
-                % (tuple(counts.shape), tuple(expected.shape)))
-        return counts
+
+        def check(e, c):
+            c = self._counts(c)
+            if c.shape != e.shape:
+                raise ValueError(
+                    "counts shape %s does not match the analysis space %s"
+                    % (tuple(c.shape), tuple(e.shape)))
+            return c
+        return tree_map(check, self.expected_counts(), counts)
 
     def profile_map(self, space, counts=None, fixed=None, _free=None):
         """Profiled likelihood-ratio map on one observed dataset:
@@ -553,7 +567,8 @@ class BinnedToyStudy(_ToyStudy):
           order)).
         """
         targets, grids = _check_map_space(self.compiled, space, fixed)
-        counts1 = self.observed_counts(counts).reshape(1, -1)
+        counts1 = tree_map(lambda c: c.reshape(1, -1),
+                           self.observed_counts(counts))
         free = _free if _free is not None else self._fit(counts1, fixed)
         return self._map(counts1, targets, grids, fixed, free)
 

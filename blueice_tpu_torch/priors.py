@@ -3,8 +3,10 @@
 Counterpart of :mod:`blueice_tpu.priors`: :class:`NormalPrior` and
 :class:`UniformPrior` compute with numpy for plain python/numpy values and
 with torch ops for tensors, so one likelihood carries them on the host path
-and in the compiled torch likelihood alike. ``MultivariateNormalPrior`` is
-not ported yet (ROADMAP queue 1 item 16c).
+and in the compiled torch likelihood alike. :class:`MultivariateNormalPrior`
+is the correlated constraint over several parameters that
+:func:`blueice_tpu_torch.composition.correlated_gaussian_constraint` builds
+on.
 """
 
 import math
@@ -12,7 +14,7 @@ import math
 import numpy as np
 import torch
 
-__all__ = ['NormalPrior', 'UniformPrior']
+__all__ = ['NormalPrior', 'UniformPrior', 'MultivariateNormalPrior']
 
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 
@@ -88,6 +90,82 @@ class UniformPrior:
 
     def __repr__(self):
         return "UniformPrior(lo=%r, hi=%r)" % (self.lo, self.hi)
+
+
+class MultivariateNormalPrior:
+    """Joint Gaussian log-density over a vector of parameters, the
+    correlated generalization of per-parameter :class:`NormalPrior`
+    constraints.
+
+    Callable on a plain vector (host numpy), on torch tensors, or on the
+    OrderedDict a
+    :class:`~blueice_tpu_torch.composition.LogAncillaryLikelihood` passes
+    its func. The Cholesky factor is precomputed once; evaluation is
+    one triangular solve. On tensors the parameters stack along a new last
+    axis, so values of any common batch shape evaluate at once (and under
+    ``torch.func.vmap``). Picklable and hashable by value.
+    """
+
+    def __init__(self, mean, cov):
+        mean = np.asarray(mean, dtype=float).ravel()
+        cov = np.asarray(cov, dtype=float)
+        if cov.shape != (len(mean), len(mean)):
+            raise ValueError("cov must be (%d, %d); got %s"
+                             % (len(mean), len(mean), cov.shape))
+        if not np.allclose(cov, cov.T, rtol=1e-10, atol=0):
+            raise ValueError("cov must be symmetric")
+        try:
+            chol = np.linalg.cholesky(cov)
+        except np.linalg.LinAlgError:
+            raise ValueError("cov must be positive definite (Cholesky failed)")
+        self.mean = mean
+        self.cov = cov
+        self._chol = chol
+        self._log_norm = (-0.5 * len(mean) * math.log(2.0 * math.pi)
+                          - float(np.sum(np.log(np.diag(chol)))))
+
+    def __call__(self, x, **_ancillary_kwargs):
+        # OrderedDict from LogAncillaryLikelihood: stack in parameter order
+        if isinstance(x, dict):
+            x = list(x.values())
+        if isinstance(x, (list, tuple)) and all(_is_host_value(v)
+                                                for v in x):
+            x = np.asarray(x, dtype=float)
+        if _is_host_value(x):
+            from scipy.linalg import solve_triangular
+            z = solve_triangular(self._chol,
+                                 np.asarray(x, dtype=float) - self.mean,
+                                 lower=True)
+            return float(-0.5 * np.dot(z, z) + self._log_norm)
+        diff = (torch.stack(torch.broadcast_tensors(*x), dim=-1)
+                if isinstance(x, (list, tuple)) else x)
+        chol = torch.as_tensor(self._chol, dtype=diff.dtype,
+                               device=diff.device)
+        diff = diff - torch.as_tensor(self.mean, dtype=diff.dtype,
+                                      device=diff.device)
+        z = torch.linalg.solve_triangular(
+            chol.expand(diff.shape[:-1] + chol.shape), diff[..., None],
+            upper=False)[..., 0]
+        return -0.5 * (z * z).sum(-1) + self._log_norm
+
+    def __getstate__(self):
+        return {'mean': self.mean, 'cov': self.cov}
+
+    def __setstate__(self, state):
+        self.__init__(state['mean'], state['cov'])
+
+    def __repr__(self):
+        return "MultivariateNormalPrior(mean=%s, cov=%s)" % (
+            self.mean.tolist(), self.cov.tolist())
+
+    def __eq__(self, other):
+        return (isinstance(other, MultivariateNormalPrior)
+                and np.array_equal(self.mean, other.mean)
+                and np.array_equal(self.cov, other.cov))
+
+    def __hash__(self):
+        return hash(('MultivariateNormalPrior',
+                     self.mean.tobytes(), self.cov.tobytes()))
 
 
 #: prior kind -> class, for rebuilding priors from (kind, numbers) state

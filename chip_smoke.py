@@ -19,7 +19,15 @@ model the repo supports, float32 on the card:
   likelihood at 3 live days (~1,880 events per toy), 256 toys;
 * ``unbinned``: bench.py's Gaussian unbinned model (2 Monte-Carlo sources
   over 100 bins, shape parameter mu on 3 anchors, ~2,000 events per toy),
-  1,024 toys, target s0_rate_multiplier.
+  1,024 toys, target s0_rate_multiplier;
+* ``combined``: XENON1T's two science runs as one LogLikelihoodSum, SR0
+  (32.1 live days) and SR1 (246.7) of the binned model above, the 8
+  parameters shared by name, plus a correlated calibration constraint on
+  band_shift and band_width_scale (rho = 0.5), 256 toys; each child runs
+  the binned kernels (``combined_likelihood``);
+* ``xenon_log``: the binned model with geometric (log) template morphing,
+  256 toys; no kernel may launch, since the kernels bake in the linear
+  lerp (``xenon_log_likelihood``).
 
 For each path:
 
@@ -39,11 +47,15 @@ For each path:
    20);
 2. the path itself, twice (seeds 0 and 1), with every launch counter set
    to 0 just before and read just after: the path's own two kernels must
-   have launched, the others not; the profile statistic is checked against
-   the reference's statistics (median t band, mean fitted target in
-   (0.7, 1.3)); then the value and the vgh kernel over one profile's own
-   calls (``replay_calls``: every call of the wrapper recorded, their
-   launches replayed from CUDA graphs, summed time beside summed bound);
+   have launched, the others not (``combined``: the xenon kernels;
+   ``xenon_log``: none); the profile statistic is checked against the
+   reference's statistics (median t band, mean fitted target in
+   (0.7, 1.3); for ``combined`` and ``xenon_log`` the band is centred on
+   the JAX package's own median t on the CPU, ``JAX_MEDIAN_T``); then, on
+   the five single-likelihood paths, the value and the vgh kernel over one
+   profile's own calls (``replay_calls``: every call of the wrapper
+   recorded, their launches replayed from CUDA graphs, summed time beside
+   summed bound);
 3. the same toys (counts, or event sets) fitted on CUDA in float32 and on
    the CPU in float64 (plain versions): max |d max_ll| <= 0.05, median
    |d t| <= 0.01.
@@ -83,7 +95,11 @@ every launch counter, its path's two kernels launched and no other:
    (``map_calls_row``, ``ll_allowance``);
 8. the Gaussian unbinned band, as 6 over 1,024 toys;
 9. the unbinned_xenon observed upper limit, as 7, on one simulated event
-   set bound with ``set_data``.
+   set bound with ``set_data``;
+10. the combined observed upper limit: as 7 on one simulated
+   background-only SR0/SR1 dataset pair, passed as ``counts=`` with an
+   empty entry for the constraint, cold and once warm, against float64 on
+   the CPU at the same grid; the xenon kernels launched and no other.
 
 The statistics part runs at full size, uncut: 256 toys in the xenon band
 and 1,024 in the Gaussian one. It takes longer than the two bands alone
@@ -95,7 +111,13 @@ every hypothesis of the grid.
 Run with no arguments, as above, it is the smoke test. Path names as
 arguments (``python3 chip_smoke.py bb bblite``) run those paths alone and
 no statistics or roofline part: a quicker measurement of their kernels, which prints the
-same lines for them. ``measure_unbinned.py`` holds the torch.profiler
+same lines for them (``python3 chip_smoke.py combined xenon_log``: the
+composition paths alone).
+
+The paths ``combined`` and ``xenon_log`` and the ``combined interval``
+phase add about 110 s to a run on an H100 (25, 6 and 77 s, most of the
+last its float64 CPU referee; PERF.md section 6); nothing of them is cut:
+their phase 3 compares 8 toys. ``measure_unbinned.py`` holds the torch.profiler
 account and the engine A/B of the unbinned paths.
 
 Any failure raises (exit code != 0, no result line). Without CUDA it exits
@@ -111,6 +133,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -136,7 +159,28 @@ PATHS = {
                        (0.25, 0.80)),
     'unbinned': ('unbinned_gauss', 's0_rate_multiplier', 1024, 16,
                  (0.33, 0.66)),
+    'combined': ('combined', 'wimp_rate_multiplier', 256, 8, None),
+    'xenon_log': ('xenon_log', 'wimp_rate_multiplier', 256, 8, None),
 }
+#: the JAX package's median t of the path on the CPU, float64, and the
+#: bootstrap spread of that median (``measure_composition_reference.py``:
+#: 256 toys for each of seeds 0 and 1; PERF.md section 6)
+JAX_MEDIAN_T = {
+    'combined': (0.1910109646642013, 0.018239730435379912),
+    'xenon_log': (0.1477779580909555, 0.016995368345532724),
+}
+
+
+def median_band(label):
+    """The band of the path's median t: PATHS' own, or centred on the JAX
+    package's figure, its half-width 0.05 (as the xenon band's) or three
+    times that figure's bootstrap spread, whichever is larger."""
+    band = PATHS[label][4]
+    if band is not None:
+        return band
+    centre, spread = JAX_MEDIAN_T[label]
+    half = max(0.05, 3.0 * spread)
+    return (centre - half, centre + half)
 
 # kernel row metadata per path: (wrapper, source, Pallas body it replaces,
 # the other Pallas flavour of the same contract)
@@ -164,6 +208,10 @@ META = {
                  ('unbinned_ll_fused_multi', 'fused_unbinned.cu',
                   'fused_unbinned.py:156', 'fused_unbinned.py:332')],
 }
+# each binned child of the Sum takes the xenon kernels; a log-morphed model
+# none
+META['combined'] = META['xenon']
+META['xenon_log'] = []
 
 
 def log(*args):
@@ -287,8 +335,54 @@ def sass_census(lib_paths):
 
 # -- the paths ---------------------------------------------------------------
 
+#: live days of XENON1T's two science runs, SR0 and SR1 (Aprile et al., PRL
+#: 121, 111302 (2018))
+SCIENCE_RUNS_DAYS = (32.1, 246.7)
+#: the combined path's calibration of the band's position and width:
+#: (parameters, mean, covariance), rho = 0.012 / (0.3 * 0.08) = 0.5
+CALIBRATION = (['band_shift', 'band_width_scale'], [0.0, 1.0],
+               [[0.09, 0.012], [0.012, 0.0064]])
+
+
+def combined_likelihood(xenon_like, likelihood, composition):
+    """SR0 + SR1 + the calibration constraint, the 8 parameters shared by
+    name. Package-agnostic: pass either package's modules."""
+    runs = [xenon_like.build_likelihood('binned', livetime_days=days)
+            for days in SCIENCE_RUNS_DAYS]
+    constraint = composition.correlated_gaussian_constraint(*CALIBRATION)
+    return likelihood.LogLikelihoodSum(runs + [constraint])
+
+
+def xenon_log_likelihood(xenon_like, likelihood):
+    """``xenon_like``'s binned model with geometric (log) template morphing:
+    ``build_config()`` with ``build_likelihood``'s parameter declarations."""
+    NormalPrior = xenon_like.NormalPrior
+    lf = likelihood.BinnedLogLikelihood(
+        xenon_like.build_config(),
+        likelihood_config={'template_interpolation': 'log'})
+    lf.add_rate_parameter('wimp')
+    lf.add_rate_parameter('er', log_prior=NormalPrior(1, 0.05))
+    lf.add_rate_parameter('nr', log_prior=NormalPrior(1, 0.2))
+    lf.add_rate_parameter('wall', log_prior=NormalPrior(1, 0.3))
+    zs = tuple(np.linspace(-1, 1, 3))
+    lf.add_shape_parameter('band_shift', zs, log_prior=NormalPrior(0, 0.5))
+    lf.add_shape_parameter('band_width_scale',
+                           tuple(np.linspace(0.8, 1.2, 3)),
+                           log_prior=NormalPrior(1, 0.1))
+    lf.add_shape_parameter('cs1_tilt', zs, log_prior=NormalPrior(0, 0.5))
+    lf.add_shape_parameter('efficiency', tuple(np.linspace(0.7, 1.3, 3)),
+                           log_prior=NormalPrior(1, 0.1))
+    lf.prepare()
+    return lf
+
+
 def build_model(label, xenon_like, test_helpers, likelihood):
     model = PATHS[label][0]
+    if model == 'combined':
+        from blueice_tpu_torch import composition
+        return combined_likelihood(xenon_like, likelihood, composition)
+    if model == 'xenon_log':
+        return xenon_log_likelihood(xenon_like, likelihood)
     if model == 'unbinned_xenon':
         return xenon_like.build_likelihood('unbinned', livetime_days=3.0)
     if model == 'unbinned_gauss':
@@ -317,7 +411,7 @@ def binned_ops(label, compiled, mods):
     f(anchor, rows, strides, idx, t, m, observed, *extra)."""
     fused, fused_bb, fused_bb_lite = mods['fused'], mods['fused_bb'], \
         mods['fused_bb_lite']
-    if label == 'xenon':
+    if label in ('xenon', 'combined'):
         return (fused.binned_vgh_fused, fused.binned_vgh_plain,
                 fused.binned_vgh_launcher, fused.binned_ll_fused_multi,
                 fused.binned_ll_plain, fused.binned_ll_launcher), None, ()
@@ -731,7 +825,8 @@ def check_own_launches(label, launches, what):
 
 def main_path(label, study, mods, rows):
     """Phase 2: the path twice between reset and read of every counter."""
-    _, target, n_toys, _, band = PATHS[label]
+    _, target, n_toys, _, _ = PATHS[label]
+    band = median_band(label)
     for module in mods.values():
         module.reset_launch_counts()
     results = []
@@ -945,10 +1040,11 @@ def replay_calls(label, study, mods, rows, contract='value'):
 def two_precisions(label, study, cls):
     """Phase 3: the same toys in float32 on the card and in float64 on the
     CPU (plain versions)."""
+    from blueice_tpu_torch.parallel.fitter import tree_map
     _, target, n_toys, n_compare, _ = PATHS[label]
     if study.compiled.is_binned:
-        toys = study.simulate(0, n_toys)[:n_compare]
-        cpu_toys = toys.cpu().double()
+        toys = tree_map(lambda c: c[:n_compare], study.simulate(0, n_toys))
+        cpu_toys = tree_map(lambda c: c.cpu().double(), toys)
         cpu_study = cls(study.lf, dtype=torch.float64, device='cpu',
                         max_iter=96, tol=3e-4)
     else:
@@ -995,14 +1091,25 @@ def run_path(label, mods, api):
     else:
         cls = api['BinnedToyStudy']
         study = cls(lf, max_iter=96, tol=3e-4)          # the card, float32
-        log("%s likelihood: anchor tensor %s (grid, sources, bins), built in "
-            "%.1f s" % (label, tuple(study.compiled.ps_tensor.shape),
-                        time.time() - t0))
+        compiled = study.compiled
+        children = getattr(compiled, 'children', None) or [compiled]
+        log("%s likelihood: anchor tensor(s) %s (grid, sources, bins)%s, "
+            "built in %.1f s" % (
+                label, [tuple(c.ps_tensor.shape) for c in children
+                        if c.has_data],
+                ' log-morphed' if compiled.log_morph else '',
+                time.time() - t0))
     check_on_card(label, study.compiled)
-    rows = kernel_rows(label, study, mods)
+    rows = []
+    if META[label]:
+        # a Sum's kernels at the shapes of its SR1 child
+        kernel_study = (types.SimpleNamespace(compiled=children[1])
+                        if label == 'combined' else study)
+        rows = kernel_rows(label, kernel_study, mods)
     main_path(label, study, mods, rows)
     for contract in CALLS:
-        replay_calls(label, study, mods, rows, contract)
+        if label in CALLS[contract]:
+            replay_calls(label, study, mods, rows, contract)
     two_precisions(label, study, cls)
     return rows, study, cls
 
@@ -1017,6 +1124,7 @@ STATS = collections.OrderedDict([
     ('xenon interval', ('xenon', 'interval', None)),
     ('unbinned band', ('unbinned', 'band', 1024)),
     ('unbinned_xenon interval', ('unbinned_xenon', 'interval', None)),
+    ('combined interval', ('combined', 'interval', None)),
 ])
 #: toys of a band's float32-vs-float64 grid referee
 REFEREE_TOYS = 8
@@ -1157,6 +1265,13 @@ def observed_dataset(lf):
                                        rng=np.random.default_rng(1)))
 
 
+def sum_dataset(study, target):
+    """One background-only dataset of a Sum's study (``target`` at 0),
+    drawn from seed 1: a tuple, one count tensor per child."""
+    from blueice_tpu_torch.parallel.fitter import tree_map
+    return tree_map(lambda c: c[0], study.simulate(1, 1, truth={target: 0.0}))
+
+
 def map_calls_row(phase, label, study, mods, contract, hyps):
     """Every call of the path's wrapper of ``contract`` in one
     ``profile_map`` at the interval's final grid (``record_calls``: the
@@ -1240,17 +1355,28 @@ def interval_phase(phase, label, study, cls, mods, rows):
     between reset and read of every counter; the same interval on a
     float64 CPU study at the last call's final grid (relative gap <=
     0.01); the kernels on one map's own calls (``map_calls_row``).
+    A Sum has no ``set_data``: its dataset is one simulated
+    background-only draw, passed as ``counts=`` (an empty entry for the
+    constraint), cold and once warm, and no map calls are recorded.
     Returns this phase's kernel rows."""
     from blueice_tpu_torch.parallel import observed_interval
+    from blueice_tpu_torch.parallel.fitter import tree_map
     target = PATHS[label][1]
-    observed_dataset(study.lf)
+    is_sum = hasattr(study.compiled, 'children')
+    if is_sum:
+        counts = sum_dataset(study, target)
+        kwargs, runs = dict(counts=counts), 2
+    else:
+        observed_dataset(study.lf)
+        kwargs, runs = {}, 4
 
     def run():
         out = []
-        for _ in range(4):
+        for _ in range(runs):
             t0 = time.time()
             ul, _, hyps, _ = observed_interval(study, target, kind='upper',
-                                               cl=0.9, return_grid=True)
+                                               cl=0.9, return_grid=True,
+                                               **kwargs)
             torch.cuda.synchronize()
             out.append((time.time() - t0, ul, hyps))
         return out
@@ -1261,14 +1387,16 @@ def interval_phase(phase, label, study, cls, mods, rows):
     t0 = time.time()
     # the float64 map at the float32 call's final grid: the same
     # hypotheses and interpolation, one map where 'auto' takes 3-6
+    if is_sum:
+        kwargs['counts'] = tree_map(lambda c: c.cpu().double(), counts)
     ul64 = observed_interval(cpu_referee_study(study, cls), target, hyps,
-                             kind='upper', cl=0.9)
+                             kind='upper', cl=0.9, **kwargs)
     gap = abs(ul - ul64) / abs(ul64)
     log("%s: upper limit (90%%) %.6g, float64 CPU %.6g at the same grid "
         "(%.1f s): relative gap %.3g; cold %.3f s, warm %.3f s (median of "
-        "3); final grid [%.5g, %.5g] of %d points"
+        "%d); final grid [%.5g, %.5g] of %d points"
         % (phase, ul, ul64, time.time() - t0, gap, results[0][0], warm,
-           hyps[0], hyps[-1], len(hyps)))
+           runs - 1, hyps[0], hyps[-1], len(hyps)))
     if not (np.isfinite(ul) and gap <= 0.01):
         raise AssertionError("%s: the float32 upper limit disagrees with "
                              "float64" % phase)
@@ -1276,6 +1404,8 @@ def interval_phase(phase, label, study, cls, mods, rows):
         row['launches_interval'] = launches[row['name']]
         row['interval_s'] = warm
     new = []
+    if is_sum:
+        return new
     for (name, src, rep, alt), contract in zip(META[label],
                                                ('vgh', 'value')):
         row = dict(route='cuda', source=CSRC + src, replaces=TPU + rep,
@@ -1433,9 +1563,11 @@ def main(labels):
 
     rows, studies = [], {}
     for label in labels or PATHS:
+        t0 = time.time()
         path_rows, study, cls = run_path(label, mods, api)
         rows += path_rows
         studies[label] = (study, cls)
+        log("path %s: %.1f s" % (label, time.time() - t0))
     if not labels:
         t0 = time.time()
         rows += statistics_part(studies, mods, rows)

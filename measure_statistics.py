@@ -7,12 +7,13 @@ Run from the root of a checkout on a machine with a CUDA GPU:
 
 For each phase of ``chip_smoke.py``'s statistics part (``STATS``: the xenon
 sensitivity band, 256 toys; the xenon observed upper limit; the Gaussian
-unbinned band, 1,024 toys; the unbinned_xenon observed upper limit), float32
-on the card, on the study of its path:
+unbinned band, 1,024 toys; the unbinned_xenon observed upper limit; the
+combined SR0+SR1 observed upper limit), float32 on the card, on the study
+of its path:
 
 1. the call once cold and once warm, unprofiled (a band on seed 0, then on
    seed 1; an interval on one simulated background-only dataset bound with
-   ``set_data``, twice);
+   ``set_data``, or for the combined Sum passed as ``counts=``, twice);
 2. the warm call under torch.profiler: the device's kernels by name, their
    summed time over the wall time (one stream, so they do not overlap: the
    card idles the rest);
@@ -29,20 +30,22 @@ import time
 
 import torch
 
-from chip_smoke import PATHS, STATS, build_model, log, observed_dataset
+from chip_smoke import (PATHS, STATS, build_model, log, observed_dataset,
+                        sum_dataset)
 from measure_unbinned import device_kernels, log_kernels
 
 
-def statistics_call(study, label, kind, n_toys, seed):
+def statistics_call(study, label, kind, n_toys, seed, counts=None):
     """The phase's call: ``sensitivity_band`` ('auto' grid, background-only
     truth) on ``seed``, or ``observed_interval`` (upper, 90%) on the bound
-    dataset."""
+    dataset (a Sum's: ``counts``)."""
     from blueice_tpu_torch.parallel import (observed_interval,
                                             sensitivity_band)
     target = PATHS[label][1]
     if kind == 'band':
         return sensitivity_band(study, seed, target, 'auto', n_toys)
-    return observed_interval(study, target, kind='upper', cl=0.9)
+    return observed_interval(study, target, kind='upper', cl=0.9,
+                             counts=counts)
 
 
 def timed(fn):
@@ -58,11 +61,15 @@ def timed(fn):
 def account(phase, study, label, kind, n_toys):
     from torch.profiler import ProfilerActivity, profile
 
+    counts = None
+    if kind == 'interval' and hasattr(study.compiled, 'children'):
+        counts = sum_dataset(study, PATHS[label][1])
+    elif kind == 'interval':
+        observed_dataset(study.lf)
+
     def run(seed):
         return timed(lambda: statistics_call(study, label, kind, n_toys,
-                                             seed))
-    if kind == 'interval':
-        observed_dataset(study.lf)
+                                             seed, counts))
     cold, warm = run(0), run(1)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:

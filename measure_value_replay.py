@@ -81,7 +81,8 @@ from chip_smoke import (CALLS, PATHS, TOLERANCE, binned_data, build_model,
                         term_scale, time_calls, unbinned_data)
 
 #: The paths of each contract's A/B
-AB_PATHS = {'value': tuple(PATHS), 'vgh': tuple(PATHS)}
+AB_PATHS = {contract: tuple(label for label in PATHS if label in specs)
+            for contract, specs in CALLS.items()}
 
 
 def baseline_source(module, root):

@@ -901,3 +901,95 @@ def test_map_calls_match_plain(cuda_device, mode, contract):
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(
         outs, again if contract == 'vgh' else (again,)))
+
+
+# -- compositions and log morphing on the card --------------------------------
+
+#: a small XENON-like binned model's width (the full one is chip_smoke's)
+SMALL = dict(n_cs1_bins=10, n_cs2_bins=8)
+
+
+def _combined_sum():
+    """Two science runs of the XENON-like model and a correlated
+    calibration constraint, as chip_smoke's ``combined`` path at a small
+    width."""
+    from blueice_tpu_torch import composition
+    from blueice_tpu_torch.examples import xenon_like
+    from blueice_tpu_torch.utils import set_progress
+    set_progress(False)
+    runs = [xenon_like.build_likelihood('binned', livetime_days=days,
+                                        **SMALL) for days in (32.1, 246.7)]
+    return composition.LogLikelihoodSum(runs + [
+        composition.correlated_gaussian_constraint(
+            ['band_shift', 'band_width_scale'], [0.0, 1.0],
+            [[0.09, 0.012], [0.012, 0.0064]])])
+
+
+@pytest.mark.cuda
+def test_sum_engine_kernels_match_plain(cuda_device):
+    """The Sum engine's (value, g, H) and its values at candidates with its
+    binned children on ``vgh_kernel`` / ``ll_kernel`` against the plain
+    Sum engine on the card: the value relative 1e-5, g and H within 1e-4
+    of each toy's largest entry; each child's kernels launch."""
+    from blueice_tpu_torch.compile import build_logl
+    from blueice_tpu_torch.parallel import fitter
+    compiled = build_logl(_combined_sum(), device=cuda_device)
+    assert compiled.dtype == torch.float32
+    names, fixed, transform, x0 = fitter._floating_setup(compiled, {})
+    rng = np.random.default_rng(0)
+    n = len(names)
+    u = torch.as_tensor(transform.to_u_np(x0)[None]
+                        + rng.normal(0, 0.2, (B, n)),
+                        dtype=torch.float32, device=cuda_device)
+    cands = u[:, None, :] + torch.as_tensor(
+        rng.normal(0, 0.05, (B, A, n)), dtype=torch.float32,
+        device=cuda_device)
+    data = tuple(torch.as_tensor(
+        rng.poisson(e.cpu().numpy(), (B,) + tuple(e.shape)).reshape(B, -1),
+        dtype=torch.float32, device=cuda_device)
+        for e in compiled.expected_counts(compiled.defaults))
+    fv = torch.zeros((B, 0), dtype=torch.float32, device=cuda_device)
+    outs = {}
+    for engine in ('auto', 'analytic'):
+        value_many, vgh = fitter._make_sum_analytic_parts(
+            compiled, names, fixed, transform, engine)
+        fused.reset_launch_counts()
+        outs[engine] = (vgh(u, data, fv), value_many(cands, data, fv))
+        torch.cuda.synchronize()
+        assert fused.launch_counts() == (
+            {'binned_vgh_fused': 2, 'binned_ll_fused_multi': 2}
+            if engine == 'auto' else
+            {'binned_vgh_fused': 0, 'binned_ll_fused_multi': 0})
+    (val, g, H), many = outs['auto']
+    (rval, rg, rH), rmany = outs['analytic']
+    np.testing.assert_allclose(val.cpu(), rval.cpu(), rtol=1e-5)
+    np.testing.assert_allclose(many.cpu(), rmany.cpu(), rtol=1e-5)
+    assert _rel_to_toy_max(g, rg) < 1e-4
+    assert _rel_to_toy_max(H, rH) < 1e-4
+
+
+@pytest.mark.cuda
+def test_log_morphed_fitter_launches_no_kernel(cuda_device):
+    """A log-morphed model's fits on the card run the closed forms: no
+    kernel launches, since the kernels bake in the linear lerp."""
+    from blueice_tpu_torch.examples import xenon_like
+    from blueice_tpu_torch.likelihood import BinnedLogLikelihood
+    from blueice_tpu_torch.parallel import BinnedToyStudy
+    from blueice_tpu_torch.utils import set_progress
+    set_progress(False)
+    lf = BinnedLogLikelihood(xenon_like.build_config(**SMALL),
+                             likelihood_config={
+                                 'template_interpolation': 'log'})
+    lf.add_rate_parameter('wimp')
+    lf.add_rate_parameter('er', log_prior=xenon_like.NormalPrior(1, 0.05))
+    lf.add_shape_parameter('band_shift', (-1.0, 0.0, 1.0))
+    lf.prepare()
+    study = BinnedToyStudy(lf, max_iter=40, tol=3e-4)
+    assert study.compiled.device.type == 'cuda' and study.compiled.log_morph
+    for module in (fused, fused_bb, fused_bb_lite, fused_unbinned):
+        module.reset_launch_counts()
+    t, free, cond = study.profile_ts(0, 8, 'wimp_rate_multiplier', 1.0)
+    torch.cuda.synchronize()
+    assert np.isfinite(free.max_ll).all() and (t >= 0).all()
+    for module in (fused, fused_bb, fused_bb_lite, fused_unbinned):
+        assert not any(module.launch_counts().values())

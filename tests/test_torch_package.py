@@ -33,7 +33,8 @@ def test_imports_without_jax():
     """Every module imports in a process where jax and blueice_tpu cannot
     be imported at all."""
     modules = _modules()
-    assert {'blueice_tpu_torch.ops.fused', 'blueice_tpu_torch.ops.fused_unbinned',
+    assert {'blueice_tpu_torch.composition', 'blueice_tpu_torch.morphers',
+            'blueice_tpu_torch.ops.fused', 'blueice_tpu_torch.ops.fused_unbinned',
             'blueice_tpu_torch.ops.unbinned_vgh',
             'blueice_tpu_torch.test_helpers',
             'blueice_tpu_torch.utils.roofline'} <= set(modules)
