@@ -20,5 +20,7 @@ from .models.model import *          # noqa: F401,F403
 from .models.source import *         # noqa: F401,F403
 from .likelihood import *            # noqa: F401,F403
 from .priors import *                # noqa: F401,F403
+from .models.jax_source import (JaxDensitySource,  # noqa: F401
+                                prefill_anchor_templates)
 from .morphers import MORPHERS       # noqa: F401
 from .compile import build_logl      # noqa: F401

@@ -33,7 +33,8 @@ from .priors import PRIORS
 
 __all__ = ['CompiledLogLikelihood', 'CompiledLogLikelihoodSum',
            'CompiledReParam', 'CompiledAncillary', 'build_logl',
-           'build_logl_sum', 'build_logl_reparam', 'build_logl_ancillary']
+           'build_logl_sum', 'build_logl_reparam', 'build_logl_ancillary',
+           'cached_logl']
 
 
 def build_logl(lf, dtype=None, device=None, include_livetime=False,
@@ -60,6 +61,28 @@ def build_logl(lf, dtype=None, device=None, include_livetime=False,
         lf.prepare()
     return build_logl_from_state(state_from_reference(lf), device=device,
                                  dtype=dtype, with_priors=with_priors)
+
+
+def cached_logl(lf, device=None, dtype=None):
+    """:func:`build_logl` with a per-likelihood cache, invalidated whenever
+    ``prepare()`` or ``set_data()`` bumps the payload version (a Sum: the
+    tuple of its children's versions), so interval scans and repeated
+    samplers compile once per dataset and a new dataset always gets a fresh
+    compile. The key adds the resolved device and dtype: a CPU compile and
+    a card compile of one likelihood never share an entry. Shared by
+    ``bestfit_jax`` and ``bestfit_emcee_device``."""
+    device, dtype = resolve(device, dtype)
+    token = getattr(lf, '_build_version', None)
+    if token is None and hasattr(lf, 'likelihood_list'):
+        token = tuple(getattr(ll, '_build_version', None)
+                      for ll in lf.likelihood_list)
+    cache = lf.__dict__.setdefault('_torch_compiled_for_fit', {})
+    key = (str(device), dtype)
+    cached = cache.get(key)
+    if cached is None or cached[0] != token:
+        cache[key] = cached = (token, build_logl(lf, dtype=dtype,
+                                                 device=device))
+    return cached[1]
 
 
 def _build_composition(lf, name, **opts):

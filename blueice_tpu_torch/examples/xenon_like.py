@@ -7,13 +7,19 @@ ER/NR bands) but the computational shape — template sizes, anchor-grid
 dimensionality, source count, constraint structure — matches the target
 workload, so this is the scaling benchmark for the fused likelihood path.
 
-Counterpart of :mod:`blueice_tpu.examples.xenon_like` on the host-built
-template path (``jax_templates=False``): the templates are the same numpy
-arrays the JAX package builds.
+Counterpart of :mod:`blueice_tpu.examples.xenon_like`: on the host-built
+template path (``jax_templates=False``) the templates are the same numpy
+arrays the JAX package builds; with ``jax_templates=True`` each source's
+81 anchor templates are built in one batched device call
+(:mod:`blueice_tpu_torch.models.jax_source`, the density in torch ops).
 """
 
-import numpy as np
+import math
 
+import numpy as np
+import torch
+
+from ..models.jax_source import JaxDensitySource
 from ..models.source import HistogramPdfSource
 from ..ops.hist import Hist
 from ..likelihood import BinnedLogLikelihood, UnbinnedLogLikelihood
@@ -86,14 +92,39 @@ SOURCES = [
 ]
 
 
+def blob_density(mean, sigma, corr, responses):
+    """The 2D-blob density in torch ops with the example's shape-nuisance
+    responses closed over: the :class:`JaxDensitySource` counterpart of
+    :meth:`GaussianBlobSource.build_histogram`. With it, all 81 anchor
+    templates of one source build in a single batched device call
+    (models/jax_source.py) instead of 81 host grid evaluations."""
+    (mx0, my0), (sx, sy0) = mean, sigma
+    band_resp, width_resp, tilt_resp = responses
+
+    def density(params, x, y):
+        my = my0 + params['band_shift'] * band_resp
+        sy = sy0 * (1.0 + (params['band_width_scale'] - 1.0) * width_resp)
+        mx = mx0 + params['cs1_tilt'] * tilt_resp
+        dx = (x - mx) / sx
+        dy = (y - my) / sy
+        norm = 1.0 / (2 * math.pi * sx * sy * math.sqrt(1 - corr ** 2))
+        return norm * torch.exp(-(dx ** 2 - 2 * corr * dx * dy + dy ** 2)
+                                / (2 * (1 - corr ** 2)))
+    return density
+
+
 def build_config(n_cs1_bins=50, n_cs2_bins=62, livetime_days=278.0,
-                 cache_dir=None, task_dir=None, jax_templates=False):
-    """:param jax_templates: only False is ported (device-side batched
-    template building is ROADMAP queue 1 item 13)."""
-    if jax_templates:
-        raise NotImplementedError(
-            "jax_templates=True (device-side batched template building) is "
-            "not ported yet (ROADMAP queue 1 item 13)")
+                 cache_dir=None, task_dir=None, jax_templates=False,
+                 template_device=None):
+    """:param jax_templates: use JaxDensitySource (device-side batched anchor
+    template building) instead of the host-evaluated GaussianBlobSource.
+    Identical pmf templates; fraction_in_range is 1 by construction on the
+    device path (the blob variant counts the out-of-space tail), and those
+    templates carry no synthetic finite-MC statistics, so use the blob
+    variant for Beeston-Barlow studies.
+    :param template_device: the device of the ``jax_templates`` build
+      (None: the card, raising without CUDA; 'cpu' for the CPU).
+    """
     import tempfile
     cache_dir = cache_dir or tempfile.mkdtemp(prefix='xenon_like_cache_')
     task_dir = task_dir or tempfile.mkdtemp(prefix='xenon_like_tasks_')
@@ -108,15 +139,25 @@ def build_config(n_cs1_bins=50, n_cs2_bins=62, livetime_days=278.0,
                      # source built 3x redundant cached templates, one per
                      # efficiency anchor)
                      dont_hash_settings=['efficiency'])
-        entry.update(blob_mean=mean, blob_sigma=sigma, blob_corr=corr,
-                     band_shift_response=resp[0],
-                     width_response=resp[1], tilt_response=resp[2])
+        if jax_templates:
+            entry.update(
+                density=blob_density(mean, sigma, corr, resp),
+                # 'efficiency' is rate-only (the density ignores it), but
+                # listing it keeps all 3^4 anchor variants of a source in ONE
+                # batch group -> one device call per source
+                density_params=['band_shift', 'band_width_scale',
+                                'cs1_tilt', 'efficiency'])
+        else:
+            entry.update(blob_mean=mean, blob_sigma=sigma, blob_corr=corr,
+                         band_shift_response=resp[0],
+                         width_response=resp[1], tilt_response=resp[2])
         return entry
 
     config = dict(
         analysis_space=[['cs1', np.linspace(0, 100, n_cs1_bins + 1)],
                         ['log10_cs2', np.linspace(1.0, 4.0, n_cs2_bins + 1)]],
-        default_source_class=GaussianBlobSource,
+        default_source_class=(JaxDensitySource if jax_templates
+                              else GaussianBlobSource),
         livetime_days=livetime_days,
         band_shift=0.0,
         band_width_scale=1.0,
@@ -126,6 +167,8 @@ def build_config(n_cs1_bins=50, n_cs2_bins=62, livetime_days=278.0,
         task_dir=task_dir,
         sources=[source_entry(*s) for s in SOURCES],
     )
+    if jax_templates:
+        config['template_device'] = template_device
     return config
 
 

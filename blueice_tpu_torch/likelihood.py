@@ -217,6 +217,11 @@ class LogLikelihoodBase:
 
     def _build_models(self, configs):
         from .utils.progress import progress_iter
+        # Sources with a closed-form density: build ALL their anchor
+        # templates in one batched device call per source and seed the
+        # caches the host build hits below
+        from .models.jax_source import prefill_anchor_templates
+        prefill_anchor_templates(configs)
         return [Model(c) for c in progress_iter(
             configs, desc="Computing/loading anchor models")]
 
@@ -703,3 +708,10 @@ def beeston_barlow_roots(a, p, U, d):
 # ``from blueice_tpu_torch.likelihood import LogLikelihoodSum`` works
 from .composition import (LogLikelihoodSum, LogLikelihoodReParam,   # noqa: E402
                           LogAncillaryLikelihood)
+
+# Graft the inference helpers as methods onto the likelihood classes
+from . import inference   # noqa: E402  (at bottom to break the import cycle)
+for _methodname in inference.__all__:
+    for _q in (LogLikelihoodBase, LogLikelihoodSum, LogAncillaryLikelihood,
+               LogLikelihoodReParam):
+        setattr(_q, _methodname, getattr(inference, _methodname))

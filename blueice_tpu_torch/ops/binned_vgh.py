@@ -36,9 +36,18 @@ __all__ = ['corner_weight_tables', 'binned_vgh', 'binned_ll',
 
 
 def _corner_bits(K, dtype, device):
-    """(2^K, K) corner bit table in C order (last axis fastest)."""
-    return torch.tensor(list(itertools.product((0, 1), repeat=K)),
-                        dtype=dtype, device=device).reshape(2 ** K, K)
+    """(2^K, K) corner bit table in C order (last axis fastest), made once
+    per (K, dtype, device)."""
+    key = (K, dtype, torch.device(device))
+    if key not in _CORNER_BITS:
+        _CORNER_BITS[key] = torch.tensor(
+            list(itertools.product((0, 1), repeat=K)), dtype=dtype,
+            device=device).reshape(2 ** K, K)
+    return _CORNER_BITS[key]
+
+
+#: (K, dtype, device) -> corner bit table
+_CORNER_BITS = {}
 
 
 def corner_weight_tables(t):

@@ -131,11 +131,20 @@ def corner_ids(strides, idx, G):
     if K == 0:
         return torch.zeros(tuple(idx.shape[:-1]) + (1,), dtype=torch.int64,
                            device=idx.device)
-    base = (idx.to(torch.int64)
-            * torch.as_tensor(strides, device=idx.device)).sum(-1)
-    ids = base[..., None] + torch.as_tensor(corner_offsets(strides),
-                                            device=idx.device)
-    return torch.clamp(ids, 0, G - 1)
+    key = (tuple(int(s) for s in strides), idx.device)
+    if key not in _CORNER_TABLES:
+        # made once per grid and device: a copy from host memory would
+        # wait for the device at every call
+        _CORNER_TABLES[key] = (
+            torch.as_tensor(key[0], device=idx.device),
+            torch.as_tensor(corner_offsets(strides), device=idx.device))
+    stride_t, offsets = _CORNER_TABLES[key]
+    base = (idx.to(torch.int64) * stride_t).sum(-1)
+    return torch.clamp(base[..., None] + offsets, 0, G - 1)
+
+
+#: (strides, device) -> (strides tensor, corner offsets tensor)
+_CORNER_TABLES = {}
 
 
 def vgh_tables(strides, idx, t, G):

@@ -24,9 +24,13 @@ def clip(x, lo, hi):
     """``jnp.clip`` with JAX's derivative convention at ties (0.5, from
     ``maximum``/``minimum``), where ``torch.clamp`` would give 1."""
     x = torch.as_tensor(x)
-    lo = torch.as_tensor(lo, dtype=x.dtype, device=x.device)
-    hi = torch.as_tensor(hi, dtype=x.dtype, device=x.device)
-    return torch.minimum(torch.maximum(x, lo), hi)
+
+    def bound(b):
+        # a Python number is filled on the device, not copied from the host
+        if isinstance(b, (int, float)):
+            return x.new_full((), b)
+        return torch.as_tensor(b, dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, bound(lo)), bound(hi))
 
 
 def cell_index(arr, z):

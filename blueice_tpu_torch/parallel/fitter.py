@@ -41,6 +41,8 @@ its own: the CUDA kernels where they take the model. A log-morphed model
 bake in the linear lerp.
 """
 
+from collections import OrderedDict
+
 import numpy as np
 import torch
 
@@ -53,7 +55,8 @@ from ..ops.unbinned_vgh import reference_center
 
 __all__ = ['Transform', 'make_transform', 'minimize_newton',
            'make_toy_fitter', 'check_fixed_in_bounds', 'unbinned_center',
-           'tree_map']
+           'tree_map', 'observed_data', 'x_space_ops', 'fit_single',
+           'make_batch_fitter']
 
 
 def tree_map(fn, data, *rest):
@@ -83,10 +86,18 @@ class Transform:
                                    self.lo_safe_np + 1.0)
 
     def _consts(self, like):
-        def t(a):
-            return torch.as_tensor(a, dtype=like.dtype, device=like.device)
-        return (torch.as_tensor(self.kinds_np, device=like.device),
-                t(self.lo_safe_np), t(self.hi_safe_np))
+        """(kinds, lo, hi) as tensors of ``like``'s dtype and device, made
+        once per dtype and device: a copy from host memory would wait for
+        the device at every call."""
+        key = (like.dtype, like.device)
+        cache = self.__dict__.setdefault('_const_cache', {})
+        if key not in cache:
+            def t(a):
+                return torch.as_tensor(a, dtype=like.dtype,
+                                       device=like.device)
+            cache[key] = (torch.as_tensor(self.kinds_np, device=like.device),
+                          t(self.lo_safe_np), t(self.hi_safe_np))
+        return cache[key]
 
     def to_x(self, u):
         kinds, lo, hi = self._consts(u)
@@ -633,6 +644,16 @@ class _ParamGraph:
         self.floating_priors = [(self.name_pos[nm], pr)
                                 for nm, pr in compiled.prior_terms
                                 if nm in self.name_pos]
+        # The tables the graph's and the kernels' calls read, made now: a
+        # copy from host memory later would wait for the device at a call
+        # (the device MCMC chain runs without a host sync)
+        transform._consts(self.sel_t)
+        fused.corner_ids(self.strides,
+                         torch.zeros((1, K), dtype=torch.int64, device=dev),
+                         G)
+        corner_weight_tables(torch.zeros((1, K), dtype=dt, device=dev))
+        self.strict = torch.as_tensor(~compiled.allowed_negative,
+                                      device=dev)
 
     def value_of(self, nm, x, fv):
         """Parameter ``nm`` as a tensor of x's batch shape."""
@@ -822,14 +843,18 @@ def _make_analytic_parts(compiled, names, fixed, transform, use_fused,
     else:
         vgh_op, ll_op = _likelihood_ops(compiled, G, S, n_bins, use_fused)
 
-    def value_many(u_cands, data, fv):
+    def value_many(u_cands, data, fv, domain=False):
         """Objective at candidates u_cands (L, A, n), data (L, N), fv (L, R)
-        — one value-kernel launch for the line search / polish batch."""
+        — one value-kernel launch for the line search / polish batch; with
+        ``domain`` also where the compiled logl is finite there
+        (:func:`_in_domain`)."""
         fvA = fv[:, None, :].expand(u_cands.shape[:2] + fv.shape[-1:])
         x, idx, lo, width, musc = graph.cells(u_cands, fvA)
         m, t, prior = graph.values(x, fvA, lo, width, musc)
         lls = ll_op(anchor, graph.strides, idx, t.contiguous(),
                     m.contiguous(), data)
+        if domain:
+            return -(lls + prior), _in_domain(graph, x, fvA, m)
         return -(lls + prior)
 
     def vgh(u, data, fv):
@@ -859,9 +884,11 @@ def _ancillary_parts(compiled, names, fixed, transform, runtime_fixed=(),
         return -compiled.logl({p: routing.value_of(p, x, fv)
                                for p in compiled.param_names})
 
-    def value_many(u_cands, data, fv):
-        return objective(u_cands, fv[:, None, :].expand(
+    def value_many(u_cands, data, fv, domain=False):
+        out = objective(u_cands, fv[:, None, :].expand(
             u_cands.shape[:2] + fv.shape[-1:]))
+        return (out, torch.ones_like(out, dtype=torch.bool)) if domain \
+            else out
 
     def vgh(u, data, fv):
         return (objective(u, fv), vmap(grad(objective))(u, fv),
@@ -892,9 +919,16 @@ def _make_sum_analytic_parts(compiled, names, fixed, transform, engine,
                                      runtime_fixed, routed)
         entries.append((w,) + parts)
 
-    def value_many(u_cands, data, fv):
-        return sum(w * vm(u_cands, d, fv)
-                   for (w, vm, _), d in zip(entries, data))
+    def value_many(u_cands, data, fv, domain=False):
+        if not domain:
+            return sum(w * vm(u_cands, d, fv)
+                       for (w, vm, _), d in zip(entries, data))
+        outs = [vm(u_cands, d, fv, domain=True)
+                for (_, vm, _), d in zip(entries, data)]
+        ok = outs[0][1]
+        for _, child_ok in outs[1:]:
+            ok = ok & child_ok
+        return sum(w * v for (w, _, _), (v, _) in zip(entries, outs)), ok
 
     def vgh(u, data, fv):
         outs = [[w * x for x in vg(u, d, fv)]
@@ -994,7 +1028,7 @@ def _make_unbinned_parts(compiled, names, fixed, transform, use_fused,
         vgh_op = fused_unbinned.unbinned_vgh_plain
         ll_op = fused_unbinned.unbinned_ll_plain
 
-    def value_many(u_cands, data, rows, fv):
+    def value_many(u_cands, data, rows, fv, domain=False):
         ps, mask, (inv_ref, ref_msum, _) = data
         fvA = fv[:, None, :].expand(u_cands.shape[:2] + fv.shape[-1:])
         x, idx, lo, width, musc = graph.cells(u_cands, fvA)
@@ -1002,6 +1036,8 @@ def _make_unbinned_parts(compiled, names, fixed, transform, use_fused,
         moff = (m.sum(-1) - ref_msum[rows][:, None]).contiguous()
         lls = ll_op(ps, graph.strides, rows, idx, t.contiguous(),
                     m.contiguous(), mask, inv_ref, moff, outlier)
+        if domain:
+            return -(lls + prior), _in_domain(graph, x, fvA, m)
         return -(lls + prior)
 
     def vgh(u, data, rows, fv):
@@ -1179,4 +1215,176 @@ def make_toy_fitter(compiled, fixed=None, guess=None, max_iter=60, tol=1e-8,
             snap_anchors=snap_anchors)
         return transform.to_x(u), -fval.to(const.dtype) + const, it
 
+    return fit, names
+
+
+def observed_data(compiled):
+    """The fitters' data of the dataset bound to ``compiled``, as a batch of
+    one lane: binned, its counts (1, N); a Sum, the tuple of its
+    children's, (1, 0) for a dataset-free child; unbinned, ``(ps (1, G, S,
+    E), mask (1, E), unbinned_center(...))`` from the bound per-event
+    densities, every event valid. Made once per compiled likelihood (each
+    dataset has its own, :func:`blueice_tpu_torch.compile.cached_logl`)."""
+    cached = compiled.__dict__.get('_observed_data')
+    if cached is not None:
+        return cached
+    dt, dev = compiled.dtype, compiled.device
+    children = getattr(compiled, 'children', None)
+    leaves = [c for c in (children or [compiled]) if c.has_data]
+    if any((c.data if c.is_binned else c.ps_tensor) is None for c in leaves):
+        raise RuntimeError("No data bound: call set_data() before compiling")
+    if children is not None:
+        data = tuple(c.data.reshape(1, -1) if c.has_data
+                     else torch.zeros((1, 0), dtype=dt, device=dev)
+                     for c in children)
+    elif compiled.is_binned:
+        data = compiled.data.reshape(1, -1)
+    else:
+        S, E = compiled.ps_tensor.shape[-2:]
+        ps = compiled.ps_tensor.reshape(1, -1, S, E).contiguous()
+        mask = torch.ones((1, E), dtype=torch.bool, device=dev)
+        data = (ps, mask, unbinned_center(compiled, ps, mask))
+    compiled._observed_data = data
+    return data
+
+
+def _in_domain(graph, x, fv, m):
+    """Where the compiled logl of ``graph``'s likelihood is not -inf, as
+    :meth:`~blueice_tpu_torch.compile.CompiledLogLikelihood.logl_with_data`
+    decides: every shape parameter within its bounds and the expectations
+    ``m`` (..., S) (:meth:`_ParamGraph.values` at the clipped shape point)
+    physical. x (..., n) -> (...) bool."""
+    c = graph.compiled
+    ok = torch.ones(x.shape[:-1], dtype=torch.bool, device=x.device)
+    for sp in graph.shape_names:
+        z = graph.value_of(sp, x, fv)
+        lo, hi = c.bounds[sp]
+        ok = ok & (z >= lo) & (z <= hi)
+    ok = ok & (m < float('inf')).all(-1)
+    if not c.allowed_negative.any():
+        return ok & (m >= 0).all(-1)
+    return ok & (m.sum(-1) >= 0) & ~((m < 0) & graph.strict).any(-1)
+
+
+def x_space_ops(compiled, names, fixed=None, runtime_fixed=(),
+                engine='auto'):
+    """The fit engine's ops of ``compiled`` in the floating parameters x
+    themselves (an identity :class:`Transform`, u = x), so the clip slopes
+    are the ones :meth:`_ParamGraph.values` matches to JAX's derivatives:
+    ``(value(x (L, A, n), data, fv (L, R), domain=False) -> (L, A),
+    vgh(x (L, n), data, fv) -> (f, g, H))``.
+
+    ``value`` and ``f`` are the negated objective the fitters minimize:
+    without the binned data constant, and for an unbinned likelihood
+    centered (:func:`unbinned_center`); g and H are its gradient and
+    Hessian in x. With ``domain``, ``value`` also returns where the
+    compiled logl is finite (:func:`_in_domain`): the ops score a point
+    out of the shape bounds at its clipped cell, so a caller masks those
+    candidates after. ``data`` is one of the fitters' datasets, lane i of
+    an unbinned one on toy i. The ops are the fitter's own: the CUDA
+    kernel wrappers where ``engine`` takes them (as
+    :func:`make_toy_fitter`), the plain versions elsewhere. Raises
+    NotImplementedError (item 16b) for what no closed-form engine fits
+    (:func:`_engine_family`)."""
+    family = _engine_family(compiled)
+    runtime_fixed = list(runtime_fixed)
+    fixed = dict(fixed or {})
+    for rname in runtime_fixed:
+        fixed.setdefault(rname, compiled.defaults[rname])  # placeholder
+    identity = make_transform([(None, None)] * len(names))
+    if family == 'sum':
+        return _make_sum_analytic_parts(compiled, names, fixed, identity,
+                                        engine, runtime_fixed)
+    use_fused = engine == 'fused' or (engine == 'auto'
+                                      and _fused_eligible(compiled))
+    if family == 'binned':
+        return _make_analytic_parts(compiled, names, fixed, identity,
+                                    use_fused, runtime_fixed)
+    value_rows, vgh_rows = _make_unbinned_parts(
+        compiled, names, fixed, identity, use_fused, runtime_fixed)
+
+    def lanes(x):
+        return torch.arange(x.shape[0], device=x.device)
+
+    def value(x, data, fv, domain=False):
+        return value_rows(x, data, lanes(x), fv, domain)
+
+    def vgh(x, data, fv):
+        return vgh_rows(x, data, lanes(x), fv)
+    return value, vgh
+
+
+def fit_single(compiled, fixed=None, guess=None, return_errors=True,
+               max_iter=250, tol=1e-8):
+    """Fit the dataset bound to a compiled likelihood, as a batch of one
+    lane (:func:`observed_data`).
+
+    :return: ({name: bestfit, name_error: parabolic error}, max
+      loglikelihood), the bestfit_* return convention. The errors are
+      sqrt(diag(inv(H))), H the Hessian in x of the negated logl at the
+      optimum, from the fitter's own vgh op (:func:`x_space_ops`: on the
+      card the vgh kernel).
+
+    Fixed-parameter values enter at run time, so the conditional fits of an
+    interval scan share one fitter, cached on the compiled likelihood per
+    fixed-name set, guess, ``max_iter``, ``tol`` and ``return_errors``. The
+    generous default budget serves ridge-shaped many-nuisance profiles
+    (XENON-style), which use ~150-200 damped-Newton and polish iterations.
+    """
+    fixed = dict(fixed or {})
+    unknown = set(fixed) - set(compiled.param_names)
+    if unknown:
+        raise ValueError("Unknown fixed parameters: %s" % sorted(unknown))
+    fixed_names = tuple(sorted(fixed))
+    cache = compiled.__dict__.setdefault('_fit_single_cache', {})
+    key = (fixed_names, tuple(sorted((guess or {}).items())), max_iter, tol,
+           return_errors)
+    if key not in cache:
+        fit, names = make_toy_fitter(compiled, guess=guess, max_iter=max_iter,
+                                     tol=tol, runtime_fixed=fixed_names)
+        vgh = (x_space_ops(compiled, names, runtime_fixed=fixed_names)[1]
+               if names and return_errors else None)
+        cache[key] = (fit, names, vgh) if names else None
+    if cache[key] is None:
+        return {}, float(compiled(**fixed))
+
+    fit, names, vgh = cache[key]
+    data = observed_data(compiled)
+    fv = torch.as_tensor([[float(fixed[n]) for n in fixed_names]],
+                         dtype=compiled.dtype, device=compiled.device)
+    x, ll, _ = fit(data, fv)
+    x_host = x[0].double().cpu().numpy()
+    results = OrderedDict((name, float(x_host[i]))
+                          for i, name in enumerate(names))
+    if return_errors:
+        H = vgh(x, data, fv)[2][0].double().cpu().numpy()
+        try:
+            errs = np.sqrt(np.clip(np.diag(np.linalg.inv(H)), 0, None))
+        except np.linalg.LinAlgError:
+            errs = np.full(len(names), np.nan)
+        for i, name in enumerate(names):
+            results[name + '_error'] = float(errs[i])
+    return results, float(ll[0])
+
+
+def make_batch_fitter(compiled, fixed=None, guess=None, max_iter=60, tol=1e-8):
+    """A batched fitter over toy datasets:
+    ``fit(data_batch, mask_batch=None) -> (x (B, n), max_ll (B,), n_iter
+    (B,))``, and the floating names. ``data_batch``: binned counts
+    (B, *bins) (a Sum: a tuple, one per child); unbinned, the per-event
+    densities (B, G, S, E) with the event mask (B, E) (None: every event
+    valid). The batch is the fitter's own leading axis."""
+    fit_toys, names = make_toy_fitter(compiled, fixed, guess, max_iter, tol)
+    dt, dev = compiled.dtype, compiled.device
+
+    def fit(data_batch, mask_batch=None):
+        if compiled.is_binned:
+            return fit_toys(data_batch)
+        ps = torch.as_tensor(data_batch, dtype=dt, device=dev).contiguous()
+        mask = (torch.ones((ps.shape[0], ps.shape[-1]), dtype=torch.bool,
+                           device=dev)
+                if mask_batch is None else
+                torch.as_tensor(mask_batch, dtype=torch.bool,
+                                device=dev).contiguous())
+        return fit_toys((ps, mask, unbinned_center(compiled, ps, mask)))
     return fit, names

@@ -108,11 +108,43 @@ hypotheses, and each interval at its final grid) take about half of it;
 cutting the band's toys would not shorten them, and the referees hold
 every hypothesis of the grid.
 
+After the statistics part runs the inference part (``inference_part``):
+inference on one dataset of a model, drawn from ``default_rng(0)``, each
+phase between reset and read of every launch counter, its model's
+kernels launched and no other, and each of them held to the float64
+closed form on the phase's own recorded calls (``phase_rows``: one lane;
+a chain's value calls at A = 20), timed beside its plain version and its
+bound (rows with path '<model> bestfit_jax', '<model> mcmc', 'xenon
+interval (bestfit_jax)' in the ``{"kernels": ...}`` line):
+
+11. the device template build: ``build_likelihood('binned',
+   jax_templates=True)`` at full width into a fresh cache directory, 12
+   batched device calls (6 single, 6 batched) and no kernel launch, every
+   anchor pmf within rtol 1e-6, atol 1e-12 of the host
+   ``GaussianBlobSource`` build;
+12. ``bestfit_jax`` on xenon (those templates), unbinned_xenon (3 live
+   days) and the Gaussian unbinned model: re-scored on the host float64
+   likelihood at least the host referee's maximum - 1e-3 (scipy's Powell,
+   ``REFEREE_SCIPY``), the target within 5e-3 of the referee's, the errors
+   finite and within 5% of the float64 CPU fit's;
+13. ``bestfit_emcee_device`` on xenon and unbinned_xenon (``CHAIN``: 40
+   walkers, 1,000 steps, 500 burn-in, errors): the value kernel exactly
+   2 n_steps + 2 launches, the chain under CUDA's sync debug mode 'error';
+   the last ensemble plus one walker out of bounds through the walkers'
+   log_prob against its plain version on the card (relative 1e-5, -inf at
+   the same places); every median within its own posterior sigma of the
+   referee's optimum, the ll at the medians within n_dim of its maximum;
+14. ``one_parameter_interval`` of the xenon dataset's wimp rate (upper,
+   90%) with ``bestfit_routine='jax'`` against the host referee's: within
+   1%.
+
 Run with no arguments, as above, it is the smoke test. Path names as
 arguments (``python3 chip_smoke.py bb bblite``) run those paths alone and
 no statistics or roofline part: a quicker measurement of their kernels, which prints the
 same lines for them (``python3 chip_smoke.py combined xenon_log``: the
-composition paths alone).
+composition paths alone). ``python3 chip_smoke.py inference`` runs the
+inference part alone; it adds about 110 s to a run on an H100 (PERF.md
+section 6), most of it the phases' float64 checks and the host referee.
 
 The paths ``combined`` and ``xenon_log`` and the ``combined interval``
 phase add about 110 s to a run on an H100 (25, 6 and 77 s, most of the
@@ -162,6 +194,8 @@ PATHS = {
     'combined': ('combined', 'wimp_rate_multiplier', 256, 8, None),
     'xenon_log': ('xenon_log', 'wimp_rate_multiplier', 256, 8, None),
 }
+#: parts that run alone when named (``python3 chip_smoke.py inference``)
+PARTS = ('inference',)
 #: the JAX package's median t of the path on the CPU, float64, and the
 #: bootstrap spread of that median (``measure_composition_reference.py``:
 #: 256 toys for each of seeds 0 and 1; PERF.md section 6)
@@ -528,22 +562,18 @@ def term_scales(ps, strides, lanes, idx, t, m, mask, inv_ref, moff, outlier):
         idx, t, m, moff = idx[:, None], t[:, None], m[:, None], moff[:, None]
     ids = fused.corner_ids(strides, idx, ps.shape[1])          # (L, A, C)
     w = corner_weight_tables(t.double())[0]
-    mk, ir = mask[lanes], inv_ref[lanes].double()
-    cols = []
-    for a in range(ids.shape[1]):
-        lam = 0.0
-        for c in range(ids.shape[2]):
-            rows = ps[lanes, ids[:, a, c]].double()             # (L, S, E)
-            lam = lam + w[:, a, c, None] * torch.einsum(
-                'ls,lse->le', m[:, a].double(), rows)
-        if outlier:
-            lam = torch.where(lam > 0, lam, torch.full_like(lam, outlier))
-        zero = torch.zeros_like(lam)
-        cols.append((torch.where(mk, torch.log(lam * ir).abs(), zero).sum(-1)
-                     + moff[:, a].double().abs(),
-                     F32_UNIT * torch.where(mk, (lam * ir).abs(),
-                                            zero).sum(-1)))
-    out = tuple(torch.stack(x, dim=1) for x in zip(*cols))
+    mk, ir = mask[lanes][:, None], inv_ref[lanes].double()[:, None]
+    lam = 0.0
+    for c in range(ids.shape[2]):
+        rows = ps[lanes[:, None], ids[:, :, c]].double()        # (L, A, S, E)
+        lam = lam + w[:, :, c, None] * torch.einsum(
+            'las,lase->lae', m.double(), rows)
+    if outlier:
+        lam = torch.where(lam > 0, lam, torch.full_like(lam, outlier))
+    zero = torch.zeros_like(lam)
+    out = (torch.where(mk, torch.log(lam * ir).abs(), zero).sum(-1)
+           + moff.double().abs(),
+           F32_UNIT * torch.where(mk, (lam * ir).abs(), zero).sum(-1))
     return tuple(x[:, 0] for x in out) if single else out
 
 
@@ -898,19 +928,9 @@ def record_calls(label, study, mods, contract='value', seed=0,
     wrapper through a recorder; the wrapper is put back after): a list of
     each call's arguments, the per-call inputs cloned and the shared
     tensors passed through, as on the path."""
-    spec = CALLS[contract][label]
-    module = mods[spec.module]
     _, target, path_toys, _, _ = PATHS[label]
-    wrapper, calls = getattr(module, spec.wrapper), []
 
-    def recorder(*args):
-        calls.append(tuple(
-            a.clone() if torch.is_tensor(a) and i not in spec.shared else a
-            for i, a in enumerate(args)))
-        return wrapper(*args)
-    recorder.launches = 0           # the launchers count on the module's name
-    setattr(module, spec.wrapper, recorder)     # read when fitters are built
-    try:
+    def on_fresh_study():
         extra = {} if study.compiled.is_binned else dict(n_max=study.n_max)
         fresh = type(study)(study.lf, dtype=study.compiled.dtype,
                             device=study.device, max_iter=study.max_iter,
@@ -920,8 +940,35 @@ def record_calls(label, study, mods, contract='value', seed=0,
                              target=target, hypothesis=1.0)
         else:
             run(fresh)
+    return recorded_calls(mods, [CALLS[contract][label]],
+                          on_fresh_study)[0]
+
+
+def recorded_calls(mods, specs, run):
+    """Every call of the wrappers of ``specs`` (``CALLS``) in ``run()``,
+    whose fitters must be built inside it (they read the wrappers when
+    they are built; each is put back after): per spec, a list of each
+    call's arguments, the per-call inputs cloned and the shared tensors
+    passed through."""
+    saved, calls = [], []
+    for spec in specs:
+        module = mods[spec.module]
+        wrapper, mine = getattr(module, spec.wrapper), []
+
+        def recorder(*args, spec=spec, wrapper=wrapper, mine=mine):
+            mine.append(tuple(
+                a.clone() if torch.is_tensor(a) and i not in spec.shared
+                else a for i, a in enumerate(args)))
+            return wrapper(*args)
+        recorder.launches = 0       # the launchers count on the module's name
+        setattr(module, spec.wrapper, recorder)  # read when fitters are built
+        saved.append((module, spec.wrapper, wrapper))
+        calls.append(mine)
+    try:
+        run()
     finally:
-        setattr(module, spec.wrapper, wrapper)
+        for module, name, wrapper in saved:
+            setattr(module, name, wrapper)
     return calls
 
 
@@ -1283,19 +1330,39 @@ def map_calls_row(phase, label, study, mods, contract, hyps):
     to ``ll_allowance``, derived from float32 itself. Timed (replayed from
     CUDA graphs) beside the plain version and the summed bound. Returns
     the kernel's row of this phase."""
-    from blueice_tpu_torch.utils.roofline import bound
     target = PATHS[label][1]
-    spec = CALLS[contract][label]
-    module = mods[spec.module]
     calls = record_calls(label, study, mods, contract,
                          run=lambda s: s.profile_map([(target, hyps)]))
+    return dict(held_calls_row(phase, label, study.compiled, mods, contract,
+                               calls, "one map's"),
+                path=label + ' interval map', map_calls=len(calls))
+
+
+def held_calls_row(phase, label, compiled, mods, contract, calls, what,
+                   gh_from_float32=False, every=1, plain_runs=3):
+    """The path's kernel of ``contract`` on recorded calls
+    (``recorded_calls``) of ``compiled``: held to the float64 closed form
+    within phase 1's tolerances, the unbinned ll lane by lane within
+    ``ll_allowance``; timed (replayed from CUDA graphs) beside the plain
+    version and the summed bound. Returns those fields of its row.
+
+    ``gh_from_float32``: g and H within ``float32_allowance`` of the same
+    calls instead of phase 1's 1e-4 (the calls of a fit near its optimum,
+    where g nearly vanishes and its largest entry is no scale for float32's
+    rounding). ``every``: hold every that many-th call (all are timed and
+    bounded): a long chain's calls all have one shape. ``plain_runs``: the
+    plain version's timed runs over all the calls (median, after a warm-up
+    run; a single run has none: holding the calls ran the plain version at
+    their shapes)."""
+    from blueice_tpu_torch.utils.roofline import bound
+    spec = CALLS[contract][label]
+    module = mods[spec.module]
     torch.cuda.synchronize()
     if not calls:
-        raise AssertionError("%s: the map made no %s-kernel call"
-                             % (phase, contract))
+        raise AssertionError("%s: no %s-kernel call" % (phase, contract))
     wrapper = getattr(module, spec.wrapper)
     used, f32_errs, abs_err = [], [], 0.0
-    for args in calls:
+    for args in calls[::every]:
         out = double(wrapper(*args))
         f32, f64 = (double(x) for x in closed_forms(module, spec.wrapper,
                                                      args))
@@ -1306,14 +1373,14 @@ def map_calls_row(phase, label, study, mods, contract, hyps):
             allow = TOLERANCE[0] * (f64[0] if contract == 'vgh'
                                     else f64).abs()
             f32_errs.append(disagreement(f32, f64))
-        ll_used, gh = disagreement(out, f64, allow)
-        used.append((ll_used, gh / TOLERANCE[1]))
+        used.append(disagreement(out, f64, allow))
         for a, b in zip(*((x,) if torch.is_tensor(x) else x
                           for x in (out, f32))):
             abs_err = max(abs_err, float((a - b).abs().nan_to_num(
                 0.0, 0.0).max()))
-    used = np.max(used, axis=0)
-    compiled = study.compiled
+    gh_allow = (float32_allowance([e[1] for e in f32_errs])
+                if gh_from_float32 else TOLERANCE[1])
+    used = np.max(used, axis=0) / [1.0, gh_allow]
     K, S = len(compiled.shape_names), len(compiled.rate_names)
     G = compiled.mus_tensor.numel() // S
     bounds = [bound(*call_work(contract, args, spec, S, K, G)[:2])
@@ -1322,31 +1389,33 @@ def map_calls_row(phase, label, study, mods, contract, hyps):
                         spec).values())
     plain = getattr(module, spec.wrapper.replace('_fused_multi', '_plain')
                     .replace('_fused', '_plain'))
-    plain_ms = cuda_ms(lambda: [plain(*args) for args in calls], runs=3,
-                       warmup=1)
+    plain_ms = cuda_ms(lambda: [plain(*args) for args in calls],
+                       runs=plain_runs, warmup=1 if plain_runs > 1 else 0)
     lanes = [a[spec.idx].shape[0] for a in calls]
     bound_ms = sum(b for b, _ in bounds)
     by = collections.Counter()
     for b, kind in bounds:
         by[kind] += b
-    log("%s: the %s kernel over one map's %d calls (%d-%d lanes, all on "
-        "one dataset): against float64, the ll uses %.3g of its allowance "
-        "(%s), g/H %.3g of 1e-4 (float32 closed form: ll %.3g of %s, g/H "
+    log("%s: the %s kernel over %s %d calls (%d-%d lanes, all on "
+        "one dataset; every %d held): against float64, the ll uses %.3g of "
+        "its allowance "
+        "(%s), g/H %.3g of %.3g (float32 closed form: ll %.3g of %s, g/H "
         "%.3g); kernel time summed %.4f ms, plain %.4f ms, bound summed "
         "%.4f ms" % (
-            phase, contract, len(calls), min(lanes), max(lanes), used[0],
+            phase, contract, what, len(calls), min(lanes), max(lanes),
+            every, used[0],
             'float32 lane by lane' if spec.module == 'fused_unbinned'
-            else '1e-5 of |ll|', used[1], *np.max(f32_errs, axis=0)[:1],
+            else '1e-5 of |ll|', used[1], gh_allow,
+            *np.max(f32_errs, axis=0)[:1],
             'its terms' if spec.module == 'fused_unbinned' else '|ll|',
             np.max(f32_errs, axis=0)[1], ms, plain_ms, bound_ms))
     if not (used <= 1).all():
         raise AssertionError("%s: the %s kernel disagrees with float64 on "
-                             "the map's calls beyond its allowance"
+                             "its calls beyond its allowance"
                              % (phase, contract))
-    return dict(name=spec.wrapper, path=label + ' interval map',
-                max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=by.most_common(1)[0][0],
-                map_calls=len(calls), allowance_used=list(used))
+    return dict(name=spec.wrapper, max_abs_err=abs_err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=by.most_common(1)[0][0], allowance_used=list(used))
 
 
 def interval_phase(phase, label, study, cls, mods, rows):
@@ -1430,6 +1499,323 @@ def statistics_part(studies, mods, rows):
             new += interval_phase(phase, label, study, cls, mods, rows)
         log("%s: %.1f s" % (phase, time.time() - t0))
     return new
+
+
+# -- the inference part ---------------------------------------------------
+
+#: the models whose one dataset (drawn from ``default_rng(0)``) the
+#: inference part fits, each a path's model launching that path's kernels
+INFERENCE = ('xenon', 'unbinned_xenon', 'unbinned')
+#: the chain of phase (c): walkers, steps, burn-in
+CHAIN = (40, 1000, 500)
+#: (c) and (d) hold every that many-th call to float64 (all are timed):
+#: a chain's calls all have one shape, one dataset and A = 20; an
+#: interval's are its fits' on one dataset
+CHAIN_HELD_EVERY = 10
+INTERVAL_HELD_EVERY = 2
+#: the host referee of the fits: scipy's Powell at tight tolerances. Its
+#: default BFGS stalls at the band_shift kink of the full-width XENON
+#: model (ll -4233.178 against -4232.986 for Powell and the Newton fit on
+#: that dataset), so it would referee its own stall.
+REFEREE_SCIPY = dict(method='Powell',
+                     options=dict(xtol=1e-8, ftol=1e-12, maxfev=100000))
+#: the upper end of the interval search of phase (d)
+INTERVAL_BOUND = 3.0
+
+
+def fresh_compile(lf):
+    """Drop ``lf``'s cached compiles (``compile.cached_logl``), so the next
+    fit builds its fitters anew: with a recorder, or after one."""
+    lf.__dict__.pop('_torch_compiled_for_fit', None)
+
+
+def host_referee(lf, **fixed):
+    """(fit, max ll, seconds) of ``bestfit_scipy`` (``REFEREE_SCIPY``) on
+    the host float64 likelihood."""
+    from blueice_tpu_torch.inference import bestfit_scipy
+    t0 = time.time()
+    fit, ll = bestfit_scipy(lf, minimize_kwargs=REFEREE_SCIPY, **fixed)
+    return fit, float(ll), time.time() - t0
+
+
+def templates_phase(api, mods, tmp):
+    """(a) ``build_likelihood('binned', jax_templates=True)`` at full width
+    into a fresh cache directory: 12 batched device calls (6 single, 6
+    batched), no kernel launch, every anchor pmf within rtol 1e-6, atol
+    1e-12 of the host ``GaussianBlobSource`` build. Returns the
+    likelihood."""
+    from blueice_tpu_torch.models import jax_source
+    xenon_like = api['xenon_like']
+
+    def dirs(name):
+        return dict(cache_dir=os.path.join(tmp, name),
+                    task_dir=os.path.join(tmp, name + '_tasks'))
+    calls0 = jax_source.DEVICE_CALLS
+    t0 = time.time()
+    lf, launches = counted(mods, lambda: xenon_like.build_likelihood(
+        'binned', jax_templates=True, **dirs('device')))
+    secs = time.time() - t0
+    calls = jax_source.DEVICE_CALLS - calls0
+    t0 = time.time()
+    host = xenon_like.build_likelihood('binned', **dirs('host'))
+    host_secs = time.time() - t0
+    worst = 0.0
+    for zs, m_host in host.anchor_models.items():
+        for s_host, s_dev in zip(m_host.sources,
+                                 lf.anchor_models[zs].sources):
+            got, want = s_dev.get_pmf_grid()[0], s_host.get_pmf_grid()[0]
+            np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-12)
+            worst = max(worst, float(np.max(np.abs(got - want)
+                                            / (1e-12 + 1e-6 * np.abs(want)))))
+    n = sum(len(m.sources) for m in lf.anchor_models.values())
+    log("inference templates: build_likelihood('binned', jax_templates=True)"
+        " %s bins, %d anchor models x %d sources: %d device calls, %.3f s "
+        "(host GaussianBlobSource build %.3f s); pmfs use %.3g of rtol 1e-6,"
+        " atol 1e-12; kernel launches %s" % (
+            'x'.join(str(len(e) - 1) for _, e in
+                     lf.base_model.config['analysis_space']),
+            len(lf.anchor_models), n // len(lf.anchor_models), calls, secs,
+            host_secs, worst, launches))
+    if calls != 12 or any(launches.values()):
+        raise AssertionError("inference templates: %d device calls (want "
+                             "12), launches %s" % (calls, launches))
+    return lf
+
+
+def inference_models(api, mods, tmp):
+    """{label: likelihood} of ``INFERENCE``, each with one dataset drawn
+    from ``default_rng(0)`` bound: xenon the device-built templates of
+    (a), unbinned_xenon at 3 live days, the Gaussian unbinned model."""
+    lfs = {'xenon': templates_phase(api, mods, tmp),
+           'unbinned_xenon': api['xenon_like'].build_likelihood(
+               'unbinned', livetime_days=3.0,
+               cache_dir=os.path.join(tmp, 'unbinned'),
+               task_dir=os.path.join(tmp, 'unbinned_tasks')),
+           'unbinned': build_model('unbinned', api['xenon_like'],
+                                   api['test_helpers'], api['likelihood'])}
+    for lf in lfs.values():
+        lf.set_data(lf.base_model.simulate(rng=np.random.default_rng(0)))
+    return lfs
+
+
+def phase_rows(phase, label, lf, mods, launches, contracts, run, every=1):
+    """The path's kernels of ``contracts`` on every call of ``run()`` on a
+    fresh compile (``recorded_calls``, ``held_calls_row``, every
+    ``every``-th call held); rows with the phase's own launch counts."""
+    from blueice_tpu_torch.compile import cached_logl
+
+    def fresh_run():
+        fresh_compile(lf)
+        run()
+    recorded = dict(zip(contracts, recorded_calls(
+        mods, [CALLS[contract][label] for contract in contracts], fresh_run)))
+    rows = []
+    for (name, src, rep, alt), contract in zip(META[label], ('vgh', 'value')):
+        if contract not in contracts:
+            continue
+        calls = recorded[contract]
+        row = dict(path=phase, route='cuda', source=CSRC + src,
+                   replaces=TPU + rep, also_replaces=TPU + alt,
+                   library_ms=None, launches=launches[name],
+                   phase_calls=len(calls))
+        row.update(held_calls_row(phase, label, cached_logl(lf), mods,
+                                  contract, calls, "the phase's",
+                                  gh_from_float32=True, every=every,
+                                  plain_runs=1))
+        rows.append(row)
+    fresh_compile(lf)               # later fits build with the wrappers
+    return rows
+
+
+def fit_phase(label, lf, referee, mods):
+    """(b) ``bestfit_jax`` on the card: the model's vgh and value kernels
+    launched, no other; the fit re-scored on the host float64 likelihood
+    at least the referee's maximum - 1e-3, the target within 5e-3 of the
+    referee's, the errors finite and within 5% of the same fit on the CPU
+    in float64. Returns the phase's kernel rows."""
+    phase = '%s bestfit_jax' % label
+    target = PATHS[label][1]
+    ref_fit, ref_ll, ref_secs = referee
+    fresh_compile(lf)
+    t0 = time.time()
+    (fit, ll), launches = counted(mods, lambda: lf.bestfit_jax())
+    cold = time.time() - t0
+    check_own_launches(label, launches, phase)
+    warm = []
+    for _ in range(3):
+        t0 = time.time()
+        lf.bestfit_jax()
+        torch.cuda.synchronize()
+        warm.append(time.time() - t0)
+    x = {k: v for k, v in fit.items() if not k.endswith('_error')}
+    rescored = float(lf(**x))
+    t0 = time.time()
+    cpu, ll64 = lf.bestfit_jax(device='cpu')
+    cpu_secs = time.time() - t0
+    err_gap = max(abs(fit[k + '_error'] / cpu[k + '_error'] - 1) for k in x)
+    vgh_name, value_name = (name for name, _, _, _ in META[label])
+    log("%s: %d iterations (%d Newton; one lane: one value call before "
+        "the loop and one an iteration, one vgh call a Newton iteration "
+        "and one for the errors), launches %s; cold %.3f s, warm %.4f s a "
+        "fit (median of 3); max ll %.6f, re-scored on the host %.6f, "
+        "referee %.6f (%.1f s); %s %.6f vs %.6f; errors within %.3g of the "
+        "float64 CPU fit's (%.1f s, max ll %.6f)" % (
+            phase, launches[value_name] - 1, launches[vgh_name] - 1,
+            launches, cold, float(np.median(warm)), ll, rescored, ref_ll,
+            ref_secs, target, fit[target], ref_fit[target], err_gap,
+            cpu_secs, ll64))
+    if not (rescored >= ref_ll - 1e-3
+            and abs(fit[target] - ref_fit[target]) < 5e-3
+            and all(np.isfinite(fit[k + '_error']) for k in x)
+            and err_gap <= 0.05):
+        raise AssertionError("%s: the fit fails its gates" % phase)
+    return phase_rows(phase, label, lf, mods, launches, ('vgh', 'value'),
+                      lambda: lf.bestfit_jax())
+
+
+def chain_phase(label, lf, referee, mods):
+    """(c) ``bestfit_emcee_device`` on the card (``CHAIN``, errors): the
+    value kernel launched 2 n_steps + 2 times and nothing else, the chain
+    without a host sync (CUDA sync debug mode 'error'); at the last
+    ensemble, plus one walker out of the shape bounds, the walkers'
+    log_prob within 1e-5 (relative) of its plain version on the card, -inf
+    at the same places; every median within its own posterior sigma of
+    the referee's optimum; the ll at the medians finite and within n_dim
+    of the referee's maximum. Returns the phase's kernel row."""
+    from blueice_tpu_torch.compile import cached_logl
+    from blueice_tpu_torch.parallel import mcmc
+    phase = '%s mcmc' % label
+    n_walkers, n_steps, n_burn_in = CHAIN
+    ref_fit, ref_ll, _ = referee
+    sample, seen = mcmc.sample_stretch, {}
+
+    def recording(log_prob, generator, p0, n, a=2.0):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            out = sample(log_prob, generator, p0, n, a)
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+        torch.cuda.synchronize()
+        seen.update(chain=out[0], secs=time.time() - t0)
+        return out
+
+    def run():
+        return lf.bestfit_emcee_device(
+            n_walkers=n_walkers, n_steps=n_steps, n_burn_in=n_burn_in,
+            return_errors=True)
+    mcmc.sample_stretch = recording
+    try:
+        (res, ll, errs), launches = counted(mods, run)
+    finally:
+        mcmc.sample_stretch = sample
+    value = META[label][1][0]
+    log("%s kernel launches: %s" % (phase, launches))
+    if launches[value] != 2 * n_steps + 2 or any(
+            n for name, n in launches.items() if name != value):
+        raise AssertionError("%s: the value kernel launched %d times (want "
+                             "%d) or another kernel launched"
+                             % (phase, launches[value], 2 * n_steps + 2))
+    chain = seen['chain']
+    accept = float((chain[:, 1:] != chain[:, :-1]).any(-1).double().mean())
+
+    compiled = cached_logl(lf)
+    log_prob, names, _ = mcmc.make_device_log_prob(compiled)
+    plain = mcmc.make_device_log_prob(compiled, engine='analytic')[0]
+    walkers = torch.cat([chain[:, -1], chain[:1, -1]])
+    walkers[-1, names.index('band_shift')] = 1.5
+    out, ref = log_prob(walkers), plain(walkers)
+    same_inf = bool((torch.isneginf(out) == torch.isneginf(ref)).all())
+    finite = torch.isfinite(ref)
+    rel = float(((out - ref).abs() / ref.abs())[finite].max())
+    sigmas = {k: abs(res[k] - ref_fit[k]) / errs[k] for k in res}
+    log("%s: %d walkers x %d steps (burn-in %d) in %.3f s, acceptance "
+        "%.3f; walker log_prob at the last ensemble + 1 out of bounds vs "
+        "plain: rel err %.3g, -inf at the same places %s (%d of %d); "
+        "medians from the referee's optimum in own sigmas: max %.3f (%s); "
+        "ll at the medians %.6f, referee %.6f" % (
+            phase, n_walkers, n_steps, n_burn_in, seen['secs'], accept, rel,
+            same_inf, int((~torch.isfinite(out)).sum()), len(walkers),
+            max(sigmas.values()), max(sigmas, key=sigmas.get), ll, ref_ll))
+    if not (same_inf and bool(torch.isneginf(out[-1])) and rel <= 1e-5
+            and max(sigmas.values()) <= 1.0 and np.isfinite(ll)
+            and ref_ll - ll <= len(names)):
+        raise AssertionError("%s: the chain fails its gates" % phase)
+    return phase_rows(phase, label, lf, mods, launches, ('value',), run,
+                      every=CHAIN_HELD_EVERY)
+
+
+def interval_inference_phase(lf, mods):
+    """(d) ``one_parameter_interval`` of the xenon dataset's wimp rate
+    (upper, 90%) with ``bestfit_routine='jax'`` on the card against the
+    same call with the host referee (``host_referee``) in float64: the
+    limits within 1%; the xenon kernels launched and no other. Returns the
+    phase's kernel rows."""
+    from blueice_tpu_torch.inference import bestfit_jax, one_parameter_interval
+    phase = 'xenon interval (bestfit_jax)'
+    target = PATHS['xenon'][1]
+    fits = collections.Counter()
+
+    def jax_fit(lf, **kwargs):
+        fits['jax'] += 1
+        return bestfit_jax(lf, **kwargs)
+
+    def scipy_fit(lf, **kwargs):
+        fits['scipy'] += 1
+        return host_referee(lf, **kwargs)[:2]
+
+    def run():
+        return one_parameter_interval(lf, target, INTERVAL_BOUND,
+                                      kind='upper', confidence_level=0.9,
+                                      bestfit_routine=jax_fit)
+    fresh_compile(lf)
+    t0 = time.time()
+    ul, launches = counted(mods, run)
+    secs = time.time() - t0
+    check_own_launches('xenon', launches, phase)
+    t0 = time.time()
+    ul64 = one_parameter_interval(lf, target, INTERVAL_BOUND,
+                                  kind='upper', confidence_level=0.9,
+                                  bestfit_routine=scipy_fit)
+    gap = abs(ul - ul64) / abs(ul64)
+    log("%s: upper limit (90%%) %.6g in %.2f s (%d fits), host referee "
+        "%.6g in %.2f s (%d fits): relative gap %.3g" % (
+            phase, ul, secs, fits['jax'], ul64, time.time() - t0,
+            fits['scipy'], gap))
+    if not (np.isfinite(ul) and gap <= 0.01):
+        raise AssertionError("%s: the upper limit disagrees with the host "
+                             "referee" % phase)
+    return phase_rows(phase, 'xenon', lf, mods, launches, ('vgh', 'value'),
+                      run, every=INTERVAL_HELD_EVERY)
+
+
+def inference_part(mods, api):
+    """The inference part: (a) the device template build, (b)
+    ``bestfit_jax`` on the three models of ``INFERENCE``, (c)
+    ``bestfit_emcee_device`` on xenon and unbinned_xenon, (d)
+    ``one_parameter_interval`` through ``bestfit_jax``; each phase between
+    reset and read of every launch counter. Returns its kernel rows."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_inference_')
+    rows = []
+    try:
+        lfs = inference_models(api, mods, tmp)
+        referees = {label: host_referee(lf) for label, lf in lfs.items()}
+        for label in INFERENCE:
+            t0 = time.time()
+            rows += fit_phase(label, lfs[label], referees[label], mods)
+            log("%s bestfit_jax phase: %.1f s" % (label, time.time() - t0))
+        for label in ('xenon', 'unbinned_xenon'):
+            t0 = time.time()
+            rows += chain_phase(label, lfs[label], referees[label], mods)
+            log("%s mcmc phase: %.1f s" % (label, time.time() - t0))
+        t0 = time.time()
+        rows += interval_inference_phase(lfs['xenon'], mods)
+        log("xenon interval (bestfit_jax) phase: %.1f s" % (time.time() - t0))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rows
 
 
 def roofline_part(mods):
@@ -1525,10 +1911,12 @@ def main(labels):
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    unknown = [label for label in labels if label not in PATHS]
+    unknown = [label for label in labels
+               if label not in PATHS and label not in PARTS]
     if unknown:
-        print("chip_smoke: unknown path %s (paths: %s)"
-              % (', '.join(unknown), ', '.join(PATHS)), file=sys.stderr)
+        print("chip_smoke: unknown path %s (paths: %s; parts: %s)"
+              % (', '.join(unknown), ', '.join(PATHS), ', '.join(PARTS)),
+              file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from blueice_tpu_torch import likelihood, test_helpers
@@ -1562,7 +1950,7 @@ def main(labels):
         log("sass " + line)
 
     rows, studies = [], {}
-    for label in labels or PATHS:
+    for label in [lb for lb in labels if lb in PATHS] if labels else PATHS:
         t0 = time.time()
         path_rows, study, cls = run_path(label, mods, api)
         rows += path_rows
@@ -1572,6 +1960,11 @@ def main(labels):
         t0 = time.time()
         rows += statistics_part(studies, mods, rows)
         log("statistics part: %.1f s" % (time.time() - t0))
+    if not labels or 'inference' in labels:
+        t0 = time.time()
+        rows += inference_part(mods, api)
+        log("inference part: %.1f s" % (time.time() - t0))
+    if not labels:
         t0 = time.time()
         rows += roofline_part(mods)
         log("roofline part: %.1f s" % (time.time() - t0))

@@ -993,3 +993,85 @@ def test_log_morphed_fitter_launches_no_kernel(cuda_device):
     assert np.isfinite(free.max_ll).all() and (t >= 0).all()
     for module in (fused, fused_bb, fused_bb_lite, fused_unbinned):
         assert not any(module.launch_counts().values())
+
+
+# -- the inference slice on the card -------------------------------------------
+
+def _bound_likelihood(kind):
+    """A small XENON-like binned or unbinned model with one dataset bound,
+    drawn from a seeded generator."""
+    from blueice_tpu_torch.examples import xenon_like
+    from blueice_tpu_torch.utils import set_progress
+    set_progress(False)
+    extra = dict(livetime_days=3.0) if kind == 'unbinned' else {}
+    lf = xenon_like.build_likelihood(kind, **SMALL, **extra)
+    lf.set_data(lf.base_model.simulate(rng=np.random.default_rng(0)))
+    return lf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['binned', 'unbinned'])
+def test_walker_values_match_plain(cuda_device, kind):
+    """The MCMC walkers' log_prob through the value kernel (#2, or #16 for
+    the unbinned model) at one dataset and A = 20 candidates, one walker
+    out of the shape bounds: one launch, the values relative 1e-5 of the
+    plain version's on the card, -inf at the same place."""
+    from blueice_tpu_torch.compile import cached_logl
+    from blueice_tpu_torch.parallel import mcmc
+    compiled = cached_logl(_bound_likelihood(kind))
+    log_prob, names, guess = mcmc.make_device_log_prob(compiled)
+    plain = mcmc.make_device_log_prob(compiled, engine='analytic')[0]
+    rng = np.random.default_rng(1)
+    x = guess * rng.uniform(0.9, 1.1, (20, len(names)))
+    x[3, names.index('band_shift')] = 1.5
+    x = torch.as_tensor(x, dtype=torch.float32, device=cuda_device)
+    module = fused if kind == 'binned' else fused_unbinned
+    name = ('binned_ll_fused_multi' if kind == 'binned'
+            else 'unbinned_ll_fused_multi')
+    module.reset_launch_counts()
+    out = log_prob(x)
+    torch.cuda.synchronize()
+    assert module.launch_counts()[name] == 1
+    ref = plain(x)
+    assert torch.isneginf(out[3]) and torch.isneginf(ref[3])
+    keep = torch.arange(20, device=cuda_device) != 3
+    assert bool(torch.isfinite(out[keep]).all())
+    np.testing.assert_allclose(out[keep].cpu(), ref[keep].cpu(), rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['binned', 'unbinned'])
+def test_fit_single_on_the_card(cuda_device, kind):
+    """bestfit_jax on the card (float32, the kernels) against the same fit
+    on the CPU in float64: the maximum within 1e-2, the values within a
+    tenth of their errors, the errors within 5%."""
+    lf = _bound_likelihood(kind)
+    module = fused if kind == 'binned' else fused_unbinned
+    module.reset_launch_counts()
+    card, ll = lf.bestfit_jax()
+    torch.cuda.synchronize()
+    assert all(v > 0 for v in module.launch_counts().values())
+    cpu, ll64 = lf.bestfit_jax(device='cpu')
+    assert abs(ll - ll64) < 1e-2
+    for k in cpu:
+        if not k.endswith('_error'):
+            assert abs(card[k] - cpu[k]) <= 0.1 * cpu[k + '_error'], k
+        else:
+            assert abs(card[k] / cpu[k] - 1) < 0.05, k
+
+
+@pytest.mark.cuda
+def test_template_batch_kernel_on_the_card(cuda_device):
+    """The device template build (float64) on the card against the CPU's."""
+    from blueice_tpu_torch.examples import xenon_like
+    from blueice_tpu_torch.models import jax_source
+    space = xenon_like.build_config(**SMALL)['analysis_space']
+    density = xenon_like.blob_density(*xenon_like.SOURCES[0][2:])
+    names = ['band_shift', 'band_width_scale', 'cs1_tilt', 'efficiency']
+    params = np.random.default_rng(2).uniform(-1, 1, (81, 4)) * [1, 0.2, 1,
+                                                                 0.3]
+    params += [0.0, 1.0, 0.0, 1.0]
+    card = jax_source._batch_kernel(density, space, names, 'cuda')(params)
+    cpu = jax_source._batch_kernel(density, space, names, 'cpu')(params)
+    assert card.shape == (81, 10, 8)
+    np.testing.assert_allclose(card, cpu, rtol=1e-12, atol=1e-15)

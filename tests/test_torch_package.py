@@ -40,7 +40,9 @@ def test_imports_without_jax():
             'blueice_tpu_torch.utils.roofline'} <= set(modules)
     assert {'blueice_tpu_torch.parallel.' + m for m in (
         '_stats', 'limits', 'neyman', 'cls', 'discovery', 'asymptotics',
-        'coverage', 'gof', 'ranking')} <= set(modules)
+        'coverage', 'gof', 'ranking', 'mcmc')} <= set(modules)
+    assert {'blueice_tpu_torch.inference',
+            'blueice_tpu_torch.models.jax_source'} <= set(modules)
     code = textwrap.dedent("""
         import importlib, sys
         sys.modules['jax'] = None
@@ -113,6 +115,14 @@ def test_default_device_raises_without_cuda(lf):
         BinnedToyStudy(lf)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         lf.make_logl()
+    # the inference slice: the compiled fits, the device chain and the
+    # device template build
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lf.bestfit_jax()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lf.bestfit_emcee_device(n_steps=2, n_burn_in=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_likelihood('binned', jax_templates=True, **SIZE)
     assert resolve('cpu') == (torch.device('cpu'), torch.float64)
     assert resolve('cpu', torch.float32)[1] == torch.float32
 
@@ -150,8 +160,6 @@ def test_not_ported_features_say_so(lf):
         build_likelihood('binned', bb='bb_full', **SIZE)
     with pytest.raises(ValueError, match='blob templates'):
         build_likelihood('binned', bb=True, jax_templates=True, **SIZE)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        build_likelihood('binned', jax_templates=True, **SIZE)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         BinnedToyStudy(lf, device='cpu').simulate(0, 2, mesh=object())
     with pytest.raises(NotImplementedError, match='ROADMAP'):
