@@ -26,7 +26,8 @@ import torch
 from .device import resolve
 from .ops.bb_lite import bb_lite_logl
 from .ops.beeston_barlow import bb_single_adjust
-from .ops.interp import clip, morph_templates
+from .ops.interp import (cell_rows, clip, corner_offsets, corner_weights,
+                         grid_strides, morph_rows, morph_weights)
 from .ops.poisson import (binned_poisson_logl, binned_poisson_logl_constant,
                           extended_logl)
 from .priors import PRIORS
@@ -155,16 +156,39 @@ class CompiledLogLikelihood:
         self.allowed_negative = np.asarray(state['allow_negative'], bool)
         self.apply_eff = np.asarray(state['apply_efficiency'], bool)
         self.eff_names = list(state['efficiency_names'])
-        self.anchor_arrays = [np.asarray(a, dtype=float)
-                              for a in state['anchor_arrays']]
+        sw = state.get('source_wise')
+        # per source: (its shape-parameter indices, its anchor tensors), or
+        # None for an unmorphed source; None without source-wise morphing
+        self.source_wise = None if sw is None else [
+            None if e is None else (list(e['shape_idx']),
+                                    [self._tensor(a)
+                                     for a in e['anchor_arrays']])
+            for e in sw]
+        self.anchor_arrays = (None if state['anchor_arrays'] is None
+                              else [np.asarray(a, dtype=float)
+                                    for a in state['anchor_arrays']])
         self.prior_terms = ([(name, PRIORS[kind](*numbers))
                              for name, kind, numbers in state['priors']]
                             if with_priors else [])
         self.is_binned = state.get('kind', 'binned') == 'binned'
         self.outlier_likelihood = float(state.get('outlier_likelihood', 0.0))
-        self.mus_tensor = self._tensor(state['mus'])
-        self.ps_tensor = (None if state['ps'] is None
-                          else self._tensor(state['ps']))
+        # the rates in float64 too, for the centered unbinned value
+        # (logl_with_data)
+        self._mus64 = (torch.as_tensor(np.asarray(state['mus']),
+                                       dtype=torch.float64, device=self.device)
+                       if self.source_wise is None else
+                       [torch.as_tensor(np.asarray(m), dtype=torch.float64,
+                                        device=self.device)
+                        for m in state['mus']])
+        if self.source_wise is None:
+            self.mus_tensor = self._tensor(state['mus'])
+            self.ps_tensor = (None if state['ps'] is None
+                              else self._tensor(state['ps']))
+        else:
+            self.mus_tensor = [self._tensor(m) for m in state['mus']]
+            self.ps_tensor = (None if state['ps'] is None
+                              else tuple(self._tensor(p)
+                                         for p in state['ps']))
         self.data = (None if state['data'] is None
                      else self._tensor(state['data']))
         mode = state.get('mode')
@@ -180,7 +204,30 @@ class CompiledLogLikelihood:
         self.masses_host = (None if masses is None
                             else np.asarray(masses, dtype=float))
         self.mass_tensor = None if masses is None else self._tensor(masses)
-        self._anchor_tensors = [self._tensor(a) for a in self.anchor_arrays]
+        self._anchor_tensors = [self._tensor(a)
+                                for a in self.anchor_arrays or []]
+        grids = ([] if self.anchor_arrays is None
+                 else [tuple(len(a) for a in self.anchor_arrays)])
+        if self.source_wise is not None:
+            grids += [g for g in self._source_grids() if g]
+        for g in grids:    # made outside any torch.func transform
+            corner_offsets(grid_strides(g), self.device)
+        self._param_anchors = self._anchor_tensors
+        if self.source_wise is not None:
+            # each parameter's anchors, from a source that morphs over it
+            # (the per-source grids take the shape parameters' anchors)
+            by_param = {i: a for e in self.source_wise if e is not None
+                        for i, a in zip(*e)}
+            self._param_anchors = [
+                by_param.get(d, self._tensor(self.bounds[sp]))
+                for d, sp in enumerate(self.shape_names)]
+        self._apply_eff_t = torch.as_tensor(self.apply_eff,
+                                            device=self.device)
+        # each shape parameter's anchors (the fits' snap candidates): the
+        # global grid's axes, or those the sources of a source-wise build
+        # morph over
+        self.shape_anchor_arrays = [
+            np.asarray(a.cpu(), dtype=float) for a in self._param_anchors]
         K = len(self.shape_names)
         self._shape_lo = self._tensor(
             [self.bounds[sp][0] for sp in self.shape_names]).reshape(K)
@@ -191,8 +238,15 @@ class CompiledLogLikelihood:
         return torch.as_tensor(np.asarray(x), dtype=self.dtype,
                                device=self.device)
 
-    def _value(self, v):
-        return torch.as_tensor(v, dtype=self.dtype, device=self.device)
+    def _value(self, v, dtype=None):
+        dtype = dtype or self.dtype
+        if torch.is_tensor(v):
+            # a copy: under torch.func's forward-mode AD a parameter made by
+            # float arithmetic on a 0-d tensor (a re-parametrisation's
+            # transform) carries a float64 tangent even where its value is
+            # float32, and the copy converts the tangent too
+            return v.to(dtype=dtype, device=self.device, copy=True)
+        return torch.as_tensor(v, dtype=dtype, device=self.device)
 
     # -- parameters ---------------------------------------------------------------
 
@@ -214,46 +268,101 @@ class CompiledLogLikelihood:
         oob = torch.any((zs_raw < self._shape_lo) | (zs_raw > self._shape_hi))
         return clip(zs_raw, self._shape_lo, self._shape_hi), oob
 
-    def _morph(self, tensor, zs):
-        return (tensor if zs is None
-                else morph_templates(tensor, self._anchor_tensors, zs))
+    def _weights(self, zs):
+        """Per shape parameter, (cell index, lerp weight) at zs (None
+        without shape parameters), with a memo of the cells
+        (:meth:`_cell`) that the point's payloads read: made once a point
+        for every payload morphed there (rates, templates, MC counts,
+        every source of a source-wise build)."""
+        if zs is None:
+            return None
+        idx, ts = morph_weights(self._param_anchors, zs)
+        return idx, ts, {}
 
-    def _morph_ps(self, ps, zs):
-        """The morphed pmfs (S, *bins) at zs; geometric with ``log_morph``
-        (:meth:`blueice_tpu_torch.morphers.LogMorpher.eval`, the masses
-        from the float64 host payload)."""
-        if not self.log_morph or zs is None:
-            return self._morph(ps, zs)
-        raw = torch.exp(self._morph(ps, zs))
+    def _cell(self, w, params):
+        """(corner rows (2^k,), corner weights (2^k,)) of the cell at the
+        weights ``w`` on the grid of the shape parameters ``params``."""
+        key = tuple(params)
+        memo = w[2]
+        if key not in memo:
+            grid = tuple(len(self._param_anchors[i]) for i in key)
+            memo[key] = (cell_rows([w[0][i] for i in key], grid, self.device),
+                         corner_weights([w[1][i] for i in key]))
+        return memo[key]
+
+    def _morph(self, tensor, w):
+        """A payload at the weights ``w`` (:meth:`_weights`): a global
+        anchor tensor morphed over the grid, or a source-wise list of
+        per-source payloads, each morphed over its own parameters, stacked
+        over sources."""
+        if self.source_wise is None:
+            if w is None:
+                return tensor
+            K = len(self.shape_names)
+            return morph_rows(tensor, K, *self._cell(w, range(K)))
+        return torch.stack([
+            t if e is None else morph_rows(t, len(e[0]),
+                                           *self._cell(w, e[0]))
+            for t, e in zip(tensor, self.source_wise)])
+
+    def _source_grids(self):
+        """Per source, the shape of its anchor grid (() unmorphed)."""
+        return [() if e is None else tuple(len(a) for a in e[1])
+                for e in self.source_wise]
+
+    def _event_densities(self, data, w):
+        """(S, n_events) per-event densities at the weights ``w`` of one
+        toy's anchor payload: a (*grid, S, n_events) tensor (grid
+        flattened or not), or for a source-wise build a sequence of
+        per-source (*sub_grid, n_events) tensors (sub-grid flattened or
+        not)."""
+        if self.source_wise is not None:
+            return self._morph([d.reshape(g + d.shape[-1:])
+                                for d, g in zip(data, self._source_grids())],
+                               w)
+        data = data if torch.is_tensor(data) else self._tensor(data)
+        grid = tuple(len(a) for a in self.anchor_arrays)
+        return self._morph(data.reshape(grid + tuple(data.shape[-2:])), w)
+
+    def _morph_ps(self, ps, w):
+        """The morphed pmfs (S, *bins) at the weights ``w``; geometric with
+        ``log_morph`` (:meth:`blueice_tpu_torch.morphers.LogMorpher.eval`,
+        the masses from the float64 host payload)."""
+        if not self.log_morph or w is None:
+            return self._morph(ps, w)
+        raw = torch.exp(self._morph(ps, w))
         axes = tuple(range(1, raw.dim()))
-        scale = self._morph(self.mass_tensor, zs) / torch.clamp(
+        scale = self._morph(self.mass_tensor, w) / torch.clamp(
             raw.sum(dim=axes), min=torch.finfo(raw.dtype).tiny)
         return raw * scale.reshape((-1,) + (1,) * len(axes))
 
-    def _mus_at(self, params, zs):
-        """Per-source expected counts: base rates at zs, scaled by rate
-        multipliers and applied efficiencies (the analytic engines' rates
-        follow the same pipeline)."""
-        mus = self._morph(self.mus_tensor, zs)
-        mults = torch.stack([self._value(params[rn]) for rn in self.rate_names])
+    def _mus_at(self, params, w, dtype=None):
+        """Per-source expected counts: base rates at the weights ``w``,
+        scaled by rate multipliers and applied efficiencies (the analytic
+        engines' rates follow the same pipeline); with ``dtype`` float64,
+        from the float64 rate payload."""
+        mus = self._morph(self._mus64 if dtype == torch.float64
+                          else self.mus_tensor, w)
+        mults = torch.stack([self._value(params[rn], dtype)
+                             for rn in self.rate_names])
         mus = mus * mults
         if self.apply_eff.any():
             effs = torch.stack([
-                self._value(params[self.eff_names[i]])
+                self._value(params[self.eff_names[i]], dtype)
                 if self.apply_eff[i] and self.eff_names[i] in self.shape_names
-                else self._value(1.0) for i in range(len(self.rate_names))])
-            mus = torch.where(torch.as_tensor(self.apply_eff,
-                                              device=self.device),
-                              mus * effs, mus)
+                else self._value(1.0, dtype)
+                for i in range(len(self.rate_names))])
+            mus = torch.where(self._apply_eff_t, mus * effs, mus)
         return mus
 
     def rates(self, params):
         """Per-source expected counts at params."""
-        return self._mus_at(params, self._clipped_zs(params)[0])
+        return self._mus_at(params, self._weights(self._clipped_zs(params)[0]))
 
     def densities(self, params):
         """The morphed PMF grids (n_sources, *bins) at params."""
-        return self._morph_ps(self.ps_tensor, self._clipped_zs(params)[0])
+        return self._morph_ps(self.ps_tensor,
+                              self._weights(self._clipped_zs(params)[0]))
 
     def expected_counts(self, params):
         """Expected counts per analysis-space bin at params."""
@@ -262,20 +371,34 @@ class CompiledLogLikelihood:
 
     # -- evaluation ----------------------------------------------------------------
 
-    def logl_with_data(self, params, data, mask=None, include_constant=True):
+    def logl_with_data(self, params, data, mask=None, include_constant=True,
+                       center=None):
         """Log likelihood at one parameter point for the observed-counts
         tensor ``data`` (*bins), or for an unbinned likelihood one toy's
-        per-event density tensor (*grid, S, n_events), grid flattened or
-        not, with its optional event ``mask`` (n_events,) (False: padding)."""
+        per-event density payload (see :meth:`_event_densities`) with its
+        optional event ``mask`` (n_events,) (False: padding).
+
+        :param center: unbinned only: ``(inv_ref (n_events,), ref_msum)``
+          of :func:`~blueice_tpu_torch.parallel.fitter.unbinned_center`,
+          which make the value the centered log likelihood, every term
+          O(1) (add the toy's ``ref_ll`` back for the absolute value)."""
         zs, oob = self._clipped_zs(params)
-        data = data if torch.is_tensor(data) else self._tensor(data)
+        # the centered unbinned value in float64 from the payloads as they
+        # are: float32 rounding of the rates and the morph weights, which
+        # every event's density shares, sums over ~1e4 events to ~6e-4,
+        # and moved an upper limit by 1e-4 (a profile's two fits round
+        # differently)
+        wide = (torch.float64 if center is not None and not self.is_binned
+                else None)
+        w = self._weights(zs if zs is None or wide is None
+                          else zs.to(wide))
         if self.is_binned:
-            ps = self._morph_ps(self.ps_tensor, zs)
+            data = data if torch.is_tensor(data) else self._tensor(data)
+            ps = self._morph_ps(self.ps_tensor, w)
             data = data.reshape(ps.shape[1:])
         else:
-            grid = tuple(len(a) for a in self.anchor_arrays)
-            ps = self._morph(data.reshape(grid + tuple(data.shape[-2:])), zs)
-        mus = self._mus_at(params, zs)
+            ps = self._event_densities(data, w)
+        mus = self._mus_at(params, w, wide)
 
         finite = torch.all(mus < float('inf'))
         if not self.allowed_negative.any():
@@ -292,14 +415,15 @@ class CompiledLogLikelihood:
             ll = extended_logl(mus_safe, ps, self.outlier_likelihood,
                                mask=None if mask is None
                                else torch.as_tensor(mask, dtype=torch.bool,
-                                                    device=self.device))
+                                                    device=self.device),
+                               center=center)
         elif self.has_bb_lite:
-            ll = bb_lite_logl(mus_safe, ps, self._morph(self.nme_tensor, zs),
+            ll = bb_lite_logl(mus_safe, ps, self._morph(self.nme_tensor, w),
                               data, include_constant=include_constant)
         else:
             if self.has_bb:
                 mus_safe, ps = bb_single_adjust(
-                    mus_safe, ps, self._morph(self.nme_tensor, zs), data,
+                    mus_safe, ps, self._morph(self.nme_tensor, w), data,
                     self.bb_source_i)
             ll = binned_poisson_logl(mus_safe, ps, data,
                                      include_constant=include_constant)
@@ -464,8 +588,9 @@ class CompiledLogLikelihoodSum(_CompiledComposition):
 class CompiledReParam(_CompiledComposition):
     """A compiled LogLikelihoodReParam: the wrapped likelihood compiled as
     usual, with the parameter transform ``func(*new)/func(*base)`` in front
-    of it, on tensors. Its fits are the autodiff engine's (ROADMAP queue 1
-    item 16b): there is no anchor grid in the new parameters."""
+    of it, on tensors. Its fits are the autodiff engine's
+    (``parallel.fitter``): there is no anchor grid in the new
+    parameters."""
 
     def __init__(self, state, device=None, dtype=None, with_priors=True):
         from .composition import ParameterTransform

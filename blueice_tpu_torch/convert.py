@@ -91,6 +91,33 @@ def _ancillary_state(anc):
                 registered=names)
 
 
+def _source_wise_state(lf, mus_builds, ps_builds):
+    """(mus, ps, source_wise) of a source-wise build: per source, its rate
+    payload (*sub_grid) and density payload (*sub_grid, *bins or
+    n_events), each over the grid of the shape parameters it depends on
+    (``source_wise[s]``: their ``shape_idx`` into the shape parameters and
+    their ``anchor_arrays``), or without a morpher a constant payload and
+    None; ``ps`` is None for a data-free unbinned likelihood."""
+    mus, ps, source_wise = [], None if ps_builds is None else [], []
+    for sn in lf.source_name_list:
+        morpher, tensor = mus_builds[sn]
+        mus.append(np.asarray(tensor, dtype=float))
+        if ps is not None:
+            ps.append(np.asarray(ps_builds[sn][1], dtype=float))
+        if morpher is None:
+            source_wise.append(None)
+            continue
+        if type(morpher).__name__ != 'GridInterpolator':
+            raise NotImplementedError(
+                "%s template morphing is not ported yet (ROADMAP queue 1 "
+                "item 16c)" % type(morpher).__name__)
+        source_wise.append(dict(
+            shape_idx=[int(i) for i in lf._get_shape_indices(sn)],
+            anchor_arrays=[np.asarray(a, dtype=float)
+                           for a in morpher.anchor_z_arrays]))
+    return mus, ps, source_wise
+
+
 def state_from_reference(lf):
     """Numpy state of a prepared binned or unbinned likelihood, or of a
     composition (its members prepared).
@@ -118,7 +145,11 @@ def state_from_reference(lf):
       ``bb_source_i`` (the finite source of 'bb_single', else None);
       ``log_morph`` (geometric template morphing: ``ps`` is the log anchor
       tensor) with ``masses`` (*grid, S), the per-anchor template masses
-      in float64 from the full template, else None.
+      in float64 from the full template, else None; ``source_wise``: for a
+      source-wise build (``anchor_arrays`` None), per source its
+      ``shape_idx`` and ``anchor_arrays``, or None for an unmorphed
+      source, with ``mus`` and ``ps`` lists of per-source payloads
+      (:func:`_source_wise_state`); else None.
     """
     for name, reader in (('LogLikelihoodSum', _sum_state),
                          ('LogLikelihoodReParam', _reparam_state),
@@ -132,20 +163,23 @@ def state_from_reference(lf):
         raise TypeError("Cannot read %r: expected a binned or unbinned "
                         "likelihood or a composition of them"
                         % type(lf).__name__)
-    if getattr(lf, 'source_wise_interpolation', False):
-        raise NotImplementedError(
-            "source-wise interpolation is not ported yet (ROADMAP queue 1 "
-            "item 17b)")
     source_names = list(lf.source_name_list)
     shape_names = list(lf.shape_parameters.keys())
     ps_build = lf._builds.get('ps')
+    source_wise = None
     if ps_build is None and not binned:
         # Data-free unbinned likelihood: the rates and the anchor grid only;
         # each toy brings its own per-event densities
-        ps_build = (('global', lf.morpher, None) if shape_names
-                    else ('constant', None))
+        ps_build = (('constant', None) if not shape_names
+                    else ('source_wise', None)
+                    if lf.source_wise_interpolation
+                    else ('global', lf.morpher, None))
     log_morph = False
-    if ps_build[0] == 'global':
+    if ps_build[0] == 'source_wise':
+        mus, ps, source_wise = _source_wise_state(lf, lf._builds['mus'][1],
+                                                  ps_build[1])
+        anchor_arrays = None
+    elif ps_build[0] == 'global':
         morpher = ps_build[1]
         if type(morpher).__name__ == 'LogMorpher':
             morpher, log_morph = morpher.inner, True
@@ -225,7 +259,7 @@ def state_from_reference(lf):
         apply_efficiency=[bool(a) for a in lf.source_apply_efficiency],
         efficiency_names=[str(e) for e in lf.source_efficiency_names],
         data=data, mode=mode, nme=nme, bb_source_i=bb_source_i,
-        log_morph=log_morph, masses=masses)
+        log_morph=log_morph, masses=masses, source_wise=source_wise)
 
 
 def build_logl_from_state(state, device=None, dtype=None, with_priors=True):

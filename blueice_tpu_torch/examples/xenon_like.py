@@ -115,7 +115,7 @@ def blob_density(mean, sigma, corr, responses):
 
 def build_config(n_cs1_bins=50, n_cs2_bins=62, livetime_days=278.0,
                  cache_dir=None, task_dir=None, jax_templates=False,
-                 template_device=None):
+                 template_device=None, source_wise_interpolation=False):
     """:param jax_templates: use JaxDensitySource (device-side batched anchor
     template building) instead of the host-evaluated GaussianBlobSource.
     Identical pmf templates; fraction_in_range is 1 by construction on the
@@ -124,6 +124,11 @@ def build_config(n_cs1_bins=50, n_cs2_bins=62, livetime_days=278.0,
     variant for Beeston-Barlow studies.
     :param template_device: the device of the ``jax_templates`` build
       (None: the card, raising without CUDA; 'cpu' for the CPU).
+    :param source_wise_interpolation: morph each source over only the
+      shape parameters it depends on: the WIMP over the 3^4 grid (its
+      efficiency applies), the five others over 3^3 (they list
+      'efficiency' in dont_hash_settings). The templates do not vary along
+      'efficiency', so the likelihood equals the global grid's.
     """
     import tempfile
     cache_dir = cache_dir or tempfile.mkdtemp(prefix='xenon_like_cache_')
@@ -169,6 +174,8 @@ def build_config(n_cs1_bins=50, n_cs2_bins=62, livetime_days=278.0,
     )
     if jax_templates:
         config['template_device'] = template_device
+    if source_wise_interpolation:
+        config['source_wise_interpolation'] = True
     return config
 
 

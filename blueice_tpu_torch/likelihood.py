@@ -20,14 +20,22 @@ extended unbinned likelihood is ported with global morphing (``set_data``
 scores the events at every anchor model into a (*grid, n_sources,
 n_events) tensor) and without shape parameters.
 
+Source-wise interpolation (``source_wise_interpolation`` in the config):
+each source morphs over the grid of only the shape parameters it depends
+on (its ``dont_hash_settings`` say which it ignores; an applied
+efficiency always counts), so ``self._builds`` holds ``('source_wise',
+{source: (morpher or None, tensor)})``. The unbinned likelihood has it as
+the JAX package has it; the binned one here too (the JAX package refuses
+it), without a finite-MC-statistics mode or log morphing.
+
 The binned likelihood also morphs its templates geometrically
 (``template_interpolation='log'``,
 :class:`~blueice_tpu_torch.morphers.LogMorpher`).
 The compositions (sum, re-parametrisation, ancillary terms) live in
 :mod:`blueice_tpu_torch.composition` and are re-exported here.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP item):
-source-wise interpolation and parallel template builds.
+Not ported yet (raises ``NotImplementedError`` naming ROADMAP item 16c):
+parallel template builds.
 """
 
 from collections import OrderedDict
@@ -130,10 +138,6 @@ class LogLikelihoodBase:
                 "renormalize the geometric mean over)")
         self.source_wise_interpolation = self.pdf_base_config.get(
             'source_wise_interpolation', False)
-        if self.source_wise_interpolation:
-            raise NotImplementedError(
-                "source_wise_interpolation is not ported yet (ROADMAP queue "
-                "1 item 17b)")
 
         # Base model: no variation of any setting
         self.base_model = Model(self.pdf_base_config)
@@ -165,14 +169,52 @@ class LogLikelihoodBase:
 
         # With shape parameters:
         self.anchor_models = OrderedDict()    # zs tuple -> Model
+        self.anchor_sources = OrderedDict()   # source -> zs tuple -> Source
         self.mus_interpolator = None
         self.ps_interpolator = None
         self.n_model_events_interpolator = None
 
         # Stacked anchor tensors for the device path (set by prepare):
         #   dict payload_name -> ('global', morpher, tensor)
+        #                      | ('source_wise', {source: (morpher or None,
+        #                                                  tensor)})
         #                      | ('constant', array)
         self._builds = {}
+
+    # -- source-wise bookkeeping ------------------------------------------------
+
+    @property
+    def source_shape_parameters(self):
+        """OrderedDict: source name -> OrderedDict of the shape parameters
+        that source depends on (its dont_hash_settings name those it
+        ignores; an applied efficiency parameter always counts)."""
+        result = OrderedDict()
+        for sn, source, apply_eff, eff_name in zip(
+                self.source_name_list, self.base_model.sources,
+                self.source_apply_efficiency, self.source_efficiency_names):
+            ignore = set(source.config['dont_hash_settings'])
+            if apply_eff:
+                ignore.discard(eff_name)
+            sps = OrderedDict((k, v) for k, v in self.shape_parameters.items()
+                              if k not in ignore)
+            if sps:
+                result[sn] = sps
+        return result
+
+    def _get_shape_indices(self, source_name):
+        """Indices (into the full shape-parameter list) used by
+        source_name."""
+        shape_keys = self.source_shape_parameters[source_name].keys()
+        return [i for i, k in enumerate(self.shape_parameters.keys())
+                if k in shape_keys]
+
+    def _get_model_anchor(self, anchor, source_name):
+        """Full-model anchor tuple from a single source's anchor tuple;
+        parameters the source does not use are None."""
+        model_anchor = [None] * len(self.shape_parameters)
+        for i, idx in enumerate(self._get_shape_indices(source_name)):
+            model_anchor[idx] = anchor[i]
+        return tuple(model_anchor)
 
     # -- preparation -----------------------------------------------------------
 
@@ -188,9 +230,14 @@ class LogLikelihoodBase:
                 "parallel template builds (n_cores > 1, ipp_client) are not "
                 "ported yet (ROADMAP queue 1 item 16c)")
         if len(self.shape_parameters):
-            self.morpher = MORPHERS[self.config['morpher']](
-                self.config.get('morpher_config', {}), self.shape_parameters)
-            zs_list = self.morpher.get_anchor_points(bounds=self.get_bounds())
+            if self.source_wise_interpolation:
+                zs_list = self._prepare_source_wise_anchors()
+            else:
+                self.morpher = MORPHERS[self.config['morpher']](
+                    self.config.get('morpher_config', {}),
+                    self.shape_parameters)
+                zs_list = self.morpher.get_anchor_points(
+                    bounds=self.get_bounds())
 
             configs = []
             for zs in zs_list:
@@ -202,13 +249,16 @@ class LogLikelihoodBase:
                 configs.append(config)
 
             models = self._build_models(configs)
-            for zs, model in zip(zs_list, models):
-                self.anchor_models[tuple(zs)] = model
-            self.mus_interpolator, mus_tensor = self._interp_and_tensor(
-                self.morpher, f=lambda m: m.expected_events(),
-                extra_dims=[len(self.source_name_list)],
-                anchor_models=self.anchor_models)
-            self._builds['mus'] = ('global', self.morpher, mus_tensor)
+            if self.source_wise_interpolation:
+                self._finalize_source_wise(zs_list, models)
+            else:
+                for zs, model in zip(zs_list, models):
+                    self.anchor_models[tuple(zs)] = model
+                self.mus_interpolator, mus_tensor = self._interp_and_tensor(
+                    self.morpher, f=lambda m: m.expected_events(),
+                    extra_dims=[len(self.source_name_list)],
+                    anchor_models=self.anchor_models)
+                self._builds['mus'] = ('global', self.morpher, mus_tensor)
 
         self.is_data_set = False
         self._builds.pop('ps', None)
@@ -224,6 +274,74 @@ class LogLikelihoodBase:
         prefill_anchor_templates(configs)
         return [Model(c) for c in progress_iter(
             configs, desc="Computing/loading anchor models")]
+
+    def _prepare_source_wise_anchors(self):
+        """Create the per-source morphers; return the union of the model
+        anchor tuples they need."""
+        if self.config['morpher'] != 'GridInterpolator':
+            raise NotImplementedError(
+                "source_wise_interpolation requires a deterministic anchor "
+                "grid per source (morpher 'GridInterpolator'); scattered-"
+                "anchor morphers sample bound-dependent random anchors that "
+                "cannot be matched up across the per-source builds")
+        self.source_morphers = OrderedDict()
+        for sn, shape_pars in self.source_shape_parameters.items():
+            self.source_morphers[sn] = MORPHERS[self.config['morpher']](
+                self.config.get('morpher_config', {}), shape_pars)
+        zs_set = set()
+        for sn, morpher in self.source_morphers.items():
+            for anchor in morpher.get_anchor_points(bounds=None):
+                zs_set.add(self._get_model_anchor(anchor, sn))
+        return list(zs_set)
+
+    def _finalize_source_wise(self, zs_list, models):
+        """Collect each morphed source's anchor sources and build the
+        source-wise mus payload and its host interpolator."""
+        for sn, morpher in self.source_morphers.items():
+            self.anchor_sources[sn] = OrderedDict()
+            source_index = self.source_name_list.index(sn)
+            for anchor in morpher.get_anchor_points(bounds=None):
+                model_index = zs_list.index(self._get_model_anchor(anchor,
+                                                                   sn))
+                self.anchor_sources[sn][anchor] = \
+                    models[model_index].sources[source_index]
+        sw_builds = self._source_wise_builds(
+            lambda s: s.expected_events, [], lambda s: np.float64(
+                s.expected_events))
+        self._builds['mus'] = ('source_wise', sw_builds)
+        self.mus_interpolator = self._source_wise_interpolator(
+            sw_builds, scalar=True)
+
+    def _source_wise_builds(self, f, extra_dims, base):
+        """{source: (morpher, tensor of f over its anchor sources)} for
+        each morphed source, (None, base(base source)) for the others."""
+        sw_builds = OrderedDict()
+        for sn, base_source in zip(self.source_name_list,
+                                   self.base_model.sources):
+            if sn in self.source_morphers:
+                morpher = self.source_morphers[sn]
+                sw_builds[sn] = (morpher, np.asarray(morpher.build_tensor(
+                    f=f, extra_dims=extra_dims,
+                    anchor_models=self.anchor_sources[sn])))
+            else:
+                sw_builds[sn] = (None, base(base_source))
+        return sw_builds
+
+    def _source_wise_interpolator(self, sw_builds, scalar=False):
+        """Host interpolator of a source-wise build: each source's payload
+        at its own slice of zs, stacked over sources (floats with
+        ``scalar``)."""
+        def interpolator(zs):
+            zs = np.asarray(zs)
+            rows = []
+            for sn in self.source_name_list:
+                morpher, tensor = sw_builds[sn]
+                value = (tensor if morpher is None else morpher.host_eval(
+                    tensor, zs[self._get_shape_indices(sn)]))
+                rows.append(float(value) if scalar
+                            else np.asarray(value, dtype=float))
+            return np.array(rows) if scalar else np.stack(rows)
+        return interpolator
 
     @staticmethod
     def _interp_and_tensor(morpher, f, extra_dims, anchor_models):
@@ -493,7 +611,9 @@ class UnbinnedLogLikelihood(LogLikelihoodBase):
     @inherit_docstring_from(LogLikelihoodBase)
     def set_data(self, d):
         LogLikelihoodBase.set_data(self, d)
-        if len(self.shape_parameters):
+        if len(self.shape_parameters) and self.source_wise_interpolation:
+            self._set_data_source_wise(d)
+        elif len(self.shape_parameters):
             self.ps_interpolator, ps_tensor = self._interp_and_tensor(
                 self.morpher, f=lambda m: m.score_events(d),
                 extra_dims=[len(self.source_name_list), _n_events(d)],
@@ -502,6 +622,16 @@ class UnbinnedLogLikelihood(LogLikelihoodBase):
         else:
             self.ps = self.base_model.score_events(d)
             self._builds['ps'] = ('constant', self.ps)
+
+    def _set_data_source_wise(self, d):
+        """The per-event densities of each morphed source at its own
+        anchors (*sub_grid, n_events), of the others (n_events,)."""
+        dims = self.base_model.to_analysis_dimensions(d)
+        sw_builds = self._source_wise_builds(
+            lambda s: s.pdf(*dims), [_n_events(d)],
+            lambda s: np.asarray(s.pdf(*dims)))
+        self._builds['ps'] = ('source_wise', sw_builds)
+        self.ps_interpolator = self._source_wise_interpolator(sw_builds)
 
     def _compute_single_pdf(self, **kwargs):
         model = self._compute_single_model(**kwargs)
@@ -542,7 +672,19 @@ class BinnedLogLikelihood(LogLikelihoodBase):
         LogLikelihoodBase.prepare(self, n_cores, ipp_client)
         self.ps, self.n_model_events = self.base_model.pmf_grids()
 
-        if len(self.shape_parameters):
+        if len(self.shape_parameters) and self.source_wise_interpolation:
+            if (self.model_statistical_uncertainty_handling is not None
+                    or self.template_interpolation == 'log'):
+                raise NotImplementedError(
+                    "Source-wise interpolation of a binned likelihood takes "
+                    "neither a finite-MC-statistics mode nor log template "
+                    "morphing")
+            sw_builds = self._source_wise_builds(
+                lambda s: s.get_pmf_grid()[0], list(self.ps.shape[1:]),
+                lambda s: np.asarray(s.get_pmf_grid()[0]))
+            self._builds['ps'] = ('source_wise', sw_builds)
+            self.ps_interpolator = self._source_wise_interpolator(sw_builds)
+        elif len(self.shape_parameters):
             # 'log' wraps the pmf morphing only: rates and MC counts keep
             # linear anchor interpolation; the compiled likelihood carries
             # the log anchor tensor and its masses

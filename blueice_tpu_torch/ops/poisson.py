@@ -50,7 +50,7 @@ def binned_poisson_logl_constant(observed, batch_dims=0):
     return terms.reshape(tuple(observed.shape[:batch_dims]) + (-1,)).sum(-1)
 
 
-def extended_logl(mus, ps, outlier_likelihood=0.0, mask=None):
+def extended_logl(mus, ps, outlier_likelihood=0.0, mask=None, center=None):
     """Extended unbinned log likelihood.
 
     :param mus: (n_sources,) expected number of events per source.
@@ -60,6 +60,10 @@ def extended_logl(mus, ps, outlier_likelihood=0.0, mask=None):
       zero-density event cannot sink the whole likelihood.
     :param mask: optional (n_events,) boolean; False entries are padding and
       contribute nothing.
+    :param center: optional ``(inv_ref (n_events,), ref_msum)``: the
+      centered value ``-(sum(mus) - ref_msum) + sum_events log(lam_e *
+      inv_ref_e)``, as the closed forms center
+      (:func:`blueice_tpu_torch.ops.unbinned_vgh.reference_center`).
     :return: scalar: -sum(mus) + sum_events log(sum_s mu_s p_s(event)).
     """
     p_events = torch.nansum(mus[:, None] * ps, dim=0)
@@ -70,10 +74,14 @@ def extended_logl(mus, ps, outlier_likelihood=0.0, mask=None):
     if outlier_likelihood != 0:
         p_events = torch.where(p_events > 0, p_events,
                                torch.full_like(p_events, outlier_likelihood))
+    rate = torch.sum(mus)
+    if center is not None:
+        p_events = p_events * center[0]
+        rate = rate - center[1]
     log_terms = torch.log(p_events)
     if mask is not None:
         log_terms = torch.where(mask, log_terms, torch.zeros_like(log_terms))
-    return -torch.sum(mus) + torch.sum(log_terms)
+    return -rate + torch.sum(log_terms)
 
 
 def extended_logl_np(mus, ps, outlier_likelihood=0.0, mask=None):

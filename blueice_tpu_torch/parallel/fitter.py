@@ -272,7 +272,8 @@ def minimize_newton(f_many, vgh, u0, max_iter=60, tol=1e-8, ftol=None,
       (L, n, n)) at u (L, n).
     :param u0: (B, n) start points.
     :param snap_anchors: optional list, parallel to ``kink_coords``, of
-      u-space anchor positions (snap-to-anchor candidates).
+      u-space anchor positions (snap-to-anchor candidates; None for a
+      coordinate without).
     :return: (u_min (B, n), f_min (B,), n_iters (B,)).
     """
     B, n = u0.shape
@@ -292,7 +293,7 @@ def minimize_newton(f_many, vgh, u0, max_iter=60, tol=1e-8, ftol=None,
     jumps = torch.tensor(list(kink_jumps), dtype=dt, device=dev)
     snaps = ([] if snap_anchors is None else
              [(ci, torch.as_tensor(np.asarray(a), dtype=dt, device=dev))
-              for ci, a in zip(kink_coords, snap_anchors)])
+              for ci, a in zip(kink_coords, snap_anchors) if a is not None])
     polish_steps = torch.tensor(
         [0.3, -0.3, 0.1, -0.1, 0.03, -0.03, 0.01, -0.01, 3e-3, -3e-3, 1e-3,
          -1e-3, 3e-4, -3e-4, 1e-4, -1e-4, 3e-5, -3e-5, 1e-5, -1e-5],
@@ -523,28 +524,19 @@ def _sum_analytic_supported(compiled):
 
 def _engine_family(compiled):
     """'sum', 'binned' or 'unbinned': the closed-form engine that fits
-    ``compiled``; raises NotImplementedError, naming ROADMAP item 16b, for
-    what the JAX package fits with its autodiff engine."""
+    ``compiled``; 'ad' for what the JAX package fits only with its
+    autodiff engine (:func:`_make_ad_parts`): a LogLikelihoodReParam (no
+    anchor grid in its new parameters), a LogLikelihoodSum with an
+    unbinned, re-parametrised or nested child, log template morphing with
+    a Beeston-Barlow mode, a dataset-free term on its own, and
+    source-wise morphing (no global anchor grid)."""
     if getattr(compiled, 'children', None) is not None:
-        if _sum_analytic_supported(compiled):
-            return 'sum'
-        what = ("a LogLikelihoodSum with an unbinned, re-parametrised or "
-                "nested child, or a log-morphed child with a Beeston-Barlow "
-                "mode, or without a binned child")
-    elif _analytic_supported(compiled):
+        return 'sum' if _sum_analytic_supported(compiled) else 'ad'
+    if _analytic_supported(compiled):
         return 'binned'
-    elif compiled.is_binned is False and compiled.anchor_arrays is not None:
+    if compiled.is_binned is False and compiled.anchor_arrays is not None:
         return 'unbinned'
-    elif compiled.log_morph:
-        what = "log template morphing with a Beeston-Barlow mode"
-    elif not compiled.has_data:
-        what = "a dataset-free LogAncillaryLikelihood on its own"
-    else:
-        what = ("a LogLikelihoodReParam (no anchor grid in its new "
-                "parameters)")
-    raise NotImplementedError(
-        "%s is fitted by the autodiff engine, which is not ported yet "
-        "(ROADMAP queue 1 item 16b)" % what)
+    return 'ad'
 
 
 def _tie_slope(v, lo, hi):
@@ -956,6 +948,28 @@ def _sum_snap_anchors(compiled, names, kink_coords, transform):
     return per_coord
 
 
+def _snap_anchors(compiled, names, kink_coords, transform):
+    """u-space snap candidates of the shape coordinates of a likelihood
+    with its own anchors (``shape_anchor_arrays``), or of a ReParam's
+    wrapped one for the parameters it passes through (its new parameters
+    have none: None there); None without any.
+
+    The JAX package snaps only on a global anchor grid. Here a
+    source-wise build and a ReParam snap too: a shape parameter's kinks
+    are at its anchors whichever sources morph over it or whatever
+    parameters a transform puts in front, and without the snaps a
+    XENON-style source-wise fit took five times the iterations and a
+    XENON ReParam fit stopped 4e-3 below the optimum at a kink."""
+    leaf = getattr(compiled, 'child', compiled)
+    arrays = getattr(leaf, 'shape_anchor_arrays', None)
+    if not arrays:
+        return None
+    shape_idx = {nm: d for d, nm in enumerate(leaf.shape_names)}
+    out = [transform.to_u_coord(ci, arrays[shape_idx[names[ci]]])
+           if names[ci] in shape_idx else None for ci in kink_coords]
+    return out if any(a is not None for a in out) else None
+
+
 def _reference_point(compiled):
     """(m0 (S,), idx0 (K,), t0 (K,)) of the centering reference: every
     parameter at its default, whatever the fit's guesses or fixed values,
@@ -988,9 +1002,12 @@ def unbinned_center(compiled, ps, mask):
     the centering, float32 loses the profile statistic at a few thousand
     events per toy.
 
-    :param ps: (B, G, S, E) per-toy per-event densities at every anchor.
+    :param ps: (B, G, S, E) per-toy per-event densities at every anchor,
+      or for a source-wise build a tuple of per-source (B, G_s, E).
     :param mask: (B, E) bool event validity.
     """
+    if compiled.source_wise is not None:
+        return _source_wise_center(compiled, ps, mask)
     K = len(compiled.shape_names)
     B, G, S, E = ps.shape
     grid = tuple(len(a) for a in compiled.anchor_arrays)
@@ -1003,6 +1020,28 @@ def unbinned_center(compiled, ps, mask):
         n = sl.stop - sl.start
         parts.append(reference_center(
             ps[sl][:, ids0], m0.expand(n, S), t0.expand(n, K), mask[sl],
+            compiled.outlier_likelihood))
+    inv_ref, ref_msum, ref_ll = (torch.cat(p) for p in zip(*parts))
+    return inv_ref.contiguous(), ref_msum, ref_ll
+
+
+def _source_wise_center(compiled, ps, mask):
+    """:func:`unbinned_center` of a source-wise build: each toy's per-event
+    densities at the defaults, every source morphed at its own slice of
+    the shape point (``compiled._event_densities``, vmapped over toys)."""
+    from torch.func import vmap
+    defaults = dict(compiled.defaults)
+    w0 = compiled._weights(compiled._clipped_zs(defaults)[0])
+    m0 = compiled.rates(defaults)
+    B, S = mask.shape[0], len(compiled.rate_names)
+    dens = vmap(lambda d: compiled._event_densities(d, w0))
+    parts = []
+    for b0 in range(0, B, CENTER_CHUNK):
+        sl = slice(b0, min(B, b0 + CENTER_CHUNK))
+        n = sl.stop - sl.start
+        P0 = dens(tuple(p[sl] for p in ps))                   # (n, S, E)
+        parts.append(reference_center(
+            P0[:, None], m0.expand(n, S), m0.new_zeros((n, 0)), mask[sl],
             compiled.outlier_likelihood))
     inv_ref, ref_msum, ref_ll = (torch.cat(p) for p in zip(*parts))
     return inv_ref.contiguous(), ref_msum, ref_ll
@@ -1054,6 +1093,155 @@ def _make_unbinned_parts(compiled, names, fixed, transform, use_fused,
     return value_many, vgh
 
 
+def _leaf_kind(compiled):
+    """'sum', 'reparam', 'ancillary', 'unbinned' or 'binned': how a
+    compiled likelihood holds its dataset (see :func:`_ad_lanes`)."""
+    if getattr(compiled, 'children', None) is not None:
+        return 'sum'
+    if getattr(compiled, 'child', None) is not None:
+        return 'reparam'
+    if not compiled.has_data:
+        return 'ancillary'
+    return 'binned' if compiled.is_binned else 'unbinned'
+
+
+def _ad_device(compiled, data):
+    """A dataset on the compiled likelihood's device: a Sum's tuple of its
+    children's, a ReParam its child's, an unbinned likelihood's ``(ps,
+    mask, center)`` as given, a count tensor (B, *bins) as (B, n_bins) in
+    the working dtype."""
+    kind = _leaf_kind(compiled)
+    if kind == 'sum':
+        return tuple(_ad_device(c, d)
+                     for c, d in zip(compiled.children, data))
+    if kind == 'reparam':
+        return _ad_device(compiled.child, data)
+    if kind == 'unbinned':
+        return data
+    d = torch.as_tensor(data, dtype=compiled.dtype, device=compiled.device)
+    return d.reshape(d.shape[0], -1)
+
+
+def _ad_batch(compiled, data):
+    """The toy count B of a dataset (:func:`_ad_device`)."""
+    kind = _leaf_kind(compiled)
+    if kind == 'sum':
+        return _ad_batch(compiled.children[0], data[0])
+    if kind == 'reparam':
+        return _ad_batch(compiled.child, data)
+    return (data[1] if kind == 'unbinned' else data).shape[0]
+
+
+def _ad_lanes(compiled, data, idx):
+    """The toys ``idx`` (L,) of a dataset, in its structure; an unbinned
+    likelihood's become ``(ps, mask, (inv_ref, ref_msum))`` (ps a tensor,
+    or per-source tensors of a source-wise build)."""
+    kind = _leaf_kind(compiled)
+    if kind == 'sum':
+        return tuple(_ad_lanes(c, d, idx)
+                     for c, d in zip(compiled.children, data))
+    if kind == 'reparam':
+        return _ad_lanes(compiled.child, data, idx)
+    if kind == 'unbinned':
+        ps, mask, center = data
+        return (tree_map(lambda p: p[idx], ps), mask[idx],
+                (center[0][idx], center[1][idx]))
+    return data[idx]
+
+
+def _ad_logl(compiled, params, data):
+    """The log likelihood of one toy's dataset (:func:`_ad_lanes`, one
+    lane) without its data constant: binned, the deviance-centered
+    Poisson sum; unbinned, centered at the toy's reference
+    (:func:`unbinned_center`). Pure tensor arithmetic, for ``torch.func``."""
+    kind = _leaf_kind(compiled)
+    if kind == 'sum':
+        return sum(w * _ad_logl(c, compiled._child_params(params, i), d)
+                   for i, (c, w, d) in enumerate(zip(
+                       compiled.children, compiled.child_weights, data)))
+    if kind == 'reparam':
+        return _ad_logl(compiled.child, compiled._child_params(params), data)
+    if kind == 'ancillary':
+        return compiled.logl(params)
+    if kind == 'unbinned':
+        ps, mask, center = data
+        return compiled.logl_with_data(params, ps, mask, center=center)
+    return compiled.logl_with_data(params, data, include_constant=False)
+
+
+def _data_constant(compiled, data):
+    """(B,) float64: what :func:`_ad_logl` leaves out of each toy's log
+    likelihood, the weighted sum over a Sum's children: binned, the
+    data constant; unbinned, the reference value ``ref_ll``."""
+    kind = _leaf_kind(compiled)
+    if kind == 'sum':
+        return sum(w * _data_constant(c, d) for c, w, d in zip(
+            compiled.children, compiled.child_weights, data))
+    if kind == 'reparam':
+        return _data_constant(compiled.child, data)
+    if kind == 'ancillary':
+        return torch.zeros(data.shape[0], dtype=torch.float64,
+                           device=data.device)
+    if kind == 'unbinned':
+        return data[2][2]
+    return compiled.data_constant(data.to(torch.float64), batch_dims=1)
+
+
+def _has_unbinned_leaf(compiled):
+    kind = _leaf_kind(compiled)
+    if kind == 'sum':
+        return any(_has_unbinned_leaf(c) for c in compiled.children)
+    if kind == 'reparam':
+        return _has_unbinned_leaf(compiled.child)
+    return kind == 'unbinned'
+
+
+#: lanes per ``torch.func.vmap`` chunk of the autodiff engine: bounds the
+#: forward-over-reverse Hessian's tangent copies of the intermediates
+AD_CHUNK = 64
+
+
+def _make_ad_parts(compiled, names, fixed, transform, runtime_fixed=()):
+    """(value_many(u_cands, data, fv, domain=False), vgh(u, data, fv)) of
+    the autodiff engine: the negated :func:`_ad_logl` of the parameters at
+    u, ``data`` the lanes' datasets (:func:`_ad_lanes`, one lane a row);
+    the value vmapped over lanes and candidates, (g, H) by ``torch.func``
+    (``vmap`` over the lanes of ``jacfwd`` of ``grad``: forward over
+    reverse), in chunks of :data:`AD_CHUNK` lanes. A point where the
+    compiled logl is -inf (out of the shape bounds, unphysical) scores
+    +inf; ``domain`` also returns where it is finite."""
+    from torch.func import grad_and_value, jacfwd, vmap
+    routing = _Routing(compiled.defaults, names, fixed, runtime_fixed)
+    # the transform's tables, made outside the transforms that read them
+    transform._consts(torch.zeros((), dtype=compiled.dtype,
+                                  device=compiled.device))
+
+    def objective(u, data, fv):
+        x = transform.to_x(u)
+        return -_ad_logl(compiled, {p: routing.value_of(p, x, fv)
+                                    for p in compiled.param_names}, data)
+
+    def g_aux(u, data, fv):
+        g, f = grad_and_value(objective)(u, data, fv)
+        return g, (g, f)
+
+    # Under forward-mode AD a 0-d tensor times a Python float is float64
+    # (the scalar terms: the prior, the penalty), so the outputs are cast
+    # back to the working dtype
+    dt = compiled.dtype
+
+    def value_many(u_cands, data, fv, domain=False):
+        per_lane = vmap(objective, in_dims=(0, None, None))
+        out = vmap(per_lane, chunk_size=AD_CHUNK)(u_cands, data, fv).to(dt)
+        return (out, torch.isfinite(out)) if domain else out
+
+    def vgh(u, data, fv):
+        H, (g, f) = vmap(jacfwd(g_aux, has_aux=True),
+                         chunk_size=AD_CHUNK)(u, data, fv)
+        return f.to(dt), g.to(dt), H.to(dt)
+    return value_many, vgh
+
+
 def make_toy_fitter(compiled, fixed=None, guess=None, max_iter=60, tol=1e-8,
                     engine='auto', runtime_fixed=(), polish=4,
                     kink_jumps=None):
@@ -1067,11 +1255,17 @@ def make_toy_fitter(compiled, fixed=None, guess=None, max_iter=60, tol=1e-8,
 
     :param engine: 'analytic' runs the closed form in plain torch;
       'fused' the CUDA kernels (their plain versions for CPU tensors);
+      'ad' the autodiff engine (:func:`_make_ad_parts`) on any model;
       'auto' takes 'fused' on a CUDA device for every model the kernels
       take (float32, 1 <= S <= 8, K <= 4, linear morphing, and no
       allow_negative source under bb_single, whose kernels have no
       negative-expectation penalty; every unbinned model in that range, at
-      any event count) and 'analytic' elsewhere; for a Sum, child by child.
+      any event count) and 'analytic' elsewhere; for a Sum, child by child;
+      'ad' for what no closed form fits (:func:`_engine_family`). An 'ad'
+      fit's data: binned counts, a Sum's tuple of its children's
+      datasets, a ReParam its child's, an unbinned likelihood's ``(ps,
+      mask, center)`` (a source-wise build: ps a tuple of per-source
+      (B, G_s, E) tensors, :func:`unbinned_center` of them).
     :param runtime_fixed: parameter names fixed at call time; their values
       arrive as ``fixed_values`` ((R,) or (B, R), aligned with this list).
     :param kink_jumps: in-loop escape steps along each shape coordinate, or
@@ -1079,10 +1273,11 @@ def make_toy_fitter(compiled, fixed=None, guess=None, max_iter=60, tol=1e-8,
       coordinates, off above).
     :return: (fit, floating names list)
     """
-    if engine not in ('auto', 'analytic', 'fused'):
+    if engine not in ('auto', 'analytic', 'fused', 'ad'):
         raise NotImplementedError(
-            "engine=%r is not ported (the autodiff engine is ROADMAP queue 1 "
-            "item 16b); use 'analytic', 'fused' or 'auto'" % (engine,))
+            "engine=%r is not ported (the JAX package's 'pallas' engine is "
+            "the port's 'fused'); use 'analytic', 'fused', 'ad' or 'auto'"
+            % (engine,))
     runtime_fixed = list(runtime_fixed)
     fixed = dict(fixed or {})
     check_fixed_in_bounds(compiled, fixed)
@@ -1120,6 +1315,22 @@ def make_toy_fitter(compiled, fixed=None, guess=None, max_iter=60, tol=1e-8,
         rows = torch.as_tensor(lanes, dtype=torch.int64, device=dev)
         return data, rows, rows.shape[0]
 
+    unbinned_leaf = _has_unbinned_leaf(compiled)
+
+    def ad_batch(data, lanes):
+        """(data on the device, its toys of the fit (L,), L)."""
+        data = _ad_device(compiled, data)
+        rows = (torch.arange(_ad_batch(compiled, data), device=dev)
+                if lanes is None else
+                torch.as_tensor(lanes, dtype=torch.int64, device=dev))
+        return data, rows, rows.shape[0]
+
+    def total_ll(fval, const):
+        """max_ll from the minimized objective: float64 with an unbinned
+        term (its reference value), else the working dtype."""
+        ll = -fval.to(torch.float64) + const
+        return ll if unbinned_leaf else ll.to(dt)
+
     try:
         names, fixed, transform, x0 = _floating_setup(compiled, fixed, guess)
     except NoOpimizationNecessary:
@@ -1127,25 +1338,22 @@ def make_toy_fitter(compiled, fixed=None, guess=None, max_iter=60, tol=1e-8,
         base.update(fixed)
 
         def fit_fixed(data, fixed_values=None, x0=None, lanes=None):
-            data, rows, B = batch_of(data, lanes)
+            data, rows, B = ad_batch(data, lanes)
             fv = fixed_batch(fixed_values, B)
-            lls = []
-            for b in range(B):
-                p = dict(base)
-                p.update({r: fv[b, i] for i, r in enumerate(runtime_fixed)})
-                if compiled.is_binned:
-                    lls.append(compiled.logl_with_data(
-                        p, tree_map(lambda d: d[b], data)))
-                else:
-                    lls.append(compiled.logl_with_data(
-                        p, data[0][rows[b]], data[1][rows[b]]).double())
+
+            def one(d, f):
+                return _ad_logl(compiled, dict(base, **{
+                    r: f[i] for i, r in enumerate(runtime_fixed)}), d)
+            lls = torch.func.vmap(one)(_ad_lanes(compiled, data, rows), fv)
             return (torch.zeros((B, 0), dtype=dt, device=dev),
-                    torch.stack(lls),
+                    total_ll(-lls, _data_constant(compiled, data)[rows]),
                     torch.zeros(B, dtype=torch.int64, device=dev))
         return fit_fixed, []
 
-    family = _engine_family(compiled)
-    if family == 'sum':
+    family = 'ad' if engine == 'ad' else _engine_family(compiled)
+    if family == 'ad':
+        kernel_models = []
+    elif family == 'sum':
         kernel_models = [c for c in compiled.children if c.has_data]
     else:
         kernel_models = [compiled]
@@ -1166,15 +1374,32 @@ def make_toy_fitter(compiled, fixed=None, guess=None, max_iter=60, tol=1e-8,
         kink_jumps = ((0.3, -0.3, 0.1, -0.1) if len(kink_coords) <= 2
                       else ())
     snap_anchors = None
-    if kink_coords and family == 'sum':
+    if kink_coords and getattr(compiled, 'children', None) is not None:
         snap_anchors = _sum_snap_anchors(compiled, names, kink_coords,
                                          transform)
     elif kink_coords:
-        shape_idx = {nm: d for d, nm in enumerate(compiled.shape_names)}
-        snap_anchors = [
-            transform.to_u_coord(
-                ci, np.asarray(compiled.anchor_arrays[shape_idx[names[ci]]]))
-            for ci in kink_coords]
+        snap_anchors = _snap_anchors(compiled, names, kink_coords, transform)
+    if family == 'ad':
+        value_many, vgh = _make_ad_parts(compiled, names, fixed, transform,
+                                         runtime_fixed)
+
+        def fit_ad(data, fixed_values=None, x0=None, lanes=None):
+            data, rows, B = ad_batch(data, lanes)
+            fv = fixed_batch(fixed_values, B)
+            u_start = (u0.expand(B, -1) if x0 is None else
+                       transform.to_u(torch.as_tensor(x0, dtype=dt,
+                                                      device=dev)))
+            u, fval, it = minimize_newton(
+                lambda L, c: value_many(
+                    c, _ad_lanes(compiled, data, rows[L]), fv[L]),
+                lambda L, v: vgh(v, _ad_lanes(compiled, data, rows[L]),
+                                 fv[L]),
+                u_start.contiguous(), max_iter=max_iter, tol=tol,
+                polish=polish, kink_coords=kink_coords,
+                kink_jumps=kink_jumps, snap_anchors=snap_anchors)
+            return (transform.to_x(u),
+                    total_ll(fval, _data_constant(compiled, data)[rows]), it)
+        return fit_ad, names
     if family == 'sum':
         value_many, vgh = _make_sum_analytic_parts(
             compiled, names, fixed, transform, engine,
@@ -1221,31 +1446,40 @@ def make_toy_fitter(compiled, fixed=None, guess=None, max_iter=60, tol=1e-8,
 def observed_data(compiled):
     """The fitters' data of the dataset bound to ``compiled``, as a batch of
     one lane: binned, its counts (1, N); a Sum, the tuple of its
-    children's, (1, 0) for a dataset-free child; unbinned, ``(ps (1, G, S,
-    E), mask (1, E), unbinned_center(...))`` from the bound per-event
-    densities, every event valid. Made once per compiled likelihood (each
-    dataset has its own, :func:`blueice_tpu_torch.compile.cached_logl`)."""
+    children's, (1, 0) for a dataset-free child; a ReParam, its child's;
+    unbinned, ``(ps (1, G, S, E), mask (1, E), unbinned_center(...))``
+    from the bound per-event densities (source-wise: ps a tuple of
+    per-source (1, G_s, E)), every event valid. Made once per compiled
+    likelihood (each dataset has its own,
+    :func:`blueice_tpu_torch.compile.cached_logl`)."""
     cached = compiled.__dict__.get('_observed_data')
-    if cached is not None:
-        return cached
-    dt, dev = compiled.dtype, compiled.device
-    children = getattr(compiled, 'children', None)
-    leaves = [c for c in (children or [compiled]) if c.has_data]
-    if any((c.data if c.is_binned else c.ps_tensor) is None for c in leaves):
+    if cached is None:
+        cached = compiled._observed_data = _observed(compiled)
+    return cached
+
+
+def _observed(compiled):
+    kind = _leaf_kind(compiled)
+    if kind == 'sum':
+        return tuple(_observed(c) for c in compiled.children)
+    if kind == 'reparam':
+        return _observed(compiled.child)
+    if kind == 'ancillary':
+        return torch.zeros((1, 0), dtype=compiled.dtype,
+                           device=compiled.device)
+    bound = compiled.data if kind == 'binned' else compiled.ps_tensor
+    if bound is None:
         raise RuntimeError("No data bound: call set_data() before compiling")
-    if children is not None:
-        data = tuple(c.data.reshape(1, -1) if c.has_data
-                     else torch.zeros((1, 0), dtype=dt, device=dev)
-                     for c in children)
-    elif compiled.is_binned:
-        data = compiled.data.reshape(1, -1)
+    if kind == 'binned':
+        return bound.reshape(1, -1)
+    if compiled.source_wise is not None:
+        E = bound[0].shape[-1]
+        ps = tuple(p.reshape(1, -1, E).contiguous() for p in bound)
     else:
-        S, E = compiled.ps_tensor.shape[-2:]
-        ps = compiled.ps_tensor.reshape(1, -1, S, E).contiguous()
-        mask = torch.ones((1, E), dtype=torch.bool, device=dev)
-        data = (ps, mask, unbinned_center(compiled, ps, mask))
-    compiled._observed_data = data
-    return data
+        S, E = bound.shape[-2:]
+        ps = bound.reshape(1, -1, S, E).contiguous()
+    mask = torch.ones((1, E), dtype=torch.bool, device=compiled.device)
+    return ps, mask, unbinned_center(compiled, ps, mask)
 
 
 def _in_domain(graph, x, fv, m):
@@ -1283,15 +1517,31 @@ def x_space_ops(compiled, names, fixed=None, runtime_fixed=(),
     candidates after. ``data`` is one of the fitters' datasets, lane i of
     an unbinned one on toy i. The ops are the fitter's own: the CUDA
     kernel wrappers where ``engine`` takes them (as
-    :func:`make_toy_fitter`), the plain versions elsewhere. Raises
-    NotImplementedError (item 16b) for what no closed-form engine fits
-    (:func:`_engine_family`)."""
-    family = _engine_family(compiled)
+    :func:`make_toy_fitter`), the plain versions elsewhere, and the
+    autodiff engine for what no closed form fits (:func:`_engine_family`)
+    or with ``engine='ad'``; there ``value`` is -inf-aware by itself (a
+    point out of the domain scores +inf)."""
+    family = 'ad' if engine == 'ad' else _engine_family(compiled)
     runtime_fixed = list(runtime_fixed)
     fixed = dict(fixed or {})
     for rname in runtime_fixed:
         fixed.setdefault(rname, compiled.defaults[rname])  # placeholder
     identity = make_transform([(None, None)] * len(names))
+    if family == 'ad':
+        value_ad, vgh_ad = _make_ad_parts(compiled, names, fixed, identity,
+                                          runtime_fixed)
+
+        def lanes_of(x, data):
+            data = _ad_device(compiled, data)
+            return _ad_lanes(compiled, data,
+                             torch.arange(x.shape[0], device=x.device))
+
+        def value(x, data, fv, domain=False):
+            return value_ad(x, lanes_of(x, data), fv, domain)
+
+        def vgh(x, data, fv):
+            return vgh_ad(x, lanes_of(x, data), fv)
+        return value, vgh
     if family == 'sum':
         return _make_sum_analytic_parts(compiled, names, fixed, identity,
                                         engine, runtime_fixed)
@@ -1378,11 +1628,17 @@ def make_batch_fitter(compiled, fixed=None, guess=None, max_iter=60, tol=1e-8):
     dt, dev = compiled.dtype, compiled.device
 
     def fit(data_batch, mask_batch=None):
-        if compiled.is_binned:
+        if _leaf_kind(compiled) != 'unbinned':
             return fit_toys(data_batch)
-        ps = torch.as_tensor(data_batch, dtype=dt, device=dev).contiguous()
-        mask = (torch.ones((ps.shape[0], ps.shape[-1]), dtype=torch.bool,
-                           device=dev)
+        if compiled.source_wise is not None:
+            ps = tuple(torch.as_tensor(p, dtype=dt, device=dev).contiguous()
+                       for p in data_batch)
+            B, E = ps[0].shape[0], ps[0].shape[-1]
+        else:
+            ps = torch.as_tensor(data_batch, dtype=dt,
+                                 device=dev).contiguous()
+            B, E = ps.shape[0], ps.shape[-1]
+        mask = (torch.ones((B, E), dtype=torch.bool, device=dev)
                 if mask_batch is None else
                 torch.as_tensor(mask_batch, dtype=torch.bool,
                                 device=dev).contiguous())

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..exceptions import InvalidParameter
-from .fitter import observed_data, tree_map, x_space_ops
+from .fitter import _data_constant, observed_data, x_space_ops
 
 __all__ = ['sample_stretch', 'make_device_log_prob', 'bestfit_emcee_device']
 
@@ -86,9 +86,8 @@ def make_device_log_prob(compiled, fixed=None, engine='auto'):
 
     The values come from the fitter's value op (:func:`x_space_ops`: on the
     card the value kernel, one launch for all W walkers; ``engine``
-    'analytic' takes the plain versions). A likelihood no closed-form
-    engine fits (ROADMAP queue 1 item 16b) is scored walker by walker by
-    ``compiled.logl`` on the CPU, and raises on the card.
+    'analytic' takes the plain versions); for a likelihood no closed-form
+    engine fits, the autodiff engine's value, vmapped over the walkers.
     """
     fixed = dict(fixed or {})
     unknown = set(fixed) - set(compiled.registered)
@@ -103,36 +102,15 @@ def make_device_log_prob(compiled, fixed=None, engine='auto'):
         raise ValueError("nothing to sample: every parameter is fixed")
     guess = np.array([float(compiled.defaults[n]) for n in names])
     dt, dev = compiled.dtype, compiled.device
-    try:
-        value = x_space_ops(compiled, names, fixed, engine=engine)[0]
-    except NotImplementedError:
-        if dev.type != 'cpu':
-            raise
-        value = None
+    value = x_space_ops(compiled, names, fixed, engine=engine)[0]
+    data = observed_data(compiled)
+    const = _data_constant(compiled, data)[0]
 
-    if value is None:
-        base = dict(compiled.defaults)
-        base.update(fixed)
-
-        def centered(x):
-            x = torch.as_tensor(x, dtype=dt, device=dev)
-            return torch.stack([compiled.logl(
-                {**base, **{n: row[i] for i, n in enumerate(names)}})
-                for row in x])
-        const = torch.zeros((), dtype=torch.float64, device=dev)
-    else:
-        data = observed_data(compiled)
-        if compiled.is_binned:
-            const = compiled.data_constant(
-                tree_map(lambda d: d.double(), data), batch_dims=1)[0]
-        else:
-            const = data[2][2][0]
-
-        def centered(x):
-            x = torch.as_tensor(x, dtype=dt, device=dev)
-            f, ok = value(x[None], data, x.new_zeros((1, 0)), domain=True)
-            return torch.where(ok[0], -f[0], torch.full_like(f[0],
-                                                             float('-inf')))
+    def centered(x):
+        x = torch.as_tensor(x, dtype=dt, device=dev)
+        f, ok = value(x[None], data, x.new_zeros((1, 0)), domain=True)
+        return torch.where(ok[0], -f[0], torch.full_like(f[0],
+                                                         float('-inf')))
 
     def log_prob(x):
         return centered(x).double() + const

@@ -602,16 +602,17 @@ class UnbinnedToyStudy(_ToyStudy):
                          polish)
         if self.compiled.is_binned:
             raise TypeError("UnbinnedToyStudy needs an UnbinnedLogLikelihood")
-        methods = {s.config.get('pdf_interpolation_method', 'linear')
-                   for s in lf.base_model.sources}
-        if len(methods) > 1:
+        # Each source scores events with its own pdf interpolation
+        # method, as set_data's host pdf() does: 'linear' or 'piecewise'
+        self._methods = [s.config.get('pdf_interpolation_method', 'linear')
+                         for s in lf.base_model.sources]
+        for method in set(self._methods) - {'linear', 'piecewise'}:
             raise NotImplementedError(
-                "sources with mixed pdf interpolation methods are not ported "
-                "yet (ROADMAP queue 1 item 17b)")
-        self._method = methods.pop()
-        if self._method not in ('linear', 'piecewise'):
-            raise NotImplementedError(
-                "pdf interpolation method %r" % (self._method,))
+                "pdf interpolation method %r" % (method,))
+        self._method = (self._methods[0]
+                        if len(set(self._methods)) == 1 else None)
+        self._source_wise = bool(lf.source_wise_interpolation
+                                 and len(lf.shape_parameters))
 
         space = lf.base_model.config['analysis_space']
         self.edges = [np.asarray(e, dtype=float) for _, e in space]
@@ -621,13 +622,27 @@ class UnbinnedToyStudy(_ToyStudy):
         self.ndim = len(self.edges)
         self.bins_shape = tuple(len(c) for c in self.centers)
         dev = self.device
-
-        pdf = self._build_pdf_tensor()                  # (*grid, S, *bins)
-        self._pdf_tensor = self.compiled._tensor(pdf)
+        n_bins = int(np.prod(self.bins_shape))
         S = len(lf.source_name_list)
-        self._pdf_rows = self._pdf_tensor.reshape(
-            -1, int(np.prod(self.bins_shape))).contiguous()   # (G*S, n_bins)
-        self._grid_sources = (self._pdf_rows.shape[0] // S, S)
+
+        # The anchor pdf templates on the bin-center grid and, for scoring,
+        # their rows (R, n_bins) in blocks of one method each: every
+        # source's own (*sub_grid, *bins) tensor (source-wise), or the
+        # (*grid, S, *bins) tensor whole (one method) or source by source
+        if self._source_wise:
+            self._pdf_tensor = [self.compiled._tensor(t) for t in
+                                self._build_pdf_tensors_source_wise()]
+            self._blocks = [(t.reshape(-1, n_bins).contiguous(), m)
+                            for t, m in zip(self._pdf_tensor, self._methods)]
+        else:
+            self._pdf_tensor = self.compiled._tensor(self._build_pdf_tensor())
+            rows = self._pdf_tensor.reshape(-1, S, n_bins)
+            self._grid_sources = (rows.shape[0], S)
+            self._blocks = (
+                [(rows.reshape(-1, n_bins).contiguous(), self._method)]
+                if self._method is not None else
+                [(rows[:, s].contiguous(), m)
+                 for s, m in enumerate(self._methods)])
         self._volumes = self.compiled._tensor(self.bin_volumes)
         self._edges_t = [torch.as_tensor(e, dtype=torch.float64, device=dev)
                          for e in self.edges]
@@ -669,12 +684,33 @@ class UnbinnedToyStudy(_ToyStudy):
                 tensor[idx + (si,)] = self._source_pdf_grid(s)
         return tensor
 
+    def _build_pdf_tensors_source_wise(self):
+        """Per-source float64 anchor pdf tensors: (*sub_grid, *bins) over
+        each morphed source's own anchor grid, (*bins) for the others."""
+        lf = self.lf
+        tensors = []
+        for sn, base_source in zip(lf.source_name_list,
+                                   lf.base_model.sources):
+            if sn not in lf.source_morphers:
+                tensors.append(self._source_pdf_grid(base_source))
+                continue
+            morpher = lf.source_morphers[sn]
+            grid_shape = tuple(len(a) for a in morpher.anchor_z_arrays)
+            tensor = np.zeros(grid_shape + self.bins_shape)
+            for idx, anchor in zip(np.ndindex(*grid_shape),
+                                   morpher.get_anchor_points()):
+                tensor[idx] = self._source_pdf_grid(
+                    lf.anchor_sources[sn][tuple(anchor)])
+            tensors.append(tensor)
+        return tensors
+
     # -- simulation and scoring -----------------------------------------------
 
     def _morph_pdf(self, params):
         """The pdf tensor (n_sources, *bins) morphed to params."""
-        return self.compiled._morph(self._pdf_tensor,
-                                    self.compiled._clipped_zs(params)[0])
+        c = self.compiled
+        return c._morph(self._pdf_tensor,
+                        c._weights(c._clipped_zs(params)[0]))
 
     def expected_weights(self, **truth):
         """(n_sources, *bins) expected counts per source and bin at truth.
@@ -743,12 +779,13 @@ class UnbinnedToyStudy(_ToyStudy):
         return self._sample(self._generator(seed_or_generator), weights,
                             int(n_toys))
 
-    def _score_terms(self, coords, bins):
-        """[(flat bin index (n, E), weight (n, E))] of the interpolation at
-        the events: one term for 'piecewise' (the event's bin), 2^ndim for
-        'linear' (the cell over bin centers that holds the event: the
-        sampled bin or its left neighbour, clipped to the center range)."""
-        if self._method == 'piecewise':
+    def _score_terms(self, coords, bins, method):
+        """[(flat bin index (n, E), weight (n, E))] of ``method``'s
+        interpolation at the events: one term for 'piecewise' (the
+        event's bin), 2^ndim for 'linear' (the cell over bin centers that
+        holds the event: the sampled bin or its left neighbour, clipped to
+        the center range)."""
+        if method == 'piecewise':
             flat = sum(bins[..., d] * st
                        for d, st in enumerate(self._bin_strides))
             return [(flat, None)]
@@ -771,29 +808,69 @@ class UnbinnedToyStudy(_ToyStudy):
             terms.append((flat, w.to(self.compiled.dtype)))
         return terms
 
-    def score_events(self, coords, bins):
-        """(B, G, S, E) density of every anchor model's sources at the
-        events of each toy (G = 1 without shape parameters), in the study's
-        dtype; chunked over toys so the peak memory stays a small multiple
-        of the output."""
+    def _score_block(self, rows, terms, n):
+        """(n, R, E) densities of the template ``rows`` (R, n_bins) at the
+        events of n toys, from the interpolation ``terms``."""
+        acc = None
+        for flat, w in terms:
+            term = rows[:, flat.reshape(-1)].reshape(
+                rows.shape[0], n, -1)
+            if w is not None:
+                term = term * w
+            acc = term if acc is None else acc + term
+        return acc.permute(1, 0, 2)
+
+    def score_events(self, coords, bins=None):
+        """The anchor densities at the events of each toy, in the study's
+        dtype: (B, G, S, E) (G = 1 without shape parameters), or for a
+        source-wise build a tuple of per-source (B, G_s, E) (G_s = 1 for
+        an unmorphed source). Each source scores with its own
+        interpolation method. ``bins``: the events' bins as
+        :meth:`simulate` draws them (the sampled bin is the method's cell);
+        None scores any events through
+        :func:`~blueice_tpu_torch.ops.interp.interp_at_points` and
+        :func:`~blueice_tpu_torch.ops.interp.piecewise_lookup`. Chunked
+        over toys so the peak memory stays a small multiple of the
+        output."""
         coords = torch.as_tensor(coords, dtype=torch.float64,
                                  device=self.device)
-        bins = torch.as_tensor(bins, dtype=torch.int64, device=self.device)
-        B, E = bins.shape[:2]
-        G, S = self._grid_sources
-        out = torch.empty((B, G, S, E), dtype=self.compiled.dtype,
-                          device=self.device)
+        B, E = coords.shape[:2]
+        outs = [torch.empty((B, rows.shape[0], E), dtype=self.compiled.dtype,
+                            device=self.device) for rows, _ in self._blocks]
+        if bins is not None:
+            bins = torch.as_tensor(bins, dtype=torch.int64,
+                                   device=self.device)
         for b0 in range(0, B, SCORE_CHUNK):
             b1 = min(B, b0 + SCORE_CHUNK)
-            acc = None
-            for flat, w in self._score_terms(coords[b0:b1], bins[b0:b1]):
-                term = self._pdf_rows[:, flat.reshape(-1)].reshape(
-                    G * S, b1 - b0, E)
-                if w is not None:
-                    term = term * w
-                acc = term if acc is None else acc + term
-            out[b0:b1] = acc.permute(1, 0, 2).reshape(b1 - b0, G, S, E)
-        return out
+            if bins is None:
+                for out, (rows, m) in zip(outs, self._blocks):
+                    out[b0:b1] = self._score_points(rows, coords[b0:b1], m)
+                continue
+            terms = {}
+            for out, (rows, m) in zip(outs, self._blocks):
+                if m not in terms:
+                    terms[m] = self._score_terms(coords[b0:b1], bins[b0:b1],
+                                                 m)
+                out[b0:b1] = self._score_block(rows, terms[m], b1 - b0)
+        if self._source_wise:
+            return tuple(outs)
+        G, S = self._grid_sources
+        if len(outs) == 1:
+            return outs[0].reshape(B, G, S, E)
+        return torch.stack(outs, dim=2)
+
+    def _score_points(self, rows, coords, method):
+        """(n, R, E) densities of the template ``rows`` at arbitrary
+        events (n, E, ndim): the generic path of :meth:`score_events`."""
+        from ..ops.interp import interp_at_points, piecewise_lookup
+        n, E = coords.shape[:2]
+        values = rows.reshape((rows.shape[0],) + self.bins_shape)
+        flat = coords.reshape(n * E, self.ndim)
+        if method == 'piecewise':
+            out = piecewise_lookup(values, self._edges_t, flat)
+        else:
+            out = interp_at_points(values, self._centers_t, flat)
+        return out.reshape(rows.shape[0], n, E).permute(1, 0, 2)
 
     def _fit_data(self, events):
         """The fitters' data of an event set: (ps, mask, center)."""
@@ -860,8 +937,8 @@ class UnbinnedToyStudy(_ToyStudy):
         if build[0] == 'source_wise':
             raise NotImplementedError(
                 "profile_map needs a dense global anchor grid (or no shape "
-                "parameters); source-wise morphing is not ported yet "
-                "(ROADMAP queue 1 item 17b)")
+                "parameters); source-wise morphing maps run via the host "
+                "path (plot_likelihood_ratio)")
         tensor = self.compiled._tensor(build[2] if build[0] == 'global'
                                        else build[1])
         S, E = tensor.shape[-2:]

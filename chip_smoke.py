@@ -138,12 +138,46 @@ interval (bestfit_jax)' in the ``{"kernels": ...}`` line):
    90%) with ``bestfit_routine='jax'`` against the host referee's: within
    1%.
 
+Between the statistics part and the inference part runs the autodiff part
+(``autodiff_part``): the autodiff fit engine (``make_toy_fitter(engine=
+'ad')``, ``torch.func`` over the compiled likelihood) on the card, held to
+the kernels on the same toys (``engines_gate``: at least 95% of the toys
+agree in x within a float32 bound, a tenth of a parabolic error or ten
+times the engines' median spread, the larger; on those max |d max_ll| <=
+0.05 and median |d t| <= 0.01; on every toy |d max_ll| < 0.2), each run of
+the engine between reset and read of every launch counter with no kernel
+launched:
+
+15. ``unbinned_xenon_sw``: ``build_likelihood('unbinned',
+   livetime_days=3.0, source_wise_interpolation=True)`` at full width
+   (the WIMP over its 3^4 anchors, the five others, which list
+   'efficiency' in dont_hash_settings, over 3^3), 256 toys through
+   ``UnbinnedToyStudy`` (engine 'auto': the autodiff engine), against the
+   unbinned_xenon study (#15/#16) on the same event sets; median t in
+   (0.25, 0.80);
+16. ``xenon_sw``: the binned twin, 128 toys through ``BinnedToyStudy``,
+   against xenon (#1/#2) on the same counts; median t in (0.10, 0.20);
+17. the xenon engines: 64 of xenon's toys through ``engine='ad'`` and
+   through the fused engine.
+
+The inference part ends with two phases on the autodiff engine, each
+held to the host referee in float64, no kernel launched:
+
+18. (e) the unbinned SR0+SR1 ``LogLikelihoodSum``: two unbinned XENON
+   science runs, live times in the ratio 32.1 : 246.7 (cut to
+   ``SUM_LIVETIME_SCALE`` of them) and the calibration constraint:
+   ``bestfit_jax`` (re-scored within 1e-3 of the referee, errors within
+   5% of float64) and its 90% upper limit through ``bestfit_jax``
+   (within 1e-4 relative);
+19. (f) a ``LogLikelihoodReParam`` of the xenon dataset's model, the WIMP
+   rate written as a cross-section: ``bestfit_jax`` as (e).
+
 Run with no arguments, as above, it is the smoke test. Path names as
 arguments (``python3 chip_smoke.py bb bblite``) run those paths alone and
 no statistics or roofline part: a quicker measurement of their kernels, which prints the
 same lines for them (``python3 chip_smoke.py combined xenon_log``: the
 composition paths alone). ``python3 chip_smoke.py inference`` runs the
-inference part alone; it adds about 110 s to a run on an H100 (PERF.md
+inference part alone (``autodiff`` the autodiff part); it adds about 110 s to a run on an H100 (PERF.md
 section 6), most of it the phases' float64 checks and the host referee.
 
 The paths ``combined`` and ``xenon_log`` and the ``combined interval``
@@ -195,7 +229,7 @@ PATHS = {
     'xenon_log': ('xenon_log', 'wimp_rate_multiplier', 256, 8, None),
 }
 #: parts that run alone when named (``python3 chip_smoke.py inference``)
-PARTS = ('inference',)
+PARTS = ('inference', 'autodiff')
 #: the JAX package's median t of the path on the CPU, float64, and the
 #: bootstrap spread of that median (``measure_composition_reference.py``:
 #: 256 toys for each of seeds 0 and 1; PERF.md section 6)
@@ -1501,6 +1535,201 @@ def statistics_part(studies, mods, rows):
     return new
 
 
+# -- the autodiff part ----------------------------------------------------
+
+#: the source-wise paths: label -> (the global twin's path, toys). The
+#: source-wise model (each source morphed over the shape parameters it
+#: depends on: the WIMP over 3^4 anchors, the five others, which list
+#: 'efficiency' in dont_hash_settings, over 3^3) fits on the autodiff
+#: engine, no kernel; its twin on the twin's kernels, the same toys
+SW_PATHS = collections.OrderedDict([
+    ('unbinned_xenon_sw', ('unbinned_xenon', 256)),
+    ('xenon_sw', ('xenon', 128)),
+])
+#: phase (g): xenon toys fitted by the autodiff and by the fused engine
+ENGINE_TOYS = 64
+#: two fits of a toy agree in a coordinate of x within this share of its
+#: parabolic error there, or ``X_SPREAD`` times the engines' median spread
+#: in those units, the larger: float32's tolerance on the objective (ftol
+#: 1e-3) leaves each fit within about sqrt(2e-3) = 0.045 of an error of
+#: its optimum (``engines_gate``)
+X_ERR_SHARE = 0.1
+X_SPREAD = 10.0
+
+
+def parabolic_errors(study, toys, res, target=None):
+    """(toys, n) parabolic errors at the fits ``res`` of ``toys``: the
+    inverse of the float32 Hessian of the study's plain closed form at the
+    fitted points (with ``target``, the conditional fits at 1.0)."""
+    from blueice_tpu_torch.parallel.fitter import x_space_ops
+    compiled = study.compiled
+    runtime = [] if target is None else [target]
+    vgh = x_space_ops(compiled, res.names, runtime_fixed=runtime,
+                      engine='analytic')[1]
+    data = (study._counts(toys).reshape(len(res.x), -1)
+            if compiled.is_binned else study._fit_data(toys))
+    x = torch.as_tensor(res.x, dtype=compiled.dtype, device=compiled.device)
+    fv = torch.ones((x.shape[0], len(runtime)), dtype=compiled.dtype,
+                    device=compiled.device)
+    H = vgh(x, data, fv)[2].double()
+    cov = torch.linalg.pinv(H)
+    return torch.sqrt(torch.clamp(torch.diagonal(cov, dim1=-2, dim2=-1),
+                                  min=0)).cpu().numpy()
+
+
+def engines_gate(what, ad, ref, errors, band=None):
+    """Hold a profile of the autodiff engine, ``ad = (t, free, cond)``, to
+    the kernels' on the same toys, ``ref``, with ``errors`` the parabolic
+    errors of the kernels' free and conditional fits: a toy agrees where
+    every coordinate of both its fits is within the float32 bound (the
+    larger of ``X_ERR_SHARE`` and ``X_SPREAD`` times the median |dx| /
+    error over the toys, in units of the error); at least 95% of the toys
+    agree, on those max |d max_ll| <= 0.05 and median |d t| <= 0.01, on
+    every toy |d max_ll| < 0.2, and (with ``band``) the median t inside
+    it. Prints the bound beside the gate; returns the gate's numbers."""
+    (t, free, cond), (t_r, free_r, cond_r) = ad, ref
+    shares = [np.abs(a.x - r.x) / np.maximum(err, 1e-30)
+              for a, r, err in ((free, free_r, errors[0]),
+                                (cond, cond_r, errors[1]))]
+    spread = float(np.median(np.concatenate([sh.ravel() for sh in shares])))
+    bound = max(X_ERR_SHARE, X_SPREAD * spread)
+    agree = np.all(shares[0] <= bound, axis=1) & np.all(shares[1] <= bound,
+                                                        axis=1)
+    d_ll = np.maximum(np.abs(free.max_ll - free_r.max_ll),
+                      np.abs(cond.max_ll - cond_r.max_ll))
+    d_t = np.abs(t - t_r)
+    out = dict(agree=float(agree.mean()), spread=spread, bound=bound,
+               ll_agree=float(d_ll[agree].max()) if agree.any() else np.inf,
+               ll_all=float(d_ll.max()),
+               t_agree=float(np.median(d_t[agree])) if agree.any() else np.inf,
+               median_t=float(np.median(t)), median_t_ref=float(
+                   np.median(t_r)))
+    worst = [dict(zip(a.names, (float('%.3g' % v) for v in sh.max(axis=0))))
+             for a, sh in zip((free, cond), shares)]
+    log("%s gate: %d of %d toys agree in x (%.4f; >= 0.95) within the "
+        "float32 bound %.4g of a parabolic error (the engines' median "
+        "spread %.3g; the bound is %g of an error or %g times the spread, "
+        "the larger; the largest |dx| / error per coordinate: %s free, %s "
+        "conditional); on those max |d max_ll| %.4g (<= 0.05), median "
+        "|d t| %.4g (<= 0.01); every toy max |d max_ll| %.4g (< 0.2); "
+        "median t %.4f (kernels %.4f)%s" % (
+            what, int(agree.sum()), len(t), out['agree'], bound, spread,
+            X_ERR_SHARE, X_SPREAD, json.dumps(worst[0]),
+            json.dumps(worst[1]), out['ll_agree'], out['t_agree'],
+            out['ll_all'], out['median_t'], out['median_t_ref'],
+            '' if band is None else ' in %s' % (band,)))
+    if not (out['agree'] >= 0.95 and out['ll_agree'] <= 0.05
+            and out['t_agree'] <= 0.01 and out['ll_all'] < 0.2
+            and (band is None or band[0] < out['median_t'] < band[1])):
+        raise AssertionError("%s: the autodiff engine disagrees with the "
+                             "kernels" % what)
+    return out
+
+
+def ad_profile(what, study, toys, target, mods):
+    """One profile of the autodiff engine on ``toys``, every counter set to
+    0 just before and read just after (no kernel may launch): ((t, free,
+    cond), seconds, peak device memory in GB)."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    out, launches = counted(mods, lambda: study._run_profile(
+        toys, target, 1.0, None))
+    secs = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log("%s kernel launches in the autodiff engine's profile: %s"
+        % (what, launches))
+    if any(launches.values()):
+        raise AssertionError("%s: a kernel launched in the autodiff "
+                             "engine's profile" % what)
+    return out, secs, peak
+
+
+def kernel_profile(label, study, toys, target, mods, what):
+    """The same toys' profile on the kernels of path ``label``: ((t, free,
+    cond), seconds)."""
+    t0 = time.time()
+    out, launches = counted(mods, lambda: study._run_profile(
+        toys, target, 1.0, None))
+    secs = time.time() - t0
+    check_own_launches(label, launches, what)
+    return out, secs
+
+
+def log_engines(what, n_toys, ad, ad_secs, peak, ref, ref_secs):
+    (_, free, cond), (_, free_r, cond_r) = ad, ref
+    log("%s: %d toys, autodiff engine %.3f s (%.2f profile fits/s; mean "
+        "iterations free %.1f, conditional %.1f; peak device memory %.2f "
+        "GB), kernels %.3f s (%.2f profile fits/s; %.1f, %.1f)" % (
+            what, n_toys, ad_secs, n_toys / ad_secs, free.n_iter.mean(),
+            cond.n_iter.mean(), peak, ref_secs, n_toys / ref_secs,
+            free_r.n_iter.mean(), cond_r.n_iter.mean()))
+
+
+def run_sw_path(label, mods, api, studies):
+    """A source-wise path: its model's profile study on the autodiff
+    engine against the global twin's on its kernels, the same toys (the
+    twin's, seed 0), ``engines_gate`` with the twin's band."""
+    twin, n_toys = SW_PATHS[label]
+    model, target, _, _, band = PATHS[twin]
+    unbinned = model.startswith('unbinned')
+    cls = api['UnbinnedToyStudy' if unbinned else 'BinnedToyStudy']
+    t0 = time.time()
+    lf = api['xenon_like'].build_likelihood(
+        'unbinned' if unbinned else 'binned', source_wise_interpolation=True,
+        **(dict(livetime_days=3.0) if unbinned else {}))
+    study = cls(lf, max_iter=96, tol=3e-4)              # the card, float32
+    check_on_card(label, study.compiled)
+    grids = {sn: tuple(len(a) for a in m.anchor_z_arrays)
+             for sn, m in lf.source_morphers.items()}
+    log("%s likelihood: per-source anchor grids %s, built in %.1f s"
+        % (label, json.dumps(grids), time.time() - t0))
+    glob = (studies[twin][0] if twin in studies else
+            cls(build_model(twin, api['xenon_like'], api['test_helpers'],
+                            api['likelihood']), max_iter=96, tol=3e-4))
+    toys = glob.simulate(0, n_toys)
+    ad, ad_secs, peak = ad_profile(label, study, toys, target, mods)
+    ref, ref_secs = kernel_profile(twin, glob, toys, target, mods,
+                                   '%s twin' % label)
+    log_engines('%s (autodiff) vs %s (kernels)' % (label, twin), n_toys, ad,
+                ad_secs, peak, ref, ref_secs)
+    errors = (parabolic_errors(glob, toys, ref[1]),
+              parabolic_errors(glob, toys, ref[2], target))
+    engines_gate(label, ad, ref, errors, band)
+
+
+def engines_phase(mods, api, studies):
+    """(g) ``ENGINE_TOYS`` of the xenon path's toys (seed 0) through
+    ``make_toy_fitter(engine='ad')`` and through the fused engine, as two
+    profile studies of one likelihood: ``engines_gate``."""
+    what = 'xenon engines'
+    target = PATHS['xenon'][1]
+    cls = api['BinnedToyStudy']
+    study = (studies['xenon'][0] if 'xenon' in studies else
+             cls(build_model('xenon', api['xenon_like'], api['test_helpers'],
+                             api['likelihood']), max_iter=96, tol=3e-4))
+    ad_study = cls(study.lf, max_iter=96, tol=3e-4, engine='ad')
+    counts = study.simulate(0, ENGINE_TOYS)
+    ad, ad_secs, peak = ad_profile(what, ad_study, counts, target, mods)
+    ref, ref_secs = kernel_profile('xenon', study, counts, target, mods, what)
+    log_engines('%s (autodiff vs fused)' % what, ENGINE_TOYS, ad, ad_secs,
+                peak, ref, ref_secs)
+    errors = (parabolic_errors(study, counts, ref[1]),
+              parabolic_errors(study, counts, ref[2], target))
+    engines_gate(what, ad, ref, errors)
+
+
+def autodiff_part(mods, api, studies):
+    """The source-wise paths (``SW_PATHS``) and phase (g), the autodiff
+    engine's profile studies held to the kernels'. No kernel rows."""
+    for label in SW_PATHS:
+        t0 = time.time()
+        run_sw_path(label, mods, api, studies)
+        log("path %s: %.1f s" % (label, time.time() - t0))
+    t0 = time.time()
+    engines_phase(mods, api, studies)
+    log("xenon engines phase: %.1f s" % (time.time() - t0))
+
+
 # -- the inference part ---------------------------------------------------
 
 #: the models whose one dataset (drawn from ``default_rng(0)``) the
@@ -1790,6 +2019,138 @@ def interval_inference_phase(lf, mods):
                       run, every=INTERVAL_HELD_EVERY)
 
 
+#: phase (e): the science runs' live times are cut by this factor, their
+#: ratio kept (the host referee's fits grow with the events; PERF.md
+#: section 4)
+SUM_LIVETIME_SCALE = 0.02
+#: phase (f): the WIMP cross-section at the model's base rate (in units
+#: of 1e-46 cm^2); its range is 0 to ten times that
+XSEC_BASE = 3.0
+
+
+def unbinned_sum_likelihood(api, tmp):
+    """(e)'s model: XENON1T's SR0 and SR1 as two unbinned XENON
+    likelihoods, live times in the ratio 32.1 : 246.7
+    (``SCIENCE_RUNS_DAYS`` times ``SUM_LIVETIME_SCALE``), each with one
+    dataset drawn from ``default_rng`` of its index, plus the calibration
+    constraint; the 8 parameters shared by name."""
+    from blueice_tpu_torch import composition
+    runs = []
+    for i, days in enumerate(SCIENCE_RUNS_DAYS):
+        lf = api['xenon_like'].build_likelihood(
+            'unbinned', livetime_days=days * SUM_LIVETIME_SCALE,
+            cache_dir=os.path.join(tmp, 'sr%d' % i),
+            task_dir=os.path.join(tmp, 'sr%d_tasks' % i))
+        lf.set_data(lf.base_model.simulate(rng=np.random.default_rng(i)))
+        runs.append(lf)
+    constraint = composition.correlated_gaussian_constraint(*CALIBRATION)
+    return api['likelihood'].LogLikelihoodSum(runs + [constraint])
+
+
+def reparam_likelihood(lf):
+    """(f)'s model: ``lf`` with the WIMP rate written as a cross-section,
+    ``wimp_rate_multiplier = wimp_xsec / XSEC_BASE``."""
+    from blueice_tpu_torch import composition
+    lf.pdf_base_config['wimp_xsec'] = XSEC_BASE
+    return composition.LogLikelihoodReParam(lf, {
+        'wimp_rate_multiplier': {'params': ['wimp_xsec'],
+                                 'func': lambda xsec: xsec},
+        'wimp_xsec': (np.linspace(0.0, 10 * XSEC_BASE, 11), None, None)})
+
+
+def no_launches(phase, launches):
+    log("%s kernel launches: %s" % (phase, launches))
+    if any(launches.values()):
+        raise AssertionError("%s: a kernel launched on the autodiff engine"
+                             % phase)
+
+
+def ad_fit_phase(phase, lf, target, mods):
+    """``bestfit_jax`` on the card through the autodiff engine, no kernel
+    launched, against the host referee (``host_referee``, float64): the
+    fit re-scored on the host float64 likelihood within 1e-3 of the
+    referee's maximum (as phase (b)), the maximum the fit reports within
+    1e-2 of it (float32's rounding of a binned sum of ~1e5 events); the
+    target within 5e-3 (relative) of the referee's; the errors finite and
+    within 5% of the same fit on the CPU in float64."""
+    from blueice_tpu_torch.compile import cached_logl
+    from blueice_tpu_torch.parallel.fitter import (make_toy_fitter,
+                                                   observed_data)
+    ref_fit, ref_ll, ref_secs = host_referee(lf)
+    fresh_compile(lf)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    (fit, ll), launches = counted(mods, lambda: lf.bestfit_jax())
+    cold = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    no_launches(phase, launches)
+    warm = []
+    for _ in range(2):
+        t0 = time.time()
+        lf.bestfit_jax()
+        torch.cuda.synchronize()
+        warm.append(time.time() - t0)
+    compiled = cached_logl(lf)
+    n_iter = int(make_toy_fitter(compiled, max_iter=250)[0](
+        observed_data(compiled))[2][0])
+    x = {k: v for k, v in fit.items() if not k.endswith('_error')}
+    rescored = float(lf(**x))
+    t0 = time.time()
+    cpu, ll64 = lf.bestfit_jax(device='cpu')
+    cpu_secs = time.time() - t0
+    err_gap = max(abs(fit[k + '_error'] / cpu[k + '_error'] - 1) for k in x)
+    target_gap = abs(fit[target] - ref_fit[target]) / max(
+        1.0, abs(ref_fit[target]))
+    log("%s: %d iterations; cold %.3f s, warm %.3f s a fit (median of 2); "
+        "peak device memory %.3f GB; max ll %.6f, re-scored on the host "
+        "%.6f, referee %.6f (%.1f s); %s %.6f vs %.6f; errors within %.3g "
+        "of the float64 CPU fit's (%.1f s, max ll %.6f)" % (
+            phase, n_iter, cold, float(np.median(warm)), peak, ll, rescored,
+            ref_ll, ref_secs, target, fit[target], ref_fit[target], err_gap,
+            cpu_secs, ll64))
+    if not (abs(rescored - ref_ll) <= 1e-3 and abs(ll - ref_ll) <= 1e-2
+            and target_gap < 5e-3
+            and all(np.isfinite(fit[k + '_error']) for k in x)
+            and err_gap <= 0.05):
+        raise AssertionError("%s: the fit fails its gates" % phase)
+
+
+def ad_interval_phase(phase, lf, target, mods):
+    """``one_parameter_interval`` (upper, 90%) with
+    ``bestfit_routine='jax'`` on the autodiff engine, no kernel launched,
+    against the same call with the host referee: within 1e-4 relative."""
+    from blueice_tpu_torch.inference import bestfit_jax, one_parameter_interval
+    fits = collections.Counter()
+
+    def jax_fit(lf, **kwargs):
+        fits['jax'] += 1
+        return bestfit_jax(lf, **kwargs)
+
+    def scipy_fit(lf, **kwargs):
+        fits['scipy'] += 1
+        return host_referee(lf, **kwargs)[:2]
+
+    fresh_compile(lf)
+    t0 = time.time()
+    ul, launches = counted(mods, lambda: one_parameter_interval(
+        lf, target, INTERVAL_BOUND, kind='upper', confidence_level=0.9,
+        bestfit_routine=jax_fit))
+    secs = time.time() - t0
+    no_launches(phase, launches)
+    t0 = time.time()
+    ul64 = one_parameter_interval(lf, target, INTERVAL_BOUND, kind='upper',
+                                  confidence_level=0.9,
+                                  bestfit_routine=scipy_fit)
+    gap = abs(ul - ul64) / abs(ul64)
+    log("%s: upper limit (90%%) %.6g in %.2f s (%d fits), host referee "
+        "%.6g in %.2f s (%d fits): relative gap %.3g (<= 1e-4)" % (
+            phase, ul, secs, fits['jax'], ul64, time.time() - t0,
+            fits['scipy'], gap))
+    if not (np.isfinite(ul) and gap <= 1e-4):
+        raise AssertionError("%s: the upper limit disagrees with the host "
+                             "referee" % phase)
+
+
 def inference_part(mods, api):
     """The inference part: (a) the device template build, (b)
     ``bestfit_jax`` on the three models of ``INFERENCE``, (c)
@@ -1813,6 +2174,17 @@ def inference_part(mods, api):
         t0 = time.time()
         rows += interval_inference_phase(lfs['xenon'], mods)
         log("xenon interval (bestfit_jax) phase: %.1f s" % (time.time() - t0))
+        t0 = time.time()
+        target = PATHS['xenon'][1]
+        sum_lf = unbinned_sum_likelihood(api, tmp)
+        ad_fit_phase('unbinned SR0+SR1 bestfit_jax', sum_lf, target, mods)
+        ad_interval_phase('unbinned SR0+SR1 interval (bestfit_jax)', sum_lf,
+                          target, mods)
+        log("unbinned SR0+SR1 phase: %.1f s" % (time.time() - t0))
+        t0 = time.time()
+        ad_fit_phase('xenon ReParam bestfit_jax',
+                     reparam_likelihood(lfs['xenon']), 'wimp_xsec', mods)
+        log("xenon ReParam phase: %.1f s" % (time.time() - t0))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return rows
@@ -1960,6 +2332,10 @@ def main(labels):
         t0 = time.time()
         rows += statistics_part(studies, mods, rows)
         log("statistics part: %.1f s" % (time.time() - t0))
+    if not labels or 'autodiff' in labels:
+        t0 = time.time()
+        autodiff_part(mods, api, studies)
+        log("autodiff part: %.1f s" % (time.time() - t0))
     if not labels or 'inference' in labels:
         t0 = time.time()
         rows += inference_part(mods, api)

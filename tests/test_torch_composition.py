@@ -5,7 +5,9 @@ linear child, a log-morphed child and a correlated constraint, weights
 engine's (value, g, H); a whole profile study of that Sum on the same
 numpy-made counts; the routing of joint parameters a child does not
 declare; an observed interval and the saturated model of a Sum; and the
-refusals that name ROADMAP item 16b.
+fits of what once raised naming ROADMAP item 16b (a Sum with an unbinned
+child, a re-parametrisation, a term alone) against the JAX package's
+autodiff fits.
 
 The Sums are the JAX package's, bridged into the port by
 ``state_from_reference`` (which reads a composition of either package),
@@ -34,9 +36,9 @@ from blueice_tpu.priors import MultivariateNormalPrior as JaxMVN
 from blueice_tpu_torch import composition as tcomp
 from blueice_tpu_torch.compile import (CompiledLogLikelihoodSum, build_logl,
                                        build_logl_ancillary,
-                                       build_logl_reparam, build_logl_sum)
+                                       build_logl_reparam, build_logl_sum,
+                                       cached_logl)
 from blueice_tpu_torch.examples import xenon_like as txenon
-from blueice_tpu_torch.likelihood import LogLikelihoodSum
 from blueice_tpu_torch.parallel import (BinnedToyStudy, gof, limits,
                                         make_toy_fitter)
 from blueice_tpu_torch.parallel import fitter as tfitter
@@ -369,24 +371,59 @@ def test_sum_saturated_logl(sums):
 
 
 def test_refusals_name_item_16b():
-    """What the JAX package fits with its autodiff engine raises here,
-    naming ROADMAP item 16b: a Sum with an unbinned child, a
-    re-parametrised likelihood, a dataset-free term on its own."""
-    ulf = txenon.build_likelihood('unbinned', n_cs1_bins=4, n_cs2_bins=3,
-                                  livetime_days=1.0)
-    mixed = LogLikelihoodSum([blob_likelihood(PORT, 'linear'), ulf])
-    lf = blob_likelihood(PORT, 'linear')
-    lf.pdf_base_config['coupling'] = 1.0
-    reparam = tcomp.LogLikelihoodReParam(lf, {
-        'wimp_rate_multiplier': {'params': ['coupling'],
-                                 'func': lambda c: c ** 2},
-        'coupling': (np.linspace(0.0, 3.0, 4), None, None)})
-    constraint = tcomp.correlated_gaussian_constraint(CONSTRAINED, MEAN, COV)
-    for model, what in ((mixed, 'LogLikelihoodSum'),
-                        (reparam, 'LogLikelihoodReParam'),
-                        (constraint, 'dataset-free')):
-        compiled = build_logl(model, device='cpu')
-        with pytest.raises(NotImplementedError, match=what + '.*item 16b'):
-            make_toy_fitter(compiled)
-    with pytest.raises(NotImplementedError, match='item 16b'):
-        BinnedToyStudy(reparam, device='cpu').profile_ts(0, 2, TARGET, 1.0)
+    """The cases that once raised NotImplementedError naming ROADMAP item
+    16b (a Sum with an unbinned child, a re-parametrised likelihood, a
+    dataset-free term on its own) fit on the autodiff engine, as the JAX
+    package's do: ``bestfit_jax`` of the port's own classes against the
+    JAX package's on the same data (max_ll 1e-6, x 2e-3), and the
+    ReParam's profile study on the same numpy-made toys (t 1e-4)."""
+    from blueice_tpu.examples import xenon_like as jxenon
+
+    def models(pkg, comp, xenon):
+        ulf = xenon.build_likelihood('unbinned', n_cs1_bins=4, n_cs2_bins=3,
+                                     livetime_days=1.0)
+        ulf.set_data(ulf.base_model.simulate(rng=np.random.default_rng(1)))
+        blob = blob_likelihood(pkg, 'linear')
+        blob.set_data(blob.base_model.simulate(
+            rng=np.random.default_rng(2)))
+        mixed = comp.LogLikelihoodSum([blob, ulf])
+        lf = blob_likelihood(pkg, 'linear')
+        lf.set_data(lf.base_model.simulate(rng=np.random.default_rng(3)))
+        lf.pdf_base_config['coupling'] = 1.0
+        reparam = comp.LogLikelihoodReParam(lf, {
+            'wimp_rate_multiplier': {'params': ['coupling'],
+                                     'func': lambda c: c ** 2},
+            'coupling': (np.linspace(0.0, 3.0, 4), None, None)})
+        constraint = comp.correlated_gaussian_constraint(CONSTRAINED, MEAN,
+                                                         COV)
+        return mixed, reparam, constraint
+    port = models(PORT, tcomp, txenon)
+    ref = models(JAX, jcomp, jxenon)
+    # the ReParam as the JAX package fits it: without the snap candidates
+    # at its wrapped likelihood's anchors (test_torch_ad_engine.py)
+    cached_logl(port[1], device='cpu').child.shape_anchor_arrays = []
+    for tm, jm in zip(port, ref):
+        compiled = build_logl(tm, device='cpu')
+        assert tfitter._engine_family(compiled) == 'ad'
+        (tp, tll), (jp, jll) = (tm.bestfit_jax(device='cpu'),
+                                jm.bestfit_jax())
+        assert list(tp) == list(jp)
+        np.testing.assert_allclose(tll, jll, rtol=0, atol=1e-6)
+        values = [k for k in jp if not k.endswith('_error')]
+        np.testing.assert_allclose([tp[k] for k in values],
+                                   [jp[k] for k in values], rtol=2e-3,
+                                   atol=2e-3)
+    tstudy = BinnedToyStudy(port[1], device='cpu', max_iter=60)
+    tstudy.compiled.child.shape_anchor_arrays = []
+    jstudy = JaxStudy(ref[1], max_iter=60, two_stage=False)
+    counts = np.random.default_rng(4).poisson(
+        tstudy.expected_counts().numpy(), (3, 8, 6)).astype(float)
+    tt, tfree, tcond = tstudy._run_profile(counts, 'coupling', 1.0, None)
+    jt, jfree, jcond = jstudy._run_profile(jnp.asarray(counts), 'coupling',
+                                           1.0, None)
+    np.testing.assert_allclose(tt, np.asarray(jt), rtol=0, atol=1e-4)
+    for t, j in ((tfree, jfree), (tcond, jcond)):
+        np.testing.assert_allclose(t.max_ll, np.asarray(j.max_ll), rtol=0,
+                                   atol=1e-6)
+        np.testing.assert_allclose(t.x, np.asarray(j.x), rtol=2e-3,
+                                   atol=2e-3)

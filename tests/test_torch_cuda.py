@@ -1075,3 +1075,102 @@ def test_template_batch_kernel_on_the_card(cuda_device):
     cpu = jax_source._batch_kernel(density, space, names, 'cpu')(params)
     assert card.shape == (81, 10, 8)
     np.testing.assert_allclose(card, cpu, rtol=1e-12, atol=1e-15)
+
+
+# -- the autodiff engine and source-wise morphing on the card ---------------------
+
+def _counted_launches():
+    return {name: n for module in (fused, fused_bb, fused_bb_lite,
+                                   fused_unbinned)
+            for name, n in module.launch_counts().items()}
+
+
+def _reset_launches():
+    for module in (fused, fused_bb, fused_bb_lite, fused_unbinned):
+        module.reset_launch_counts()
+
+
+def _errors(compiled, names, x, data, runtime=()):
+    """(toys, n) parabolic errors at the fits ``x``: the inverse of the
+    float32 Hessian of the plain closed form there (a runtime-fixed
+    parameter at 1.0)."""
+    from blueice_tpu_torch.parallel.fitter import x_space_ops
+    vgh = x_space_ops(compiled, names, runtime_fixed=list(runtime),
+                      engine='analytic')[1]
+    x = torch.as_tensor(x, dtype=compiled.dtype, device=compiled.device)
+    fv = torch.ones((x.shape[0], len(runtime)), dtype=compiled.dtype,
+                    device=compiled.device)
+    cov = torch.linalg.pinv(vgh(x, data, fv)[2].double())
+    return torch.sqrt(torch.clamp(torch.diagonal(cov, dim1=-2, dim2=-1),
+                                  min=0)).cpu().numpy()
+
+
+def _same_optima(x, ll, x_ref, ll_ref, err, t=None, t_ref=None):
+    """The gate of chip_smoke.py's source-wise paths: at least 95% of the
+    toys agree in x (within a tenth of the reference fit's parabolic
+    error ``err``, float32's bound), on those |d max_ll| <= 0.05 (and
+    median |d t| <= 0.01), and on every toy |d max_ll| < 0.2."""
+    agree = np.all(np.abs(x - x_ref) <= 0.1 * err, axis=1)
+    assert agree.mean() >= 0.95, agree
+    d_ll = np.abs(ll - ll_ref)
+    assert d_ll[agree].max() <= 0.05 and d_ll.max() < 0.2
+    if t is not None:
+        assert np.median(np.abs(t - t_ref)[agree]) <= 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['binned', 'unbinned'])
+def test_ad_engine_matches_fused(cuda_device, kind):
+    """A small XENON-shaped batch fitted by the autodiff engine (no kernel
+    launched) and by the fused engine (its kernels) on the card, the same
+    toys, float32: the source-wise paths' gate."""
+    from blueice_tpu_torch.parallel import (BinnedToyStudy, UnbinnedToyStudy,
+                                            make_toy_fitter)
+    lf = _bound_likelihood(kind)
+    cls = BinnedToyStudy if kind == 'binned' else UnbinnedToyStudy
+    study = cls(lf, max_iter=60)
+    toys = study.simulate(1, 32)
+    data = (study._counts(toys).reshape(32, -1) if kind == 'binned'
+            else study._fit_data(toys))
+    out = {}
+    for engine in ('ad', 'fused'):
+        fit, names = make_toy_fitter(study.compiled, max_iter=240,
+                                     engine=engine)
+        _reset_launches()
+        x, ll, _ = fit(data)
+        torch.cuda.synchronize()
+        launched = sum(_counted_launches().values())
+        assert (launched == 0) == (engine == 'ad'), launched
+        out[engine] = (x.double().cpu().numpy(), ll.double().cpu().numpy())
+    err = _errors(study.compiled, names, out['fused'][0], data)
+    _same_optima(*out['ad'], *out['fused'], err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['binned', 'unbinned'])
+def test_source_wise_study_matches_global(cuda_device, kind):
+    """The source-wise XENON model's profile study (the autodiff engine, no
+    kernel launched) against the global model's (the kernels) on the same
+    toys on the card."""
+    from blueice_tpu_torch.examples import xenon_like
+    from blueice_tpu_torch.parallel import BinnedToyStudy, UnbinnedToyStudy
+    from blueice_tpu_torch.utils import set_progress
+    set_progress(False)
+    target = 'wimp_rate_multiplier'
+    extra = dict(livetime_days=3.0) if kind == 'unbinned' else {}
+    cls = BinnedToyStudy if kind == 'binned' else UnbinnedToyStudy
+    glob, sw = (cls(xenon_like.build_likelihood(
+        kind, source_wise_interpolation=s, **SMALL, **extra))
+        for s in (False, True))
+    toys = glob.simulate(2, 32)
+    _reset_launches()
+    t, free, cond = sw._run_profile(toys, target, 1.0, None)
+    torch.cuda.synchronize()
+    assert not any(_counted_launches().values())
+    tg, fg, cg = glob._run_profile(toys, target, 1.0, None)
+    data = (glob._counts(toys).reshape(32, -1) if kind == 'binned'
+            else glob._fit_data(toys))
+    _same_optima(free.x, free.max_ll, fg.x, fg.max_ll,
+                 _errors(glob.compiled, fg.names, fg.x, data), t, tg)
+    _same_optima(cond.x, cond.max_ll, cg.x, cg.max_ll,
+                 _errors(glob.compiled, cg.names, cg.x, data, [target]))

@@ -31,6 +31,8 @@ from blueice_tpu_torch.models.source import Source
 from blueice_tpu_torch.test_helpers import conf_for_test
 from blueice_tpu_torch.utils import set_progress
 
+from test_torch_profile_grid_map import fresh_template_caches  # noqa: F401,E402
+
 EDGES = np.linspace(-8, 8, 65)
 
 

@@ -44,7 +44,8 @@ from blueice_tpu_torch.parallel import fitter as tfitter
 from blueice_tpu_torch.test_helpers import conf_for_test as tconf
 from blueice_tpu_torch.utils import set_progress
 
-from test_torch_profile_grid_map import one_torch_thread  # noqa: F401
+from test_torch_profile_grid_map import (  # noqa: F401
+    fresh_template_caches, one_torch_thread)
 
 JAX = SimpleNamespace(lik=jlik, conf=jconf, xenon=jxenon)
 PORT = SimpleNamespace(lik=tlik, conf=tconf, xenon=txenon)

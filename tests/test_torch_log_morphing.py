@@ -203,7 +203,8 @@ def test_log_morphing_options_are_checked():
     ValueError, log morphing of an unbinned likelihood NotImplementedError
     (as there); a log-morphed model never takes the kernels ('auto' is
     the closed form, 'fused' raises), and with a Beeston-Barlow mode it is
-    the autodiff engine's (ROADMAP item 16b)."""
+    the autodiff engine's: its fits of numpy-made toys are the JAX
+    package's (max_ll 1e-6, x 2e-3)."""
     config = txenon.build_config(n_cs1_bins=4, n_cs2_bins=3)
     for cls, jcls in ((BinnedLogLikelihood, JaxBinned),
                       (UnbinnedLogLikelihood, JaxUnbinned)):
@@ -219,7 +220,18 @@ def test_log_morphing_options_are_checked():
     assert not tfitter._fused_eligible(compiled)
     with pytest.raises(ValueError, match='linear template morphing'):
         make_toy_fitter(compiled, engine='fused')
-    bb = build_logl(blob_likelihood(PORT, 'log', likelihood_config=dict(
-        model_statistical_uncertainty_handling='bb_lite')), device='cpu')
-    with pytest.raises(NotImplementedError, match='item 16b'):
-        make_toy_fitter(bb)
+    from blueice_tpu.compile import build_logl as jbuild
+    from blueice_tpu.parallel import fitter as jfitter
+    jbb = blob_likelihood(JAX, 'log', likelihood_config=dict(
+        model_statistical_uncertainty_handling='bb_lite'))
+    bb = build_logl(jbb, device='cpu')
+    assert tfitter._engine_family(bb) == 'ad'
+    counts = np.random.default_rng(5).poisson(
+        bb.expected_counts(bb.defaults).numpy(), (3, 8, 6)).astype(float)
+    x, ll, _ = make_toy_fitter(bb)[0](counts)
+    jfit = jfitter.make_toy_fitter(jbuild(jbb))[0]
+    jx, jll, _ = jax.vmap(lambda d: jfit(d))(jnp.asarray(counts))
+    np.testing.assert_allclose(ll.numpy(), np.asarray(jll), rtol=0,
+                               atol=1e-6)
+    np.testing.assert_allclose(x.numpy(), np.asarray(jx), rtol=2e-3,
+                               atol=2e-3)

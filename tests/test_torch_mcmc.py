@@ -234,8 +234,8 @@ def test_device_emcee_reuses_its_runner():
 
 def test_device_log_prob_of_an_ancillary_term_matches():
     """A dataset-free ancillary term alone, which no closed-form engine
-    fits (ROADMAP item 16b): on the CPU its walkers are scored by the
-    compiled logl, as the JAX package's vmapped log_prob scores them."""
+    fits: the autodiff engine's value scores its walkers in one vmapped
+    call, as the JAX package's vmapped log_prob scores them."""
     args = (['band_shift', 'er_rate_multiplier'], [0.0, 1.0],
             [[0.09, 0.012], [0.012, 0.0064]])
     jlp, jnames, _ = jmcmc.make_device_log_prob(

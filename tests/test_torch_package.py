@@ -151,9 +151,6 @@ def test_auto_engine_is_closed_form_on_cpu(lf):
 
 
 def test_not_ported_features_say_so(lf):
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        UnbinnedLogLikelihood(dict(build_config(**SIZE),
-                                   source_wise_interpolation=True))
     with pytest.raises(ValueError, match='blob templates'):
         build_likelihood('unbinned', bb=True, **SIZE)
     with pytest.raises(ValueError, match='bb must be'):
@@ -162,10 +159,23 @@ def test_not_ported_features_say_so(lf):
         build_likelihood('binned', bb=True, jax_templates=True, **SIZE)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         BinnedToyStudy(lf, device='cpu').simulate(0, 2, mesh=object())
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        make_toy_fitter(lf.make_logl(device='cpu'), engine='ad')
+    with pytest.raises(NotImplementedError, match="'fused', 'ad'"):
+        make_toy_fitter(lf.make_logl(device='cpu'), engine='pallas')
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         lf.prepare(n_cores=2)
+
+
+def test_source_wise_and_autodiff_fits_are_ported(lf):
+    """What the two refusals above once named: a source-wise unbinned
+    likelihood builds (one morpher a source), and engine='ad' fits the
+    same floating parameters as 'auto' (their fits: test_torch_ad_engine.py
+    and test_torch_source_wise.py)."""
+    sw = UnbinnedLogLikelihood(dict(build_config(**SIZE),
+                                    source_wise_interpolation=True))
+    assert sw.source_wise_interpolation
+    compiled = lf.make_logl(device='cpu')
+    assert (make_toy_fitter(compiled, engine='ad')[1]
+            == make_toy_fitter(compiled)[1])
 
 
 def test_kernel_inputs_are_checked():

@@ -53,10 +53,39 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
-def gauss_lf(cls, conf, space=(-10, -1, 1, 10), n_sources=1):
+def clear_template_caches(directory):
+    """Empty both packages' process-wide template caches
+    (``Source._data_cache``, keyed by the config hash, which leaves out
+    ``cache_dir``) and point the JAX helpers' cache and task directories
+    (one pair a process, ``blueice_tpu.test_helpers._SCRATCH``) at
+    ``directory``; the port's helpers make fresh ones at every call."""
+    from blueice_tpu import test_helpers as jhelpers
+    from blueice_tpu.models.source import Source as JaxSource
+    from blueice_tpu_torch.models.source import Source as TorchSource
+    JaxSource._data_cache.clear()
+    TorchSource._data_cache.clear()
+    jhelpers._SCRATCH.update(cache_dir=str(directory / 'cache'),
+                             task_dir=str(directory / 'tasks'))
+
+
+@pytest.fixture(scope='module', autouse=True)
+def fresh_template_caches(tmp_path_factory):
+    """Every module that builds Monte-Carlo templates or counts device
+    calls starts from empty template caches: a template of the same config
+    hash that another module built in this worker, under another numpy
+    state, would otherwise stand in for the one built here (on one side or
+    both), and a device build would find its templates in memory."""
+    from blueice_tpu import test_helpers as jhelpers
+    saved = dict(jhelpers._SCRATCH)
+    clear_template_caches(tmp_path_factory.mktemp('templates'))
+    yield
+    jhelpers._SCRATCH.update(saved)
+
+
+def gauss_lf(cls, conf, space=(-10, -1, 1, 10), n_sources=1, seed=0):
     """The Gaussian model with a rate (s0) and a shape (mu) parameter, its
     Monte-Carlo templates drawn from a reset numpy state."""
-    np.random.seed(0)
+    np.random.seed(seed)
     c = conf(n_sources=n_sources, mc=True, analysis_space=[['x', list(space)]],
              n_events_for_pdf=int(2e5))
     if n_sources > 1:
@@ -196,8 +225,7 @@ def test_binned_surface_checks_its_arguments(binned):
 UNBINNED_SPACE = np.linspace(-10, 10, 21)
 
 
-@pytest.fixture(scope='module')
-def unbinned():
+def unbinned_pair():
     """Both packages' Gaussian unbinned model (two Monte-Carlo sources, a
     rate and a shape parameter) bound to the same 300 numpy-made events."""
     set_progress(False)
@@ -213,6 +241,11 @@ def unbinned():
         lf.set_data(d)
     return (JaxUnbinnedStudy(lfs[0], engine='analytic', two_stage=False),
             UnbinnedToyStudy(lfs[1], device='cpu', two_stage=False))
+
+
+@pytest.fixture(scope='module')
+def unbinned():
+    return unbinned_pair()
 
 
 @pytest.mark.parametrize('space', [
@@ -248,6 +281,28 @@ def test_unbinned_profile_grid_rows_are_profiles(unbinned):
     # the seeded entry point draws the same events
     ts2 = tstudy.profile_ts_grid(4, RATE, hyps, 5)[0]
     np.testing.assert_array_equal(ts2, ts)
+
+
+def test_unbinned_map_after_a_stale_template(tmp_path):
+    """The map's flaky failure under ``pytest -n 6 --dist loadfile``: an
+    earlier test in the worker built a template of the same config hash
+    under another numpy state, and the process-wide cache served it to
+    one package.
+    Fill both caches so, clear them as the module fixture does, and the
+    pair built afterwards holds the same templates and maps alike."""
+    stale = [gauss_lf(cls, conf, UNBINNED_SPACE, n_sources=2, seed=1)
+             for cls, conf in ((JaxUnbinned, jax_conf),
+                               (UnbinnedLogLikelihood, conf_for_test))]
+    assert all(len(lf.anchor_models) == 3 for lf in stale)
+    clear_template_caches(tmp_path)
+    jstudy, tstudy = unbinned_pair()
+    np.testing.assert_allclose(
+        tstudy.lf._builds['ps'][2], jstudy.lf._builds['ps'][2], rtol=1e-12)
+    space = [(RATE, np.linspace(0.2, 1.2, 6))]
+    jt, jfree, _ = jstudy.profile_map(space)
+    tt, tfree, _ = tstudy.profile_map(space)
+    np.testing.assert_allclose(tt, np.asarray(jt), rtol=0, atol=1e-4)
+    assert_same_fits(tfree, jfree)
 
 
 def test_unbinned_study_has_no_observed_counts(unbinned):

@@ -25,6 +25,8 @@ from blueice_tpu_torch.parallel import fitter as tfitter
 from blueice_tpu_torch.priors import NormalPrior
 from blueice_tpu_torch.utils import set_progress
 
+from test_torch_profile_grid_map import fresh_template_caches  # noqa: F401,E402
+
 TARGET = 'wimp_rate_multiplier'
 
 

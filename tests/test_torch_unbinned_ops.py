@@ -26,6 +26,8 @@ from blueice_tpu_torch.likelihood import extended_loglikelihood
 from blueice_tpu_torch.ops import poisson, unbinned_vgh as tvgh
 from blueice_tpu_torch.utils import set_progress
 
+from test_torch_profile_grid_map import fresh_template_caches  # noqa: F401,E402
+
 S, E, B = 3, 150, 4
 SIZE = dict(n_cs1_bins=8, n_cs2_bins=6, livetime_days=1.0)
 
