@@ -1047,6 +1047,34 @@ def _source_wise_center(compiled, ps, mask):
     return inv_ref.contiguous(), ref_msum, ref_ll
 
 
+#: Test hook: route every closed-form unbinned fit to the dense engine
+#: (:mod:`blueice_tpu_torch.ops.unbinned_dense`). The JAX package takes that
+#: engine on its TPU backend, where the per-toy tensor outgrows the Pallas
+#: kernels' VMEM; the card has no such budget, so ``engine='auto'`` keeps
+#: the unbinned kernels and the dense engine is reached only through this
+#: hook, read when a fitter is built: for tests and the engine A/B.
+_FORCE_DENSE_UNBINNED = False
+
+
+def _dense_unbinned_ops():
+    """(vgh_op, ll_op) of the dense engine in the kernel wrappers' calling
+    convention, whose rate argument is ``moff = sum m - ref_msum``. The
+    dense ops take ``ref_msum`` itself: they are given ``sum m`` (a rate
+    term of exactly 0, so they return the log term alone) and ``moff`` is
+    subtracted from their ll, as the wrappers do."""
+    from ..ops.unbinned_dense import unbinned_vgh_dense, unbinned_ll_dense_many
+
+    def vgh_op(ps, strides, rows, idx, t, m, mask, inv_ref, moff, outlier):
+        ll, g, H = unbinned_vgh_dense(ps, strides, idx, t, m, mask, outlier,
+                                      inv_ref, m.sum(-1), lanes=rows)
+        return ll - moff, g, H
+
+    def ll_op(ps, strides, rows, idx, t, m, mask, inv_ref, moff, outlier):
+        return unbinned_ll_dense_many(ps, strides, idx, t, m, mask, outlier,
+                                      inv_ref, m.sum(-1), lanes=rows) - moff
+    return vgh_op, ll_op
+
+
 def _make_unbinned_parts(compiled, names, fixed, transform, use_fused,
                          runtime_fixed=()):
     """(value_many(u_cands, data, rows, fv), vgh(u, data, rows, fv)) of the
@@ -1057,10 +1085,14 @@ def _make_unbinned_parts(compiled, names, fixed, transform, use_fused,
     ``use_fused`` routes the (ll, g, H) and value ops to the CUDA kernel
     wrappers (their plain versions on the CPU); otherwise to the plain
     versions, the closed forms of :mod:`blueice_tpu_torch.ops.unbinned_vgh`.
+    With the test hook :data:`_FORCE_DENSE_UNBINNED` set, both go to the
+    dense engine instead, on any device.
     """
     graph = _ParamGraph(compiled, names, fixed, transform, runtime_fixed)
     outlier = compiled.outlier_likelihood
-    if use_fused:
+    if _FORCE_DENSE_UNBINNED:
+        vgh_op, ll_op = _dense_unbinned_ops()
+    elif use_fused:
         vgh_op = fused_unbinned.unbinned_vgh_fused
         ll_op = fused_unbinned.unbinned_ll_fused_multi
     else:

@@ -12,8 +12,11 @@ Counterpart of :mod:`blueice_tpu.parallel.toys`:
   ``n_max`` with an event mask, and scored at every anchor point into a
   (B, G, S, E) density tensor.
 
-Every fit of an ensemble runs as one batch. Multi-device sharding
-(``mesh=``) is not ported yet (ROADMAP queue 1 item 14).
+Every fit of an ensemble runs as one batch on the study's device. The toy
+axis spreads over processes through a mesh (``mesh=`` on every entry,
+:func:`make_mesh`, :mod:`blueice_tpu_torch.parallel.distributed`): one
+device per process, each rank fitting its contiguous block of the toys and
+every rank returning the whole, gathered result.
 
 Seeds. Where the JAX package takes a PRNG key, the port takes
 ``seed_or_generator``: an int seed or a ``torch.Generator``. A key's
@@ -33,11 +36,12 @@ import numpy as np
 import torch
 
 from ..compile import build_logl
+from . import distributed
 from .fitter import (make_toy_fitter, check_fixed_in_bounds, unbinned_center,
                      tree_map)
 
-__all__ = ['BinnedToyStudy', 'UnbinnedToyStudy', 'ToyResults', 'seed_of',
-           'child_seed']
+__all__ = ['make_mesh', 'shard_toys', 'ToyMesh', 'BinnedToyStudy',
+           'UnbinnedToyStudy', 'ToyResults', 'seed_of', 'child_seed']
 
 #: toys per scoring step of :meth:`UnbinnedToyStudy.score_events` (bounds
 #: the (toys, G*S, E) gather's memory)
@@ -65,7 +69,7 @@ def child_seed(seed, i):
 
 
 def _refine_stragglers(fit_long, data, x, ll, it, cap, fixed_values=None,
-                       idx=None):
+                       idx=None, lanes=None):
     """Straggler pass for lockstep batched fits.
 
     A batched Newton loop runs until its slowest toy finishes, so stage 1
@@ -74,7 +78,8 @@ def _refine_stragglers(fit_long, data, x, ll, it, cap, fixed_values=None,
     stage-1 points, and keeps each refit that did not lower the likelihood.
 
     :param fit_long: batched fitter (data, fixed_values, x0, lanes) ->
-      (x, ll, it), run on the lanes ``idx`` of ``data``.
+      (x, ll, it), run on the lanes ``idx`` of ``data`` (``lanes``: other
+      lanes of ``data`` that hold the toys ``idx``).
     :return: (x, ll, it) numpy arrays with stragglers refined, plus the
       straggler count.
     """
@@ -86,7 +91,8 @@ def _refine_stragglers(fit_long, data, x, ll, it, cap, fixed_values=None,
     if idx.size == 0:
         return x, ll, it, 0
     xs, lls, its = (v.cpu().numpy() for v in
-                    fit_long(data, fixed_values, x0=x[idx], lanes=idx))
+                    fit_long(data, fixed_values, x0=x[idx],
+                             lanes=idx if lanes is None else lanes))
     better = lls >= ll[idx]
     x[idx[better]] = xs[better]
     ll[idx[better]] = lls[better]
@@ -115,7 +121,7 @@ def _best_of_two(a, b):
 
 
 def _cond_scan(hypotheses, call_cond, refine_cond, llf, names_cond, cap,
-               need_cond=True):
+               need_cond=True, gather=None):
     """The per-hypothesis conditional loop of ``profile_ts_grid``: run the
     conditional fit at each hypothesis, refine its stragglers, compute the
     statistic from the refined optima.
@@ -127,14 +133,17 @@ def _cond_scan(hypotheses, call_cond, refine_cond, llf, names_cond, cap,
     :param need_cond: when False, the conditional parameters are not copied
       to the host (unless stragglers need them); the conds list then holds
       None.
+    :param gather: tensors -> numpy arrays of the whole toy axis
+      (:meth:`_Whole.gather`, or a shard's gather across the ranks).
     :return: (ts (n_hypotheses, n_toys), list of conditional ToyResults).
     """
+    gather = gather or _Whole.gather
     ts, conds = [], []
     for h in hypotheses:
         xc_d, llc_d, itc_d = call_cond(float(h))
-        llc, itc = llc_d.cpu().numpy(), itc_d.cpu().numpy()
+        llc, itc = gather(llc_d, itc_d)
         refine = refine_cond is not None and (itc >= cap).any()
-        xc = xc_d.cpu().numpy() if need_cond or refine else None
+        xc = gather(xc_d)[0] if need_cond or refine else None
         if refine:
             xc, llc, itc = refine_cond(xc, llc, itc, float(h))
         ts.append(np.maximum(2.0 * (llf - llc), 0.0))
@@ -181,16 +190,182 @@ def _check_target_not_fixed(target, fixed):
             "profile-likelihood-ratio statistic" % (target,))
 
 
+def _same_device(a, b):
+    """Whether two torch devices are one (an index-less CUDA device is the
+    current one)."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type != 'cuda':
+        return True
+    current = torch.cuda.current_device()
+    return (a.index if a.index is not None else current) == (
+        b.index if b.index is not None else current)
+
+
 def _freeze_opts(d):
     """Hashable cache key of an options dict."""
     return tuple(sorted((d or {}).items()))
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (multi-device toy sharding) is not ported yet "
-            "(ROADMAP queue 1 item 14)")
+class ToyMesh:
+    """The toy axis of a study spread over processes: the port's
+    counterpart of the JAX package's 1-d device mesh.
+
+    JAX partitions one program over the devices of a process; torch runs
+    one process per device (``torch.distributed``). So a mesh is this
+    process's place in a process group: the group (None: this process
+    alone), its world size, this process's rank, this rank's torch device
+    (None: the study's own) and the axis name. Make one with
+    :func:`make_mesh`, or :func:`~blueice_tpu_torch.parallel.distributed.
+    global_mesh` after
+    :func:`~blueice_tpu_torch.parallel.distributed.init_distributed`."""
+
+    def __init__(self, group=None, world_size=1, rank=0, device=None,
+                 axis_name='toys'):
+        world_size, rank = int(world_size), int(rank)
+        if not 0 <= rank < world_size:
+            raise ValueError("rank %d outside a world of %d"
+                             % (rank, world_size))
+        if group is None and world_size != 1:
+            raise ValueError("a mesh of %d ranks needs their process group"
+                             % world_size)
+        self.group = group
+        self.world_size = world_size
+        self.rank = rank
+        self.device = None if device is None else torch.device(device)
+        self.axis_name = axis_name
+
+    @property
+    def size(self):
+        """Devices on the mesh (the JAX mesh's ``devices.size``)."""
+        return self.world_size
+
+    def block(self, n_toys):
+        """(lo, hi): this rank's contiguous rows of an ``n_toys`` axis."""
+        if n_toys % self.world_size:
+            raise ValueError(
+                "%d toys do not split over %d ranks: round the count up "
+                "(_round_up_toys)" % (n_toys, self.world_size))
+        per = n_toys // self.world_size
+        return self.rank * per, (self.rank + 1) * per
+
+    def __repr__(self):
+        return ("ToyMesh(%s=%d, rank=%d, device=%s%s)"
+                % (self.axis_name, self.world_size, self.rank, self.device,
+                   '' if self.group is None else ', grouped'))
+
+
+def make_mesh(devices=None, axis_name='toys'):
+    """A mesh over the toy axis (:class:`ToyMesh`).
+
+    In a process with no process group: this process alone, on
+    ``devices[0]`` (default: the study's own device). In a process of an
+    initialised group (:func:`~blueice_tpu_torch.parallel.distributed.
+    init_distributed`): every rank of the group, this rank on its device.
+    A mesh holds one device per process: more than one device raises.
+    """
+    devices = None if devices is None else list(devices)
+    if devices is not None and len(devices) != 1:
+        raise ValueError(
+            "a mesh of the port holds one device per process, got %d: run "
+            "one process per device and join them with "
+            "blueice_tpu_torch.parallel.distributed.init_distributed (then "
+            "make_mesh() or global_mesh())" % len(devices))
+    device = torch.device(devices[0]) if devices else None
+    if distributed.is_initialized():
+        import torch.distributed as dist
+        return ToyMesh(dist.group.WORLD, dist.get_world_size(),
+                       dist.get_rank(), device or distributed.rank_device(),
+                       axis_name)
+    return ToyMesh(None, 1, 0, device, axis_name)
+
+
+def _round_up_toys(n_toys, mesh):
+    size = mesh.size
+    return -(-int(n_toys) // size) * size
+
+
+def _n_toys(toys):
+    """Toys in an ensemble (a tensor, or a tuple of them: a Sum's counts,
+    an unbinned event set)."""
+    return (toys[0] if isinstance(toys, (tuple, list)) else toys).shape[0]
+
+
+def _take(toys, rows):
+    """The toys ``rows`` (a slice or an index array) of an ensemble."""
+    if not isinstance(rows, slice):
+        rows = torch.as_tensor(rows, dtype=torch.int64)
+    return tree_map(lambda v: torch.as_tensor(v)[rows], toys)
+
+
+def shard_toys(mesh, tree, axis_name='toys'):
+    """This rank's contiguous block of rows of every leaf of ``tree``
+    (leading axis the whole toy axis, a multiple of the world size), on
+    the mesh's device: the rows the JAX package's ``shard_toys`` places on
+    this rank's device. One process: the whole tree."""
+    lo, hi = mesh.block(_n_toys(tree))
+    rows = _take(tree, slice(lo, hi))
+    if mesh.device is None:
+        return rows
+    return tree_map(lambda v: v.to(mesh.device), rows)
+
+
+class _Whole:
+    """The fitters' ``data`` of a whole ensemble, fitted in this process:
+    what a stage fits, gathers and refines is every toy."""
+
+    def __init__(self, data):
+        self.data = data
+
+    def stage(self, fit, fixed_values=None, x0=None):
+        return fit(self.data, fixed_values, x0=x0)
+
+    @staticmethod
+    def gather(*tensors):
+        return [v.cpu().numpy() for v in tensors]
+
+    @staticmethod
+    def local(x):
+        return x
+
+    def refine(self, fit_long, x, ll, it, cap, fixed_values=None, idx=None):
+        return _refine_stragglers(fit_long, self.data, x, ll, it, cap,
+                                  fixed_values, idx)
+
+
+class _Shard(_Whole):
+    """This rank's block of an ensemble that every rank holds whole
+    (``toys``): a stage fits the block alone (its fit data, for an
+    unbinned study the scored events and their centering, made for the
+    block only), :meth:`gather` returns the whole toy axis on every rank,
+    and the straggler pass runs after the gather on the stragglers of the
+    whole axis, identically on every rank."""
+
+    def __init__(self, study, mesh, toys):
+        lo, hi = mesh.block(_n_toys(toys))
+        self.rows = slice(lo, hi)
+        super().__init__(study._prepare(_take(toys, self.rows)))
+        self.study, self.mesh, self.toys = study, mesh, toys
+        self._stragglers = (None, None)
+
+    def gather(self, *tensors):
+        return distributed.gather_to_hosts(tensors, self.mesh)
+
+    def local(self, x):
+        return x[self.rows]
+
+    def refine(self, fit_long, x, ll, it, cap, fixed_values=None, idx=None):
+        if idx is None:
+            idx = np.flatnonzero(np.asarray(it) >= cap)
+        if idx.size == 0:
+            return np.array(x), np.array(ll), np.array(it), 0
+        key, data = self._stragglers
+        if key != tuple(idx):
+            data = self.study._prepare(_take(self.toys, idx))
+            self._stragglers = (tuple(idx), data)
+        return _refine_stragglers(fit_long, data, x, ll, it, cap,
+                                  fixed_values, idx, np.arange(idx.size))
 
 
 class ToyResults:
@@ -261,37 +436,67 @@ class _ToyStudy:
             self._fit_cache[key] = self._make_fitter(fixed=fixed, guess=guess)
         return self._fit_cache[key]
 
-    def _fit(self, data, fixed=None, guess=None):
+    def _mesh(self, mesh):
+        """``mesh`` checked against the study (None stays None)."""
+        if mesh is None:
+            return None
+        if not isinstance(mesh, ToyMesh):
+            raise TypeError(
+                "mesh must be a ToyMesh (parallel.make_mesh or "
+                "parallel.distributed.global_mesh), got %s"
+                % type(mesh).__name__)
+        if mesh.device is not None and not _same_device(mesh.device,
+                                                        self.device):
+            raise ValueError("the mesh's device %s is not the study's %s"
+                             % (mesh.device, self.device))
+        return mesh
+
+    def _ensemble(self, toys, mesh=None):
+        """The fitters' view of an ensemble: whole in this process, or
+        this rank's block of it under a grouped mesh."""
+        if mesh is None or mesh.group is None:
+            return _Whole(self._prepare(toys))
+        return _Shard(self, mesh, toys)
+
+    def _draw_args(self, seed_or_generator, n_toys, mesh):
+        """(seed, n_toys) of a draw under ``mesh`` (see
+        :func:`~blueice_tpu_torch.parallel.distributed._prepare_ensemble`)."""
+        mesh = self._mesh(mesh)
+        if mesh is None:
+            return seed_or_generator, int(n_toys)
+        n_toys, seed = distributed._prepare_ensemble(seed_or_generator,
+                                                     n_toys, mesh)
+        return seed, n_toys
+
+    def _fit(self, ens, fixed=None, guess=None):
         fit, fit_long, names = self._fit_entry(fixed, guess)
-        x, ll, it = (v.cpu().numpy() for v in fit(data))
+        x, ll, it = ens.gather(*ens.stage(fit))
         if fit_long is not None:
-            x, ll, it, _ = _refine_stragglers(fit_long, data, x, ll, it,
-                                              self.max_iter)
+            x, ll, it, _ = ens.refine(fit_long, x, ll, it, self.max_iter)
         return ToyResults(names, x, ll, it)
 
-    def _profile(self, data, target, hypothesis, fixed):
-        """(t, free ToyResults, conditional ToyResults) of the fitters'
-        ``data``. Stragglers are refined in pairs: a toy that hit the
-        stage-1 cap in either fit is refit in both, since a one-sided
-        refinement would bias t."""
+    def _profile(self, ens, target, hypothesis, fixed):
+        """(t, free ToyResults, conditional ToyResults) of an ensemble
+        (:meth:`_ensemble`). Stragglers are refined in pairs: a toy that
+        hit the stage-1 cap in either fit is refit in both, since a
+        one-sided refinement would bias t."""
         _check_target_not_fixed(target, fixed)
         check_fixed_in_bounds(self.compiled, {target: hypothesis})
         (fit_free, free_long, fit_cond, cond_long, names_free, names_cond,
          warm_cols) = self._profile_fn(target, fixed)
         h = [float(hypothesis)]
-        xf, llf, itf = fit_free(data)
+        xf, llf, itf = ens.stage(fit_free)
         x0c = xf[:, warm_cols] if warm_cols else None
-        xc, llc, itc = fit_cond(data, h, x0=x0c)
-        xf, llf, itf, xc, llc, itc = (
-            v.cpu().numpy() for v in (xf, llf, itf, xc, llc, itc))
+        xc, llc, itc = ens.stage(fit_cond, h, x0=x0c)
+        xf, llf, itf, xc, llc, itc = ens.gather(xf, llf, itf, xc, llc, itc)
         if free_long is not None:
             idx = np.flatnonzero((itf >= self.max_iter)
                                  | (itc >= self.max_iter))
-            xf, llf, itf = _refine_stragglers(
-                free_long, data, xf, llf, itf, self.max_iter, idx=idx)[:3]
-            xc, llc, itc = _refine_stragglers(
-                cond_long, data, xc, llc, itc, self.max_iter,
-                fixed_values=h, idx=idx)[:3]
+            xf, llf, itf = ens.refine(free_long, xf, llf, itf,
+                                      self.max_iter, idx=idx)[:3]
+            xc, llc, itc = ens.refine(cond_long, xc, llc, itc,
+                                      self.max_iter, fixed_values=h,
+                                      idx=idx)[:3]
         t = np.maximum(2.0 * (llf - llc), 0.0)
         return (t, ToyResults(names_free, xf, llf, itf),
                 ToyResults(names_cond, xc, llc, itc))
@@ -313,10 +518,10 @@ class _ToyStudy:
                 names_cond, _warm_cols(names_free, names_cond))
         return self._profile_cache[key]
 
-    def _profile_grid(self, data, target, hypotheses, fixed,
+    def _profile_grid(self, ens, target, hypotheses, fixed,
                       return_cond=True):
         """(ts (H, n_toys), hypotheses, free ToyResults, conditional
-        ToyResults per hypothesis) of the fitters' ``data``: one free fit,
+        ToyResults per hypothesis) of an ensemble: one free fit,
         its stragglers refined once (only where a conditional refiner
         exists), then at each hypothesis a conditional fit warm-started
         from it, with that hypothesis's own stragglers refined. (The
@@ -324,20 +529,20 @@ class _ToyStudy:
         every hypothesis.)"""
         (fit_free, free_long, fit_cond, cond_long, names_free, names_cond,
          warm_cols) = self._profile_fn(target, fixed)
-        xf, llf, itf = (v.cpu().numpy() for v in fit_free(data))
+        xf, llf, itf = ens.gather(*ens.stage(fit_free))
         if free_long is not None:
-            xf, llf, itf = _refine_stragglers(free_long, data, xf, llf, itf,
-                                              self.max_iter)[:3]
-        x0c = xf[:, warm_cols] if warm_cols else None
+            xf, llf, itf = ens.refine(free_long, xf, llf, itf,
+                                      self.max_iter)[:3]
+        x0c = ens.local(xf[:, warm_cols]) if warm_cols else None
         refine = None
         if cond_long is not None:
             def refine(xc, llc, itc, h):
-                return _refine_stragglers(cond_long, data, xc, llc, itc,
-                                          self.max_iter,
-                                          fixed_values=[h])[:3]
+                return ens.refine(cond_long, xc, llc, itc, self.max_iter,
+                                  fixed_values=[h])[:3]
         ts, conds = _cond_scan(
-            hypotheses, lambda h: fit_cond(data, [h], x0=x0c), refine, llf,
-            names_cond, self.max_iter, need_cond=return_cond)
+            hypotheses, lambda h: ens.stage(fit_cond, [h], x0=x0c), refine,
+            llf, names_cond, self.max_iter, need_cond=return_cond,
+            gather=ens.gather)
         return ts, hypotheses, ToyResults(names_free, xf, llf, itf), conds
 
     def profile_ts_grid(self, seed_or_generator, target, hypotheses, n_toys,
@@ -358,9 +563,10 @@ class _ToyStudy:
         hypotheses = np.sort(np.asarray(hypotheses, dtype=float))
         for h in hypotheses:
             check_fixed_in_bounds(self.compiled, {target: float(h)})
+        mesh = self._mesh(mesh)
         toys = self.simulate(seed_or_generator, n_toys, truth, mesh)
         return self._run_profile_grid(toys, target, hypotheses, fixed,
-                                      return_cond)
+                                      return_cond, mesh=mesh)
 
     def profile_ts_scan(self, seed_or_generator, target, hypotheses, n_toys,
                         fixed=None, mesh=None, truth=None,
@@ -377,6 +583,7 @@ class _ToyStudy:
         :return: (n_hypotheses, n_toys) t values; with ``return_free``,
           (t array, list of free ToyResults).
         """
+        mesh = self._mesh(mesh)
         seed = seed_of(seed_or_generator)
         out, frees = [], []
         for i, h in enumerate(np.asarray(hypotheses, dtype=float)):
@@ -384,7 +591,7 @@ class _ToyStudy:
             if truth_at_hypothesis:
                 sim_truth[target] = float(h)
             toys = self.simulate(child_seed(seed, i), n_toys, sim_truth, mesh)
-            t, free, _ = self._run_profile(toys, target, h, fixed)
+            t, free, _ = self._run_profile(toys, target, h, fixed, mesh=mesh)
             out.append(t)
             frees.append(free)
         ts = np.stack(out)
@@ -482,13 +689,20 @@ class BinnedToyStudy(_ToyStudy):
 
         :param seed_or_generator: an int seed or a torch.Generator on the
           study's device.
+        :param mesh: a :class:`ToyMesh`: n_toys is rounded up to a multiple
+          of its world size (the padded toys are ordinary toys) and, in a
+          process group, every rank draws the whole ensemble from one int
+          seed that every rank read (see
+          :func:`~blueice_tpu_torch.parallel.distributed._prepare_ensemble`),
+          so toy i is the same dataset at any world size.
         """
-        _no_mesh(mesh)
+        seed_or_generator, n_toys = self._draw_args(seed_or_generator,
+                                                    n_toys, mesh)
         expected = self.expected_counts(**(truth or {}))
         gen = self._generator(seed_or_generator)
 
         def draw(e):
-            rates = e.expand((int(n_toys),) + tuple(e.shape)).contiguous()
+            rates = e.expand((n_toys,) + tuple(e.shape)).contiguous()
             return torch.poisson(rates, generator=gen)
         return tree_map(draw, expected)
 
@@ -496,33 +710,44 @@ class BinnedToyStudy(_ToyStudy):
         return tree_map(lambda c: torch.as_tensor(
             c, dtype=self.compiled.dtype, device=self.device), counts)
 
+    _prepare = _counts
+
     def fit_toys(self, counts, fixed=None, guess=None):
         """Fit every toy dataset; returns ToyResults."""
-        return self._fit(self._counts(counts), fixed, guess)
+        return self._fit(_Whole(self._counts(counts)), fixed, guess)
 
     def run(self, seed_or_generator, n_toys, truth=None, fixed=None,
             mesh=None):
-        """Simulate and fit n_toys datasets in one go."""
+        """Simulate and fit n_toys datasets in one go (under a grouped
+        mesh, each rank fits its block and returns every toy's fit)."""
+        mesh = self._mesh(mesh)
         counts = self.simulate(seed_or_generator, n_toys, truth, mesh)
-        return self.fit_toys(counts, fixed=fixed)
+        if mesh is None or mesh.group is None:
+            return self.fit_toys(counts, fixed=fixed)
+        return self._fit(self._ensemble(counts, mesh), fixed)
 
     def profile_ts(self, seed_or_generator, n_toys, target, hypothesis,
                    truth=None, mesh=None, fixed=None):
         """Profile-likelihood-ratio test statistic t = 2(LL_free - LL_cond)
         for each toy, with the conditional fit fixing ``target=hypothesis``.
 
+        :param mesh: a :class:`ToyMesh`; in a process group each rank fits
+          its contiguous block of the toys and every rank returns the whole
+          result.
         :return: (t array (n_toys,), free ToyResults, conditional ToyResults)
         """
+        mesh = self._mesh(mesh)
         counts = self.simulate(seed_or_generator, n_toys, truth, mesh)
-        return self._run_profile(counts, target, hypothesis, fixed)
+        return self._run_profile(counts, target, hypothesis, fixed, mesh=mesh)
 
-    def _run_profile(self, counts, target, hypothesis, fixed):
-        return self._profile(self._counts(counts), target, hypothesis, fixed)
+    def _run_profile(self, counts, target, hypothesis, fixed, mesh=None):
+        return self._profile(self._ensemble(counts, mesh), target,
+                             hypothesis, fixed)
 
     def _run_profile_grid(self, counts, target, hypotheses, fixed,
-                          return_cond=True):
-        return self._profile_grid(self._counts(counts), target, hypotheses,
-                                  fixed, return_cond)
+                          return_cond=True, mesh=None):
+        return self._profile_grid(self._ensemble(counts, mesh), target,
+                                  hypotheses, fixed, return_cond)
 
     def observed_counts(self, counts=None):
         """The observed count tensor of one dataset on the study's device,
@@ -569,7 +794,8 @@ class BinnedToyStudy(_ToyStudy):
         targets, grids = _check_map_space(self.compiled, space, fixed)
         counts1 = tree_map(lambda c: c.reshape(1, -1),
                            self.observed_counts(counts))
-        free = _free if _free is not None else self._fit(counts1, fixed)
+        free = (_free if _free is not None
+                else self._fit(_Whole(counts1), fixed))
         return self._map(counts1, targets, grids, fixed, free)
 
 
@@ -773,11 +999,13 @@ class UnbinnedToyStudy(_ToyStudy):
 
         :param seed_or_generator: an int seed or a torch.Generator on the
           study's device.
+        :param mesh: as for :meth:`BinnedToyStudy.simulate`.
         """
-        _no_mesh(mesh)
+        seed_or_generator, n_toys = self._draw_args(seed_or_generator,
+                                                    n_toys, mesh)
         weights = self.expected_weights(**(truth or {}))
         return self._sample(self._generator(seed_or_generator), weights,
-                            int(n_toys))
+                            n_toys)
 
     def _score_terms(self, coords, bins, method):
         """[(flat bin index (n, E), weight (n, E))] of ``method``'s
@@ -880,41 +1108,49 @@ class UnbinnedToyStudy(_ToyStudy):
                                device=self.device).contiguous()
         return ps, mask, unbinned_center(self.compiled, ps, mask)
 
+    _prepare = _fit_data
+
     # -- fits ----------------------------------------------------------------------
 
     def fit_events(self, events, fixed=None, guess=None):
         """Fit every toy of an event set; returns ToyResults."""
-        return self._fit(self._fit_data(events), fixed, guess)
+        return self._fit(_Whole(self._fit_data(events)), fixed, guess)
 
     def run(self, seed_or_generator, n_toys, truth=None, fixed=None,
             mesh=None):
-        """Simulate and fit n_toys event sets."""
+        """Simulate and fit n_toys event sets (a grouped mesh as for
+        :meth:`BinnedToyStudy.run`)."""
+        mesh = self._mesh(mesh)
         events = self.simulate(seed_or_generator, n_toys, truth, mesh)
-        return self.fit_events(events, fixed=fixed)
+        if mesh is None or mesh.group is None:
+            return self.fit_events(events, fixed=fixed)
+        return self._fit(self._ensemble(events, mesh), fixed)
 
     def profile_ts(self, seed_or_generator, n_toys, target, hypothesis,
                    truth=None, fixed=None, mesh=None):
         """Profile-likelihood-ratio test statistic per toy (see
-        :meth:`BinnedToyStudy.profile_ts`).
+        :meth:`BinnedToyStudy.profile_ts`; under a grouped mesh a rank
+        scores and centers the events of its own block only).
 
         :return: (t array (n_toys,), free ToyResults, conditional ToyResults)
         """
+        mesh = self._mesh(mesh)
         events = self.simulate(seed_or_generator, n_toys, truth, mesh)
-        return self._run_profile(events, target, hypothesis, fixed)
+        return self._run_profile(events, target, hypothesis, fixed, mesh=mesh)
 
-    def _run_profile(self, events, target, hypothesis, fixed):
+    def _run_profile(self, events, target, hypothesis, fixed, mesh=None):
         """:meth:`profile_ts` on a given event set (coords, mask, bins)."""
-        return self._profile(self._fit_data(events), target, hypothesis,
-                             fixed)
+        return self._profile(self._ensemble(events, mesh), target,
+                             hypothesis, fixed)
 
     def _run_profile_grid(self, events, target, hypotheses, fixed,
-                          return_cond=True):
+                          return_cond=True, mesh=None):
         # The JAX package re-samples and re-scores the toys for every
         # hypothesis from the same keys; here the event set is drawn and
         # scored once and its (B, G, S, E) tensor and centering reused by
         # every hypothesis. The events are identical, so is the result.
-        return self._profile_grid(self._fit_data(events), target, hypotheses,
-                                  fixed, return_cond)
+        return self._profile_grid(self._ensemble(events, mesh), target,
+                                  hypotheses, fixed, return_cond)
 
     def profile_map(self, space, fixed=None):
         """Profiled likelihood-ratio map on the observed dataset (the events

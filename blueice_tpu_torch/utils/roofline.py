@@ -540,12 +540,41 @@ def measure_unbinned_kernel(G=3, S=2, E=2304, K=1, B=256, chip='h100-sxm',
 
 def measure_unbinned_jnp(G=81, S=6, E=2048, K=4, B=64, chip='h100-sxm',
                          n_inner=None):
-    """The reference's probe of its dense unbinned engine
-    (``ops/unbinned_dense.py``), which the port does not have yet."""
-    raise NotImplementedError(
-        "measure_unbinned_jnp runs ops/unbinned_dense.py, which is not "
-        "ported (ROADMAP queue 1 item 17c); the port's record measures "
-        "measure_unbinned_kernel(G=81, S=6, E=2048, K=4, B=64) instead")
+    """The reference's probe of its dense unbinned engine: the port's
+    :func:`~blueice_tpu_torch.ops.unbinned_dense.unbinned_vgh_dense` on
+    every toy of a (B, G, S, E) batch, one stacked (J, G) x (G, S*E)
+    product a toy over the whole per-toy tensor, then the closed forms. The
+    grid has its true per-axis strides (G^(1/K) anchors an axis, random
+    lower corners), and the verdict counts ``unbinned_vgh_cost``'s stream
+    of the whole tensor, as the reference's does; the products run in
+    float32 with TF32 off. Timed as the other probes: a CUDA graph of
+    ``n_inner`` calls between two CUDA events (the tensor outgrows the L2
+    cache, so the cold time takes one copy). Labelled by what it runs,
+    ``unbinned_vgh_dense(...)``: the reference labels it
+    ``unbinned_vgh_jnp``."""
+    _require_cuda('measure_unbinned_jnp')
+    from ..ops.unbinned_dense import unbinned_vgh_dense
+    g = max(2, int(round(G ** (1 / K)))) if K else 1
+    if K and g ** K != G:
+        raise ValueError("G=%d is not a K=%d-dim grid" % (G, K))
+    strides = tuple(g ** (K - 1 - d) for d in range(K))
+    rng = np.random.default_rng(3)
+    dev = torch.device('cuda')
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = (f32(rng.uniform(0.001, 0.4, (B, G, S, E))), strides,
+            torch.as_tensor(rng.integers(0, max(g - 1, 1), (B, K)),
+                            device=dev),
+            f32(rng.uniform(0, 1, (B, K))), f32(rng.uniform(100, 2000, (B, S))),
+            torch.ones((B, E), dtype=torch.bool, device=dev))
+
+    def launcher(*a):
+        return (lambda: unbinned_vgh_dense(*a)), None
+    return _measure(unbinned_vgh_dense, launcher, args,
+                    unbinned_vgh_cost(G, S, E, K), B, chip, n_inner,
+                    'unbinned_vgh_dense(G=%d,S=%d,E=%d,K=%d)' % (G, S, E, K))
 
 
 # -- the op-mix probe (kernel #17) -----------------------------------------
@@ -818,9 +847,9 @@ def format_report(verdicts):
 def roofline_record():
     """Roofline verdicts of the vgh kernels on the card, at the reference's
     shapes (``bench.py`` ``roofline_record``), with the card's name and
-    power limit. Where the reference probed its dense unbinned engine at
-    the XENON shape, this measures the kernel the port's study runs
-    there."""
+    power limit. At the XENON shape it measures both the kernel the
+    port's study runs there and, as the reference did, the dense unbinned
+    engine (:func:`measure_unbinned_jnp`)."""
     _require_cuda('roofline_record')
     verdicts = [
         measure_binned_kernel(),
@@ -828,6 +857,7 @@ def roofline_record():
         measure_bblite_kernel(),
         measure_unbinned_kernel(),
         measure_unbinned_kernel(G=81, S=6, E=2048, K=4, B=64),
+        measure_unbinned_jnp(),
     ]
     return dict(chip='h100-sxm', card=card_line(), kernels=verdicts)
 

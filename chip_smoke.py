@@ -69,8 +69,9 @@ Then the roofline part (``blueice_tpu_torch.utils.roofline``):
    (``op_mix_scale``), over the elements that fill the card;
 5. the op-mix ceilings (``op_mix_record``) with every launch counter set to
    0 just before and read just after: the op-mix kernel must have launched,
-   no fit kernel; then the vgh kernels' roofline verdicts
-   (``roofline_record``), printed as a table, and per kernel warm and
+   no fit kernel; then the vgh kernels' roofline verdicts and the dense
+   unbinned engine's (``roofline_record``, the last by
+   ``measure_unbinned_jnp``), printed as a table, and per kernel warm and
    L2-cold (an L2-cold HBM share above 100% fails).
 
 Between the paths and the roofline part runs the statistics part
@@ -172,12 +173,42 @@ held to the host referee in float64, no kernel launched:
 19. (f) a ``LogLikelihoodReParam`` of the xenon dataset's model, the WIMP
    rate written as a cross-section: ``bestfit_jax`` as (e).
 
+After the inference part runs the sharding part (``sharding_part``; ``python3
+chip_smoke.py sharding`` runs it alone), each phase between reset and read
+of every launch counter:
+
+20. (s1) xenon's profile of 512 toys with a one-process mesh
+   (``make_mesh()``) and then, after ``init_distributed`` at world size 1
+   on NCCL, through ``profile_ts_distributed`` (its results gathered as
+   CUDA tensors over NCCL): both bit-identical to the profile with no
+   mesh, the xenon kernels launched and no other;
+21. (s2) two ranks on the one card, spawned as fresh interpreters that
+   import the port only (``blueice_tpu_torch.dryrun.run_ranks``; gloo,
+   since NCCL refuses two ranks on one device; the kernels built here
+   first), on xenon (512 toys), bb and unbinned_xenon (128 toys each,
+   full width): each rank's path kernels launched and no other, both
+   ranks' gathered arrays bit-identical, the toys bit-identical to the
+   single-process draw at the seed, the fits within phase 3's gate of one
+   process's on the same toys (max |d max_ll| <= 0.05, median |d t| <=
+   0.01; the largest gap printed: the kernels size a toy's ranges by the
+   batch, so a rank's half sums in another order), the median t in the
+   path's band; xenon's warm profile fits/s at one and two ranks;
+22. (s3) the dense unbinned engine (``parallel.fitter._FORCE_DENSE_UNBINNED``,
+   ``ops/unbinned_dense.py``) on unbinned_xenon (256 toys) and the
+   Gaussian model (1,024 toys) against the path's kernels on the same
+   event sets: no kernel launched in a dense run, ``engines_gate`` with
+   the path's band, seconds, fits/s, iterations and peak device memory
+   printed, and the dense ops' recorded calls held to float64
+   (``held_dense_calls``), where the same ops with TF32 products or with
+   bfloat16 coefficients must fail (controls of the gate).
+
 Run with no arguments, as above, it is the smoke test. Path names as
 arguments (``python3 chip_smoke.py bb bblite``) run those paths alone and
 no statistics or roofline part: a quicker measurement of their kernels, which prints the
 same lines for them (``python3 chip_smoke.py combined xenon_log``: the
 composition paths alone). ``python3 chip_smoke.py inference`` runs the
-inference part alone (``autodiff`` the autodiff part); it adds about 110 s to a run on an H100 (PERF.md
+inference part alone (``autodiff`` the autodiff part, ``sharding`` the
+sharding part); it adds about 110 s to a run on an H100 (PERF.md
 section 6), most of it the phases' float64 checks and the host referee.
 
 The paths ``combined`` and ``xenon_log`` and the ``combined interval``
@@ -192,6 +223,7 @@ with code 2 before doing anything. The last line of standard output is
 """
 
 import collections
+import contextlib
 import json
 import os
 import re
@@ -229,7 +261,7 @@ PATHS = {
     'xenon_log': ('xenon_log', 'wimp_rate_multiplier', 256, 8, None),
 }
 #: parts that run alone when named (``python3 chip_smoke.py inference``)
-PARTS = ('inference', 'autodiff')
+PARTS = ('inference', 'autodiff', 'sharding')
 #: the JAX package's median t of the path on the CPU, float64, and the
 #: bootstrap spread of that median (``measure_composition_reference.py``:
 #: 256 toys for each of seeds 0 and 1; PERF.md section 6)
@@ -2190,6 +2222,356 @@ def inference_part(mods, api):
     return rows
 
 
+# -- the sharding part ----------------------------------------------------
+
+#: (s2) path: (the model of ``blueice_tpu_torch.dryrun``, toys, profiles a
+#: rank runs: the second of xenon's is its warm time)
+SHARD_PATHS = collections.OrderedDict([
+    ('xenon', ('xenon', 512, 2)),
+    ('bb', ('xenon_bb', 128, 1)),
+    ('unbinned_xenon', ('unbinned_xenon', 128, 1)),
+])
+#: (s3) path: toys fitted by the dense engine and by the kernels
+DENSE_PATHS = collections.OrderedDict([('unbinned_xenon', 256),
+                                       ('unbinned', 1024)])
+#: recorded calls of each dense op held to the plain closed forms
+DENSE_HELD = 40
+STUDY_KW = dict(max_iter=96, tol=3e-4)
+
+
+def path_study(label, api, studies):
+    """(study, cls) of path ``label``: the one its path built, or a new
+    one (``python3 chip_smoke.py sharding`` alone)."""
+    if label in studies:
+        return studies[label]
+    unbinned = PATHS[label][0].startswith('unbinned')
+    cls = api['UnbinnedToyStudy' if unbinned else 'BinnedToyStudy']
+    study = cls(build_model(label, api['xenon_like'], api['test_helpers'],
+                            api['likelihood']), **STUDY_KW)
+    check_on_card(label, study.compiled)
+    studies[label] = (study, cls)
+    return studies[label]
+
+
+def same_bits(what, a, b):
+    """Raise unless two (t, free, cond) profiles are bit-identical."""
+    pairs = [(a[0], b[0])] + [(getattr(x, k), getattr(y, k))
+                              for x, y in zip(a[1:], b[1:])
+                              for k in ('x', 'max_ll', 'n_iter')]
+    if not all(np.array_equal(x, y) for x, y in pairs):
+        raise AssertionError("%s is not bit-identical to the profile with "
+                             "no mesh" % what)
+
+
+def one_rank_phase(mods, api, studies):
+    """(s1) xenon's profile with a one-process mesh, then through NCCL at
+    world size 1 (``profile_ts_distributed``, its results gathered as CUDA
+    tensors), each between reset and read of every counter and
+    bit-identical to the profile with no mesh. Returns (that profile, its
+    warm seconds)."""
+    from blueice_tpu_torch.parallel import (init_distributed, make_mesh,
+                                            profile_ts_distributed)
+    import torch.distributed as dist
+    study, _ = path_study('xenon', api, studies)
+    _, target, n_toys, _, _ = PATHS['xenon']
+    study.profile_ts(0, n_toys, target, 1.0)          # warm (phase 2's seed)
+    t0 = time.time()
+    ref = study.profile_ts(0, n_toys, target, 1.0)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    out, launches = counted(mods, lambda: study.profile_ts(
+        0, n_toys, target, 1.0, mesh=make_mesh()))
+    check_own_launches('xenon', launches, '(s1) a one-process mesh')
+    same_bits('(s1) xenon with make_mesh()', out, ref)
+    rank, world = init_distributed(num_processes=1)
+    try:
+        mesh = make_mesh()
+        backend = dist.get_backend(mesh.group)
+        if (rank, world, backend) != (0, 1, 'nccl'):
+            raise AssertionError("(s1): a group of %d on %s, rank %d"
+                                 % (world, backend, rank))
+        out, launches = counted(mods, lambda: profile_ts_distributed(
+            study, 0, n_toys, target, 1.0, mesh=mesh))
+        check_own_launches('xenon', launches, '(s1) NCCL at world size 1')
+        same_bits('(s1) xenon through NCCL at world size 1', out, ref)
+    finally:
+        dist.destroy_process_group()
+    log("(s1) xenon, %d toys: profile_ts with make_mesh() and "
+        "profile_ts_distributed over NCCL at world size 1 (%s, rank %d of "
+        "%d) bit-identical to no mesh; one rank warm %.3f s (%.1f profile "
+        "fits/s)" % (n_toys, mesh.device, rank, world, secs, n_toys / secs))
+    return ref, secs
+
+
+def two_ranks_phase(mods, api, studies, one_rank):
+    """(s2) each of ``SHARD_PATHS`` over two ranks on the one card (gloo:
+    NCCL refuses two ranks on one device), spawned as fresh interpreters
+    that import the port only (``blueice_tpu_torch.dryrun.run_ranks``;
+    the kernels were built here before). Raises unless each rank launched
+    its path's two kernels and no other, both ranks hold the same arrays
+    bit for bit, the toys are the single-process draw's, the fits agree
+    with one process's on the same toys (phase 3's gate) and the median t
+    is in the path's band."""
+    from blueice_tpu_torch import dryrun
+    from blueice_tpu_torch.parallel import ToyResults
+    runs = [dict(model=m, seed=0, n_toys=n, repeats=r)
+            for m, n, r in SHARD_PATHS.values()]
+    t0 = time.time()
+    results = dryrun.run_ranks(2, dict(runs=runs, study=STUDY_KW), 'cuda',
+                               timeout=600)
+    log("(s2) two ranks on the card (%s): %.1f s, their runs %s"
+        % (', '.join(r['device'] for r in results), time.time() - t0,
+           json.dumps([[round(x, 3) for x in run['seconds']]
+                       for r in results for run in r['runs']])))
+    dryrun.same_on_every_rank(results)
+    for i, label in enumerate(SHARD_PATHS):
+        run = results[0]['runs'][i]
+        _, target, _, _, band = PATHS[label]
+        n_toys = run['n_toys']
+        for r in results:
+            check_own_launches(label, r['runs'][i]['launches'],
+                               '(s2) rank %d' % r['rank'])
+        study, _ = path_study(label, api, studies)
+        toys = study.simulate(0, n_toys)
+        if dryrun.ensemble_digest(toys) != run['digest']:
+            raise AssertionError("(s2) %s: the ranks drew other toys than "
+                                 "one process at the same seed" % label)
+        ref = (one_rank[0] if label == 'xenon' else
+               study._run_profile(toys, target, 1.0, None))
+        t, free_ll, cond_ll = (np.asarray(run[k])
+                               for k in ('t', 'free_ll', 'cond_ll'))
+        d_ll = np.maximum(np.abs(free_ll - ref[1].max_ll),
+                          np.abs(cond_ll - ref[2].max_ll))
+        d_t = np.abs(t - ref[0])
+        free = ToyResults(ref[1].names, np.asarray(run['free_x']), free_ll,
+                          np.asarray(run['free_iter']))
+        mean_target, med = check_statistics(label, t, free, band)
+        log("(s2) %s, %d toys over two ranks: toys bit-identical to one "
+            "process's draw; both ranks' arrays bit-identical; against one "
+            "process on the same toys max |d max_ll| %.4g (<= 0.05), "
+            "median |d t| %.4g (<= 0.01), largest |d t| %.4g, %d of %d "
+            "toys bit-identical in t; median t %.4f (one process %.4f) in "
+            "%s, mean %s %.4f" % (
+                label, n_toys, d_ll.max(), np.median(d_t), d_t.max(),
+                int((d_t == 0).sum()), n_toys, med, np.median(ref[0]),
+                band, target, mean_target))
+        if not (d_ll.max() <= 0.05 and np.median(d_t) <= 0.01):
+            raise AssertionError("(s2) %s: two ranks disagree with one "
+                                 "process" % label)
+    warm = max(r['runs'][0]['seconds'][1] for r in results)
+    n_toys = results[0]['runs'][0]['n_toys']
+    log("(s2) xenon warm profile fits/s: one rank %.1f (%.3f s), two ranks "
+        "on one card %.1f (%.3f s, the slower rank)"
+        % (n_toys / one_rank[1], one_rank[1], n_toys / warm, warm))
+
+
+class DenseCalls:
+    """Recorder of the dense engine's calls: while installed, the fitter's
+    dense ops (``parallel.fitter._dense_unbinned_ops``: the dense ops in
+    the kernel wrappers' calling convention) keep every call made while
+    ``active`` with its outputs, under the dense op's name; ``ops`` holds
+    the ops themselves, unrecorded."""
+
+    NAMES = ('unbinned_vgh_dense', 'unbinned_ll_dense_many')
+
+    def __init__(self, fitter):
+        self.fitter, self.active, self.ops = fitter, False, {}
+        self.calls = {name: [] for name in self.NAMES}
+        self.saved = make = fitter._dense_unbinned_ops
+
+        def recording_ops():
+            self.ops = dict(zip(self.NAMES, make()))
+            return tuple(self._recording(name) for name in self.NAMES)
+        fitter._dense_unbinned_ops = recording_ops
+
+    def _recording(self, name):
+        def call(*args):
+            out = self.ops[name](*args)
+            if self.active:
+                self.calls[name].append((args, out))
+            return out
+        return call
+
+    def restore(self):
+        self.fitter._dense_unbinned_ops = self.saved
+
+
+@contextlib.contextmanager
+def tf32_products():
+    """The dense ops' float32 products in TF32 (10-bit mantissas), the
+    precision that ``device.resolve`` turns off."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+class _Bf16Bmm:
+    """``torch``, except that ``bmm`` rounds its first operand (the dense
+    ops' corner weights and their coefficients w m) to bfloat16."""
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    @staticmethod
+    def bmm(a, b):
+        return torch.bmm(a.to(torch.bfloat16).to(a.dtype), b)
+
+
+@contextlib.contextmanager
+def bf16_coefficients():
+    """The dense ops with their weights and coefficients in bfloat16."""
+    from blueice_tpu_torch.ops import unbinned_dense
+    unbinned_dense.torch = _Bf16Bmm()
+    try:
+        yield
+    finally:
+        unbinned_dense.torch = torch
+
+
+#: (name, context) of the controls that ``held_dense_calls`` runs on the
+#: same calls: a dense op of lower precision must fail its allowance
+DENSE_CONTROLS = (('TF32 products', tf32_products),
+                  ('bfloat16 coefficients', bf16_coefficients))
+
+
+def held_dense_calls(label, recorder):
+    """Hold recorded dense calls (up to ``DENSE_HELD`` an op, evenly over
+    the run; ``DenseCalls``) to the float64 closed forms of the kernel
+    contracts on the same arguments (``closed_forms``: the lanes' gathered
+    corner rows), as ``held_calls_row`` holds the kernels on a path's own
+    calls, with the plain versions in float32 (``unbinned_vgh_plain``,
+    ``unbinned_ll_plain``: float32 sums over events, as the dense ops')
+    for the float32 yardstick: the ll lane by lane within ``ll_allowance``
+    (1e-5 of its terms, or float32's own rounding where that is larger: at
+    the centering point, where the fits start, every term is below it), g
+    and H within ``float32_allowance`` (phase 1's 1e-4, or twice the plain
+    version's error on the same calls: near an optimum g is a sum of large
+    terms that nearly cancel). The dense value forms one more float32
+    product than the plain version, its coefficients w m, each rounded
+    once (relative F32_UNIT) and shared by every event of the lane: its ll
+    allowance adds F32_UNIT for each valid event (the relative rounding of
+    that event's rate, a term of the log). Each op is run again on the
+    same calls under ``DENSE_CONTROLS``; raises unless the op holds its
+    allowances and every control fails them (the gate tells float32 from
+    a lower precision)."""
+    from blueice_tpu_torch.ops import fused_unbinned
+    plains = {'vgh': fused_unbinned.unbinned_vgh_plain,
+              'value': fused_unbinned.unbinned_ll_plain}
+    for name, contract in (('unbinned_vgh_dense', 'vgh'),
+                           ('unbinned_ll_dense_many', 'value')):
+        spec = CALLS[contract][label]
+        recorded, op = recorder.calls[name], recorder.ops[name]
+        if not recorded:
+            raise AssertionError("(s3) %s: no %s call recorded"
+                                 % (label, name))
+        pick = np.unique(np.linspace(0, len(recorded) - 1,
+                                     DENSE_HELD).astype(int))
+        used, f32_errs, lanes = [], [], 0
+        controls = {c: [] for c, _ in DENSE_CONTROLS}
+        for i in pick:
+            args, out = recorded[i]
+            mask, rows = args[6], args[2]
+            f32 = double(plains[contract](*args))
+            f64 = double(closed_forms(fused_unbinned, spec.wrapper, args)[1])
+            allow = ll_allowance(spec, args, f32, f64)
+            if contract == 'value':
+                # the coefficients w m, rounded once each and shared by
+                # every event of the lane: u of each valid event's rate
+                allow = allow + F32_UNIT * mask[rows].sum(-1)[:, None]
+            f32_errs.append(disagreement(f32, f64, term_scale(*args)))
+            used.append(disagreement(double(out), f64, allow))
+            for c, context in DENSE_CONTROLS:
+                with context():
+                    controls[c].append(disagreement(double(op(*args)), f64,
+                                                    allow))
+            lanes += rows.shape[0]
+        gh_allow = float32_allowance([e[1] for e in f32_errs])
+        used = np.max(used, axis=0) / [1.0, gh_allow]
+        controls = {c: np.max(v, axis=0) / [1.0, gh_allow]
+                    for c, v in controls.items()}
+        log("(s3) %s %s: %d of %d recorded calls (%.1f lanes a call) "
+            "against float64: the ll uses %.3g of its allowance (float32 "
+            "lane by lane), g/H %.3g of %.3g (the float32 plain version: "
+            "ll %.3g of its terms, g/H %.3g); controls on the same calls: "
+            "%s" % (
+                label, name, len(pick), len(recorded), lanes / len(pick),
+                used[0], used[1], gh_allow, *np.max(f32_errs, axis=0),
+                '; '.join('%s, the ll %.3g of its allowance, g/H %.3g'
+                          % (c, *v) for c, v in controls.items())))
+        if not (used <= 1).all():
+            raise AssertionError("(s3) %s: %s disagrees with float64 on its "
+                                 "calls beyond its allowance" % (label, name))
+        for c, v in controls.items():
+            if (v <= 1).all():
+                raise AssertionError(
+                    "(s3) %s: %s with %s holds the allowance: the gate "
+                    "cannot tell float32 from that" % (label, name, c))
+
+
+def dense_phase(label, mods, api, studies):
+    """(s3) the dense engine (``parallel.fitter._FORCE_DENSE_UNBINNED``)
+    on ``DENSE_PATHS[label]`` toys of the path against the path's kernels
+    on the same event sets: no kernel launched in either dense run (the
+    first recorded, the second timed), ``engines_gate`` with the path's
+    band, its recorded calls held to the plain closed forms."""
+    from blueice_tpu_torch.parallel import fitter
+    study, cls = path_study(label, api, studies)
+    _, target, _, _, band = PATHS[label]
+    n_toys = DENSE_PATHS[label]
+    toys = study.simulate(0, n_toys)
+    recorder = DenseCalls(fitter)
+    fitter._FORCE_DENSE_UNBINNED = True
+    try:
+        dense = cls(study.lf, n_max=study.n_max, **STUDY_KW)
+        recorder.active = True
+        _, launches = counted(mods, lambda: dense._run_profile(
+            toys, target, 1.0, None))
+        recorder.active = False
+        no_launches('(s3) %s dense engine, first run' % label, launches)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        out, launches = counted(mods, lambda: dense._run_profile(
+            toys, target, 1.0, None))
+        secs = time.time() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        no_launches('(s3) %s dense engine, warm run' % label, launches)
+    finally:
+        fitter._FORCE_DENSE_UNBINNED = False
+        recorder.restore()
+    kernel_profile(label, study, toys, target, mods, '(s3) kernels, first')
+    ref, ref_secs = kernel_profile(label, study, toys, target, mods,
+                                   '(s3) kernels, warm')
+    log("(s3) %s, %d toys: dense engine warm %.3f s (%.2f profile fits/s; "
+        "mean iterations free %.1f, conditional %.1f; peak device memory "
+        "%.2f GB), kernels warm %.3f s (%.2f profile fits/s; %.1f, %.1f)"
+        % (label, n_toys, secs, n_toys / secs, out[1].n_iter.mean(),
+           out[2].n_iter.mean(), peak, ref_secs, n_toys / ref_secs,
+           ref[1].n_iter.mean(), ref[2].n_iter.mean()))
+    errors = (parabolic_errors(study, toys, ref[1]),
+              parabolic_errors(study, toys, ref[2], target))
+    engines_gate('(s3) %s dense engine vs kernels' % label, out, ref, errors,
+                 band)
+    held_dense_calls(label, recorder)
+
+
+def sharding_part(mods, api, studies):
+    """(s1) one rank, (s2) two ranks on the one card, (s3) the dense
+    unbinned engine; each phase between reset and read of every launch
+    counter. No kernel rows (no kernel of its own)."""
+    t0 = time.time()
+    one_rank = one_rank_phase(mods, api, studies)
+    log("(s1) phase: %.1f s" % (time.time() - t0))
+    t0 = time.time()
+    two_ranks_phase(mods, api, studies, one_rank)
+    log("(s2) phase: %.1f s" % (time.time() - t0))
+    for label in DENSE_PATHS:
+        t0 = time.time()
+        dense_phase(label, mods, api, studies)
+        log("(s3) %s phase: %.1f s" % (label, time.time() - t0))
+
+
 def roofline_part(mods):
     """Parts 4 and 5: the op-mix kernel against its plain version, the
     op-mix ceilings between reset and read of every counter, and the vgh
@@ -2340,6 +2722,10 @@ def main(labels):
         t0 = time.time()
         rows += inference_part(mods, api)
         log("inference part: %.1f s" % (time.time() - t0))
+    if not labels or 'sharding' in labels:
+        t0 = time.time()
+        sharding_part(mods, api, studies)
+        log("sharding part: %.1f s" % (time.time() - t0))
     if not labels:
         t0 = time.time()
         rows += roofline_part(mods)

@@ -1174,3 +1174,91 @@ def test_source_wise_study_matches_global(cuda_device, kind):
                  _errors(glob.compiled, fg.names, fg.x, data), t, tg)
     _same_optima(cond.x, cond.max_ll, cg.x, cg.max_ll,
                  _errors(glob.compiled, cg.names, cg.x, data, [target]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("outlier", [0.0, 1e-12])
+@pytest.mark.parametrize("case", sorted(UNBINNED))
+def test_dense_ops_match_plain(cuda_device, case, outlier):
+    """The dense unbinned engine's ops (``torch.bmm`` over ``ps[lanes]``,
+    no kernel of their own) against the plain closed forms on the card,
+    float32: ll relative 1e-5, g and H within 1e-4 of each toy's largest
+    entry; no kernel launched."""
+    from blueice_tpu_torch.ops import unbinned_dense
+    vgh_args, ll_args = _unbinned_inputs(case, outlier, cuda_device)
+    _reset_launches()
+    for args, dense, plain in (
+            (vgh_args, unbinned_dense.unbinned_vgh_dense,
+             fused_unbinned.unbinned_vgh_plain),
+            (ll_args, unbinned_dense.unbinned_ll_dense_many,
+             fused_unbinned.unbinned_ll_plain)):
+        ps, strides, lanes, idx, t, m, mask, inv_ref, moff, outl = args
+        ref_msum = m.sum(-1) - moff
+        out = dense(ps, strides, idx, t, m, mask, outl, inv_ref, ref_msum,
+                    lanes=lanes)
+        want = plain(ps, strides, lanes, idx, t, m, mask, inv_ref,
+                     (m.sum(-1) - ref_msum).contiguous(), outl)
+        torch.cuda.synchronize()
+        if isinstance(out, tuple):
+            assert out[0].device.type == 'cuda'
+            np.testing.assert_allclose(out[0].cpu(), want[0].cpu(),
+                                       rtol=1e-5)
+            assert _rel_to_toy_max(out[1], want[1]) < 1e-4
+            assert _rel_to_toy_max(out[2], want[2]) < 1e-4
+        else:
+            assert out.shape == (len(U_LANES), UA)
+            np.testing.assert_allclose(out.cpu(), want.cpu(), rtol=1e-5)
+    assert not any(_counted_launches().values())
+
+
+@pytest.mark.cuda
+def test_one_rank_mesh_on_the_card(cuda_device):
+    """A one-process mesh on the card is no mesh, bit for bit, and the
+    study's kernels launch under it."""
+    from blueice_tpu_torch.examples import xenon_like
+    from blueice_tpu_torch.parallel import BinnedToyStudy, make_mesh
+    from blueice_tpu_torch.utils import set_progress
+    set_progress(False)
+    study = BinnedToyStudy(xenon_like.build_likelihood('binned', **SMALL))
+    target = 'wimp_rate_multiplier'
+    t, free, cond = study.profile_ts(0, 32, target, 1.0)
+    _reset_launches()
+    t2, free2, cond2 = study.profile_ts(0, 32, target, 1.0, mesh=make_mesh())
+    torch.cuda.synchronize()
+    assert _counted_launches()['binned_vgh_fused'] > 0
+    for a, b in ((t, t2), (free.x, free2.x), (free.max_ll, free2.max_ll),
+                 (cond.max_ll, cond2.max_ll)):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_the_card(cuda_device):
+    """Two ranks spawned on the one card (gloo) profile 16 xenon toys at
+    full width: both hold the same arrays, they drew the single process's
+    toys, each launched the binned kernels and no other, and their fits
+    agree with one process's (max |d max_ll| <= 0.05, median |d t| <=
+    0.01)."""
+    from blueice_tpu_torch import dryrun
+    from blueice_tpu_torch.parallel import BinnedToyStudy
+    from blueice_tpu_torch.utils import set_progress
+    set_progress(False)
+    for module in (fused, fused_bb, fused_bb_lite, fused_unbinned):
+        module.load_library()           # built before the ranks start
+    kw = dict(max_iter=96, tol=3e-4)
+    results = dryrun.run_ranks(2, dict(runs=[dict(
+        model='xenon', seed=0, n_toys=16)], study=kw), 'cuda', timeout=600)
+    dryrun.same_on_every_rank(results)
+    for res in results:
+        launches = res['runs'][0]['launches']
+        assert launches['binned_vgh_fused'] > 0
+        assert launches['binned_ll_fused_multi'] > 0
+        assert sum(launches.values()) == (launches['binned_vgh_fused']
+                                          + launches['binned_ll_fused_multi'])
+    study = BinnedToyStudy(dryrun.flagship_likelihood('xenon'), **kw)
+    run = results[0]['runs'][0]
+    assert run['digest'] == dryrun.ensemble_digest(study.simulate(0, 16))
+    t, free, cond = study.profile_ts(0, 16, 'wimp_rate_multiplier', 1.0)
+    d_ll = np.maximum(np.abs(np.asarray(run['free_ll']) - free.max_ll),
+                      np.abs(np.asarray(run['cond_ll']) - cond.max_ll))
+    assert d_ll.max() <= 0.05
+    assert np.median(np.abs(np.asarray(run['t']) - t)) <= 0.01

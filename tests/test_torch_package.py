@@ -43,6 +43,9 @@ def test_imports_without_jax():
         'coverage', 'gof', 'ranking', 'mcmc')} <= set(modules)
     assert {'blueice_tpu_torch.inference',
             'blueice_tpu_torch.models.jax_source'} <= set(modules)
+    assert {'blueice_tpu_torch.parallel.distributed',
+            'blueice_tpu_torch.dryrun',
+            'blueice_tpu_torch.ops.unbinned_dense'} <= set(modules)
     code = textwrap.dedent("""
         import importlib, sys
         sys.modules['jax'] = None
@@ -157,7 +160,8 @@ def test_not_ported_features_say_so(lf):
         build_likelihood('binned', bb='bb_full', **SIZE)
     with pytest.raises(ValueError, match='blob templates'):
         build_likelihood('binned', bb=True, jax_templates=True, **SIZE)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    # mesh= is ported (a ToyMesh); anything else is refused
+    with pytest.raises(TypeError, match='ToyMesh'):
         BinnedToyStudy(lf, device='cpu').simulate(0, 2, mesh=object())
     with pytest.raises(NotImplementedError, match="'fused', 'ad'"):
         make_toy_fitter(lf.make_logl(device='cpu'), engine='pallas')

@@ -382,5 +382,10 @@ def test_measuring_functions_need_cuda(name):
 
 
 def test_measure_unbinned_jnp_is_not_ported():
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    """The probe of the dense unbinned engine, a stub until that engine
+    was ported, now measures like the other probes: on a CUDA device, and
+    without one it raises naming CUDA."""
+    if torch.cuda.is_available():
+        pytest.skip("runs without CUDA")
+    with pytest.raises(RuntimeError, match='CUDA'):
         roofline.measure_unbinned_jnp()

@@ -286,5 +286,6 @@ def test_default_device_is_the_card(xenon, small):
         with pytest.raises(TypeError, match='missing'):
             getattr(study, name)()
     assert not hasattr(study, 'observed_counts')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    # mesh= is ported (a ToyMesh); anything else is refused
+    with pytest.raises(TypeError, match='ToyMesh'):
         study.simulate(0, 2, mesh=object())
