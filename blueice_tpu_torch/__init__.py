@@ -10,7 +10,7 @@ likelihood ops as hand-written CUDA kernels for Hopper (``ops/fused*.py``,
 ``csrc/``). Entry points compile onto the CUDA device unless the caller
 asks for the CPU with ``device='cpu'``.
 
-What is ported and what is still to come is listed in ROADMAP.md.
+It does all the JAX package does; ROADMAP.md lists the follow-ups.
 """
 
 __version__ = '0.1.0'

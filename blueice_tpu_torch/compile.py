@@ -1,10 +1,12 @@
 """Lower a prepared likelihood to torch tensors on one device.
 
-Counterpart of :mod:`blueice_tpu.compile` for the global-grid branch of
-``build_logl``: binned, with its Beeston-Barlow modes ('bb_single',
-'bb_lite') and geometric (log) template morphing, and extended unbinned,
-data-bound or data-free (the toy studies supply each toy's per-event density
-tensor at call time); and for the compositions of
+Counterpart of :mod:`blueice_tpu.compile`: binned, with its Beeston-Barlow
+modes ('bb_single', 'bb_lite') and geometric (log) template morphing, and
+extended unbinned, data-bound or data-free (the toy studies supply each toy's
+per-event density tensor at call time), morphed over a global anchor grid,
+source by source, or over the scattered anchors of a
+:class:`~blueice_tpu_torch.morphers.RadialInterpolator`; and for the
+compositions of
 :mod:`blueice_tpu_torch.composition` (:func:`build_logl_sum`,
 :func:`build_logl_reparam`, :func:`build_logl_ancillary`). The anchor tensors
 move to the device once, and every evaluation (morphing, rate multipliers,
@@ -12,9 +14,10 @@ efficiencies, priors, physicality, the finite-MC adjustment, the Poisson or
 extended reduction) is torch on that device. Out-of-bounds and unphysical
 parameter points return -inf like the host path. The compiled object also
 carries the metadata the closed-form fit engines read (anchor tensors and
-arrays, names, priors).
-
-Exposing the livetime as a parameter is ROADMAP queue 1 item 16c.
+arrays, names, priors). With ``include_livetime`` the live time is a
+parameter, ``livetime_days``, which scales every source's rate (a Sum shares
+one joint live time among the children that compiled with it); fits never
+float it.
 """
 
 import warnings
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 
 from .device import resolve
+from .morphers import radial_weights
 from .ops.bb_lite import bb_lite_logl
 from .ops.beeston_barlow import bb_single_adjust
 from .ops.interp import (cell_rows, clip, corner_offsets, corner_weights,
@@ -49,19 +53,20 @@ def build_logl(lf, dtype=None, device=None, include_livetime=False,
     :param dtype: tensor dtype (None: float32 on CUDA, float64 on the CPU).
     :param device: torch device (None: the CUDA device, raising without
       CUDA; 'cpu' for the CPU).
+    :param include_livetime: expose 'livetime_days' as a parameter (its
+      default the base config's live time, which must be present and
+      nonzero; bounds (0, inf)), scaling every source's rate.
     :param with_priors: include rate/shape log-prior terms.
     :return: :class:`CompiledLogLikelihood`.
     """
     from .convert import state_from_reference, build_logl_from_state
-    if include_livetime:
-        raise NotImplementedError(
-            "include_livetime is not ported yet (ROADMAP queue 1 item 16c)")
     if hasattr(lf, 'is_prepared') and not lf.is_prepared:
         if len(lf.shape_parameters):
             raise RuntimeError("Call prepare() before compiling the likelihood")
         lf.prepare()
     return build_logl_from_state(state_from_reference(lf), device=device,
-                                 dtype=dtype, with_priors=with_priors)
+                                 dtype=dtype, with_priors=with_priors,
+                                 include_livetime=include_livetime)
 
 
 def cached_logl(lf, device=None, dtype=None):
@@ -92,27 +97,33 @@ def _build_composition(lf, name, **opts):
     return build_logl(lf, **opts)
 
 
-def build_logl_sum(sum_lf, dtype=None, device=None, with_priors=True):
+def build_logl_sum(sum_lf, dtype=None, device=None, include_livetime=False,
+                   with_priors=True):
     """Compile a LogLikelihoodSum: each child compiles on its own anchor
     tensors; the joint logl routes parameters by name and adds the weighted
     child terms (:class:`CompiledLogLikelihoodSum`)."""
     return _build_composition(sum_lf, 'LogLikelihoodSum', dtype=dtype,
-                              device=device, with_priors=with_priors)
+                              device=device, include_livetime=include_livetime,
+                              with_priors=with_priors)
 
 
-def build_logl_reparam(rp, dtype=None, device=None, with_priors=True):
+def build_logl_reparam(rp, dtype=None, device=None, include_livetime=False,
+                       with_priors=True):
     """Compile a LogLikelihoodReParam: the wrapped likelihood compiles as
     usual and the parameter transform runs in front of it
     (:class:`CompiledReParam`)."""
     return _build_composition(rp, 'LogLikelihoodReParam', dtype=dtype,
-                              device=device, with_priors=with_priors)
+                              device=device, include_livetime=include_livetime,
+                              with_priors=with_priors)
 
 
-def build_logl_ancillary(anc, dtype=None, device=None, with_priors=True):
+def build_logl_ancillary(anc, dtype=None, device=None, include_livetime=False,
+                         with_priors=True):
     """Compile a LogAncillaryLikelihood, whose func must compute with torch
-    tensors (:class:`CompiledAncillary`)."""
+    tensors (:class:`CompiledAncillary`; it has no live time)."""
     return _build_composition(anc, 'LogAncillaryLikelihood', dtype=dtype,
-                              device=device, with_priors=with_priors)
+                              device=device, include_livetime=include_livetime,
+                              with_priors=with_priors)
 
 
 class CompiledLogLikelihood:
@@ -140,18 +151,36 @@ class CompiledLogLikelihood:
         anchor tensor, and masses_host (*grid, S) its per-anchor template
         masses (float64 numpy; ``mass_tensor`` on the device), which the
         morph's linear mass rescale lerps.
+      radial: for scattered anchors (a RadialInterpolator; anchor_arrays
+        None), the anchors' tensors on the device (``normed``, ``mins``,
+        ``lengths``, ``r_influence``); the payloads' leading axis indexes
+        the anchors. None on a grid.
+      base_livetime: with ``include_livetime``, the live time the rates
+        were built for ('livetime_days' scales them by its ratio to it);
+        else None.
     """
 
     #: dataset-free terms (ancillary constraints) have none
     has_data = True
 
-    def __init__(self, state, device=None, dtype=None, with_priors=True):
+    def __init__(self, state, device=None, dtype=None, with_priors=True,
+                 include_livetime=False):
         self.device, self.dtype = resolve(device, dtype)
         self.shape_names = list(state['shape_names'])
         self.rate_names = list(state['rate_names'])
         self.param_names = self.rate_names + self.shape_names
         self.defaults = OrderedDict(state['defaults'])
         self.bounds = OrderedDict(state['bounds'])
+        self.base_livetime = None
+        if include_livetime:
+            base = state.get('base_livetime')
+            if not base:
+                raise ValueError("Cannot expose livetime_days: base livetime "
+                                 "is absent or zero")
+            self.base_livetime = float(base)
+            self.defaults['livetime_days'] = float(base)
+            self.bounds['livetime_days'] = (0.0, float('inf'))
+            self.param_names = self.param_names + ['livetime_days']
         self.registered = list(state['registered'])
         self.allowed_negative = np.asarray(state['allow_negative'], bool)
         self.apply_eff = np.asarray(state['apply_efficiency'], bool)
@@ -167,6 +196,10 @@ class CompiledLogLikelihood:
         self.anchor_arrays = (None if state['anchor_arrays'] is None
                               else [np.asarray(a, dtype=float)
                                     for a in state['anchor_arrays']])
+        radial = state.get('radial')
+        self.radial = None if radial is None else {
+            k: self._tensor(radial[k])
+            for k in ('normed', 'mins', 'lengths', 'r_influence')}
         self.prior_terms = ([(name, PRIORS[kind](*numbers))
                              for name, kind, numbers in state['priors']]
                             if with_priors else [])
@@ -273,9 +306,15 @@ class CompiledLogLikelihood:
         without shape parameters), with a memo of the cells
         (:meth:`_cell`) that the point's payloads read: made once a point
         for every payload morphed there (rates, templates, MC counts,
-        every source of a source-wise build)."""
+        every source of a source-wise build). For scattered anchors, the
+        (n_anchors,) radial weights
+        (:func:`~blueice_tpu_torch.morphers.radial_weights`)."""
         if zs is None:
             return None
+        if self.radial is not None:
+            r = self.radial
+            return radial_weights(zs, r['normed'], r['mins'], r['lengths'],
+                                  r['r_influence'])
         idx, ts = morph_weights(self._param_anchors, zs)
         return idx, ts, {}
 
@@ -298,6 +337,9 @@ class CompiledLogLikelihood:
         if self.source_wise is None:
             if w is None:
                 return tensor
+            if self.radial is not None:
+                dtype = torch.promote_types(w.dtype, tensor.dtype)
+                return torch.tensordot(w.to(dtype), tensor.to(dtype), dims=1)
             K = len(self.shape_names)
             return morph_rows(tensor, K, *self._cell(w, range(K)))
         return torch.stack([
@@ -321,7 +363,8 @@ class CompiledLogLikelihood:
                                 for d, g in zip(data, self._source_grids())],
                                w)
         data = data if torch.is_tensor(data) else self._tensor(data)
-        grid = tuple(len(a) for a in self.anchor_arrays)
+        grid = ((self.radial['normed'].shape[0],) if self.radial is not None
+                else tuple(len(a) for a in self.anchor_arrays))
         return self._morph(data.reshape(grid + tuple(data.shape[-2:])), w)
 
     def _morph_ps(self, ps, w):
@@ -338,14 +381,17 @@ class CompiledLogLikelihood:
 
     def _mus_at(self, params, w, dtype=None):
         """Per-source expected counts: base rates at the weights ``w``,
-        scaled by rate multipliers and applied efficiencies (the analytic
-        engines' rates follow the same pipeline); with ``dtype`` float64,
-        from the float64 rate payload."""
+        scaled by rate multipliers, the live time and applied efficiencies
+        (the analytic engines' rates follow the same pipeline); with
+        ``dtype`` float64, from the float64 rate payload."""
         mus = self._morph(self._mus64 if dtype == torch.float64
                           else self.mus_tensor, w)
         mults = torch.stack([self._value(params[rn], dtype)
                              for rn in self.rate_names])
         mus = mus * mults
+        if self.base_livetime is not None:
+            mus = mus * (self._value(params['livetime_days'], dtype)
+                         / self.base_livetime)
         if self.apply_eff.any():
             effs = torch.stack([
                 self._value(params[self.eff_names[i]], dtype)
@@ -505,17 +551,24 @@ class CompiledLogLikelihoodSum(_CompiledComposition):
         declares. A joint parameter a child does not declare keeps that
         child's default there (the host Sum's routing).
       A dataset is a tuple, one entry per child (an empty tensor for a
-      dataset-free child).
+      dataset-free child). With ``include_livetime`` every child that
+      compiled with it shares the one joint 'livetime_days'.
     """
 
-    def __init__(self, state, device=None, dtype=None, with_priors=True):
+    def __init__(self, state, device=None, dtype=None, with_priors=True,
+                 include_livetime=False):
         from .convert import build_logl_from_state
         self.device, self.dtype = resolve(device, dtype)
         self.children = [build_logl_from_state(
-            c, device=self.device, dtype=self.dtype, with_priors=with_priors)
+            c, device=self.device, dtype=self.dtype, with_priors=with_priors,
+            include_livetime=include_livetime)
             for c in state['children']]
         self.child_weights = [float(w) for w in state['weights']]
-        self.child_routed = [frozenset(r) for r in state['routed']]
+        # livetime is not a declared parameter: route the joint one to every
+        # child that compiled with it
+        self.child_routed = [
+            frozenset(r) | ({'livetime_days'} & set(c.param_names))
+            for r, c in zip(state['routed'], self.children)]
         self.registered = list(state['registered'])
         self.defaults, self.bounds = OrderedDict(), OrderedDict()
         self.param_names = []
@@ -592,14 +645,15 @@ class CompiledReParam(_CompiledComposition):
     (``parallel.fitter``): there is no anchor grid in the new
     parameters."""
 
-    def __init__(self, state, device=None, dtype=None, with_priors=True):
+    def __init__(self, state, device=None, dtype=None, with_priors=True,
+                 include_livetime=False):
         from .composition import ParameterTransform
         from .convert import build_logl_from_state
         from .exceptions import InvalidParameter
         self.device, self.dtype = resolve(device, dtype)
         self.child = child = build_logl_from_state(
             state['child'], device=self.device, dtype=self.dtype,
-            with_priors=with_priors)
+            with_priors=with_priors, include_livetime=include_livetime)
         self.transform = ParameterTransform(state['targets'],
                                             state['base_values'])
         targets = set(self.transform.targets)
@@ -661,7 +715,8 @@ class CompiledAncillary(_CompiledComposition):
 
     has_data = False
 
-    def __init__(self, state, device=None, dtype=None, with_priors=True):
+    def __init__(self, state, device=None, dtype=None, with_priors=True,
+                 include_livetime=False):
         self.device, self.dtype = resolve(device, dtype)
         self.param_names = list(state['parameters'])
         self.defaults = OrderedDict(state['defaults'])

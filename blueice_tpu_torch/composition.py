@@ -35,6 +35,17 @@ __all__ = ['LogLikelihoodSum', 'LogLikelihoodReParam',
 RATE_SUFFIX = '_rate_multiplier'
 
 
+class _HostState:
+    """Pickles without the device cache of
+    :func:`blueice_tpu_torch.compile.cached_logl` (tensors on a device are
+    never pickled; the next fit compiles anew)."""
+
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        state.pop('_torch_compiled_for_fit', None)
+        return state
+
+
 def declared_parameter_names(lf):
     """The flat parameter names a likelihood responds to: its rate multipliers
     (with suffix) and its shape parameters."""
@@ -42,7 +53,7 @@ def declared_parameter_names(lf):
             + list(lf.shape_parameters))
 
 
-class LogLikelihoodSum:
+class LogLikelihoodSum(_HostState):
     """Several likelihoods fitted jointly as one term.
 
     Parameters are routed by name: a kwarg reaches exactly the children that
@@ -177,7 +188,7 @@ class ParameterTransform:
         return out
 
 
-class LogLikelihoodReParam:
+class LogLikelihoodReParam(_HostState):
     """A likelihood under new parameters.
 
     ``conv_config`` declares (a) target rate multipliers of the wrapped
@@ -298,7 +309,7 @@ class LogLikelihoodReParam:
             rate_multipliers=multipliers, livetime_days=livetime_days)
 
 
-class LogAncillaryLikelihood:
+class LogAncillaryLikelihood(_HostState):
     """An analytic constraint term with the standard likelihood interface, for
     composition via :class:`LogLikelihoodSum`.
 

@@ -22,17 +22,16 @@ __all__ = ['state_from_reference', 'build_logl_from_state']
 
 
 def _prior_state(name, prior):
-    """(kind, numbers) of a Normal/Uniform prior of either package."""
+    """(kind, numbers) of a Normal/Uniform prior of either package; any
+    other log prior is carried as it is ('callable'), and must compute
+    with torch tensors (:class:`~blueice_tpu_torch.priors.TensorPrior`)."""
     kind = {'NormalPrior': 'normal', 'UniformPrior': 'uniform'}.get(
         type(prior).__name__)
     if kind == 'normal':
         return kind, (float(prior.mu), float(prior.sigma))
     if kind == 'uniform':
         return kind, (float(prior.lo), float(prior.hi))
-    raise TypeError(
-        "The log prior of parameter %r (%r) cannot be compiled: use "
-        "NormalPrior or UniformPrior (other priors are ROADMAP queue 1 "
-        "item 16c)" % (name, prior))
+    return 'callable', (prior,)
 
 
 def _is_a(lf, name):
@@ -109,13 +108,29 @@ def _source_wise_state(lf, mus_builds, ps_builds):
             continue
         if type(morpher).__name__ != 'GridInterpolator':
             raise NotImplementedError(
-                "%s template morphing is not ported yet (ROADMAP queue 1 "
-                "item 16c)" % type(morpher).__name__)
+                "source_wise_interpolation requires a deterministic anchor "
+                "grid per source (morpher 'GridInterpolator'), not %s"
+                % type(morpher).__name__)
         source_wise.append(dict(
             shape_idx=[int(i) for i in lf._get_shape_indices(sn)],
             anchor_arrays=[np.asarray(a, dtype=float)
                            for a in morpher.anchor_z_arrays]))
     return mus, ps, source_wise
+
+
+def _radial_state(morpher):
+    """The scattered anchors of a RadialInterpolator of either package: in
+    the order its payloads are stacked (``anchors``), bounds-normalized
+    (``normed``), the bounds' ``mins`` and ``lengths``, and each anchor's
+    decay length (``r_influence``: its r0 times ``decay_multiplier``)."""
+    decay = float(morpher.config.get('decay_multiplier', 5))
+    return dict(anchors=np.asarray(morpher._anchor_order, dtype=float),
+                normed=np.asarray(morpher._normed_model_zs, dtype=float),
+                mins=np.asarray(morpher._mins, dtype=float),
+                lengths=np.asarray(morpher._lengths, dtype=float),
+                r0s=np.asarray(morpher._r0s, dtype=float),
+                decay_multiplier=decay,
+                r_influence=np.asarray(morpher._r0s, dtype=float) * decay)
 
 
 def state_from_reference(lf):
@@ -149,7 +164,11 @@ def state_from_reference(lf):
       source-wise build (``anchor_arrays`` None), per source its
       ``shape_idx`` and ``anchor_arrays``, or None for an unmorphed
       source, with ``mus`` and ``ps`` lists of per-source payloads
-      (:func:`_source_wise_state`); else None.
+      (:func:`_source_wise_state`); else None; ``radial``: for a
+      RadialInterpolator's scattered anchors (``anchor_arrays`` None, the
+      payloads' leading axis the anchors), :func:`_radial_state`, else
+      None; ``base_livetime``: the base config's ``livetime_days`` (None
+      without one), which ``include_livetime`` scales from.
     """
     for name, reader in (('LogLikelihoodSum', _sum_state),
                          ('LogLikelihoodReParam', _reparam_state),
@@ -175,6 +194,7 @@ def state_from_reference(lf):
                     if lf.source_wise_interpolation
                     else ('global', lf.morpher, None))
     log_morph = False
+    radial = None
     if ps_build[0] == 'source_wise':
         mus, ps, source_wise = _source_wise_state(lf, lf._builds['mus'][1],
                                                   ps_build[1])
@@ -183,24 +203,25 @@ def state_from_reference(lf):
         morpher = ps_build[1]
         if type(morpher).__name__ == 'LogMorpher':
             morpher, log_morph = morpher.inner, True
-        if type(morpher).__name__ != 'GridInterpolator':
-            raise NotImplementedError(
-                "%s template morphing is not ported yet (ROADMAP queue 1 "
-                "item 16c)" % type(morpher).__name__)
         mus = np.asarray(lf._builds['mus'][2], dtype=float)
         ps = None if ps_build[2] is None else np.asarray(ps_build[2],
                                                          dtype=float)
-        anchor_arrays = [np.asarray(a, dtype=float)
-                         for a in morpher.anchor_z_arrays]
+        if type(morpher).__name__ == 'RadialInterpolator':
+            radial, anchor_arrays = _radial_state(morpher), None
+        elif type(morpher).__name__ == 'GridInterpolator':
+            anchor_arrays = [np.asarray(a, dtype=float)
+                             for a in morpher.anchor_z_arrays]
+        else:
+            raise TypeError("Cannot read the %s morpher: expected a "
+                            "GridInterpolator or a RadialInterpolator"
+                            % type(morpher).__name__)
     elif ps_build[0] == 'constant':
         mus = np.asarray(lf.base_model.expected_events(), dtype=float)
         ps = None if ps_build[1] is None else np.asarray(ps_build[1],
                                                          dtype=float)
         anchor_arrays = []
     else:
-        raise NotImplementedError(
-            "%r template builds are not ported yet (ROADMAP queue 1 item 16c)"
-            % (ps_build[0],))
+        raise ValueError("Unknown build kind %r" % (ps_build[0],))
 
     rate_names = [sn + '_rate_multiplier' for sn in source_names]
     defaults = OrderedDict()
@@ -231,8 +252,8 @@ def state_from_reference(lf):
     masses = None
     if log_morph:
         # The linear mass rescale's anchor masses, from the full template
-        masses = np.exp(ps.reshape(ps.shape[:len(anchor_arrays) + 1]
-                                   + (-1,))).sum(axis=-1)
+        lead = 2 if radial is not None else len(anchor_arrays) + 1
+        masses = np.exp(ps.reshape(ps.shape[:lead] + (-1,))).sum(axis=-1)
 
     mode = getattr(lf, 'model_statistical_uncertainty_handling', None)
     nme = bb_source_i = None
@@ -259,16 +280,20 @@ def state_from_reference(lf):
         apply_efficiency=[bool(a) for a in lf.source_apply_efficiency],
         efficiency_names=[str(e) for e in lf.source_efficiency_names],
         data=data, mode=mode, nme=nme, bb_source_i=bb_source_i,
-        log_morph=log_morph, masses=masses, source_wise=source_wise)
+        log_morph=log_morph, masses=masses, source_wise=source_wise,
+        radial=radial, base_livetime=lf.pdf_base_config.get('livetime_days'))
 
 
-def build_logl_from_state(state, device=None, dtype=None, with_priors=True):
+def build_logl_from_state(state, device=None, dtype=None, with_priors=True,
+                          include_livetime=False):
     """The port's compiled likelihood from a :func:`state_from_reference`
     state, its tensors on ``device`` in ``dtype`` (see
-    :func:`blueice_tpu_torch.device.resolve`)."""
+    :func:`blueice_tpu_torch.device.resolve`), with 'livetime_days' as a
+    parameter when ``include_livetime``."""
     from . import compile as c
     cls = {'sum': c.CompiledLogLikelihoodSum,
            'reparam': c.CompiledReParam,
            'ancillary': c.CompiledAncillary}.get(state.get('kind'),
                                                  c.CompiledLogLikelihood)
-    return cls(state, device=device, dtype=dtype, with_priors=with_priors)
+    return cls(state, device=device, dtype=dtype, with_priors=with_priors,
+               include_livetime=include_livetime)

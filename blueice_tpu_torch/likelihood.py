@@ -34,8 +34,11 @@ The binned likelihood also morphs its templates geometrically
 The compositions (sum, re-parametrisation, ancillary terms) live in
 :mod:`blueice_tpu_torch.composition` and are re-exported here.
 
-Not ported yet (raises ``NotImplementedError`` naming ROADMAP item 16c):
-parallel template builds.
+``prepare(n_cores=...)`` fans the anchor templates out over a process pool
+through content-addressed task files (:mod:`blueice_tpu_torch.parallel.tasks`),
+or over an ipyparallel client. A prepared likelihood pickles with the stdlib
+pickle: its host interpolators are dropped on dump and rebuilt from
+``self._builds`` on load.
 """
 
 from collections import OrderedDict
@@ -87,8 +90,15 @@ def _needs_data(f):
     return wrapper
 
 
+def _no_n_model_events(zs):
+    """Default n_model_events interpolator (no MC-statistics handling). A
+    module-level function, not a lambda, so likelihoods pickle."""
+    return None
+
+
 def _global_host_interpolator(morpher, tensor):
-    """Host interpolator over a stacked anchor tensor (a 'global' build)."""
+    """Host interpolator over a stacked anchor tensor (a 'global' build),
+    rebuilt from its (morpher, tensor) payload after unpickling."""
     def interpolator(zs):
         return np.asarray(morpher.host_eval(tensor, np.asarray(zs)))
     return interpolator
@@ -98,10 +108,12 @@ class LogLikelihoodBase:
     """Log likelihood function with rate and/or shape nuisance parameters.
 
     likelihood_config options:
-        morpher ('GridInterpolator', the only one ported), morpher_config,
+        morpher (default 'GridInterpolator'; 'RadialInterpolator'),
+        morpher_config,
         template_interpolation ('linear' default; 'log' for positive-definite
           geometric template morphing, binned only — see morphers.LogMorpher),
-        unphysical_behaviour ('error' to raise instead of returning -inf).
+        unphysical_behaviour ('error' to raise instead of returning -inf),
+        block_during_paralellization (ipyparallel builds).
     """
 
     #: Whether this class can morph its density payload geometrically
@@ -118,10 +130,6 @@ class LogLikelihoodBase:
                                              deep_copy=True)
         self.config = likelihood_config if likelihood_config is not None else {}
         self.config.setdefault('morpher', 'GridInterpolator')
-        if self.config['morpher'] not in MORPHERS:
-            raise NotImplementedError(
-                "morpher %r is not ported yet (ROADMAP queue 1 item 16c); "
-                "use 'GridInterpolator'" % (self.config['morpher'],))
         self.template_interpolation = self.config.get(
             'template_interpolation', 'linear')
         if self.template_interpolation not in ('linear', 'log'):
@@ -172,7 +180,7 @@ class LogLikelihoodBase:
         self.anchor_sources = OrderedDict()   # source -> zs tuple -> Source
         self.mus_interpolator = None
         self.ps_interpolator = None
-        self.n_model_events_interpolator = None
+        self.n_model_events_interpolator = _no_n_model_events
 
         # Stacked anchor tensors for the device path (set by prepare):
         #   dict payload_name -> ('global', morpher, tensor)
@@ -222,13 +230,11 @@ class LogLikelihoodBase:
         """Build the anchor models for every shape-parameter anchor
         combination and stack their rate payloads into the mus anchor tensor.
 
-        :param n_cores: only 1 is ported (parallel template builds are ROADMAP
-          queue 1 item 16c).
+        :param n_cores: >1 fans the template computations out over a process
+          pool through content-addressed task files
+          (:func:`blueice_tpu_torch.parallel.tasks.compute_many`).
+        :param ipp_client: optional ipyparallel client for a cluster fan-out.
         """
-        if n_cores != 1 or ipp_client is not None:
-            raise NotImplementedError(
-                "parallel template builds (n_cores > 1, ipp_client) are not "
-                "ported yet (ROADMAP queue 1 item 16c)")
         if len(self.shape_parameters):
             if self.source_wise_interpolation:
                 zs_list = self._prepare_source_wise_anchors()
@@ -245,10 +251,16 @@ class LogLikelihoodBase:
                 for i, (setting_name, (anchors, _, _)) in enumerate(
                         self.shape_parameters.items()):
                     if zs[i] is not None:
+                        # scattered-anchor morphers (RadialInterpolator)
+                        # sample z values that are not anchor-dict keys: for
+                        # a numeric setting the z is the setting
                         config[setting_name] = anchors.get(zs[i], zs[i])
+                if ipp_client is None and n_cores != 1:
+                    # the workers compute the templates from task files
+                    config['delay_pdf_computation'] = True
                 configs.append(config)
 
-            models = self._build_models(configs)
+            models = self._build_models(configs, n_cores, ipp_client)
             if self.source_wise_interpolation:
                 self._finalize_source_wise(zs_list, models)
             else:
@@ -265,15 +277,41 @@ class LogLikelihoodBase:
         self.is_prepared = True
         self._build_version += 1
 
-    def _build_models(self, configs):
+    def _build_models(self, configs, n_cores=1, ipp_client=None):
         from .utils.progress import progress_iter
         # Sources with a closed-form density: build ALL their anchor
         # templates in one batched device call per source and seed the
         # caches the host build hits below
         from .models.jax_source import prefill_anchor_templates
         prefill_anchor_templates(configs)
+        if ipp_client is not None:
+            from .parallel.tasks import create_models_ipyparallel
+            return create_models_ipyparallel(
+                configs, ipp_client,
+                block=self.config.get('block_during_paralellization', False))
+        if n_cores == 1:
+            return [Model(c) for c in progress_iter(
+                configs, desc="Computing/loading anchor models")]
+        # Pass 1 writes task files; workers compute; pass 2 loads from cache
+        from .parallel.tasks import compute_many
+        models = [Model(c) for c in progress_iter(
+            configs, desc="Writing anchor-model task files")]
+        # Fan the pending hashes out per (task_dir, cache_dir) pair: sources
+        # may use different directories, and a task computed into another
+        # directory would be missed. A source found in a cache (this
+        # process's or the directory's) wrote no task and is not pending
+        by_dirs = OrderedDict()
+        for m in models:
+            for s in m.sources:
+                if s.from_cache:
+                    continue
+                key = (s.config['task_dir'], s.config['cache_dir'])
+                by_dirs.setdefault(key, set()).add(s.hash)
+        for (task_dir, cache_dir), hashes in by_dirs.items():
+            compute_many(sorted(hashes), n_cores,
+                         task_dir=task_dir, result_dir=cache_dir)
         return [Model(c) for c in progress_iter(
-            configs, desc="Computing/loading anchor models")]
+            configs, desc="Loading computed anchor models")]
 
     def _prepare_source_wise_anchors(self):
         """Create the per-source morphers; return the union of the model
@@ -349,6 +387,48 @@ class LogLikelihoodBase:
         tensor)."""
         tensor = np.asarray(morpher.build_tensor(f, extra_dims, anchor_models))
         return _global_host_interpolator(morpher, tensor), tensor
+
+    # -- pickling ----------------------------------------------------------------
+    # The host interpolators are closures over (morpher, tensor) payloads
+    # that are picklable and already kept in self._builds: drop the closures
+    # on dump and rebuild them on load. The device cache of
+    # compile.cached_logl holds tensors on a device and is never pickled.
+
+    _UNPICKLED_ATTRS = ('mus_interpolator', 'ps_interpolator',
+                        'n_model_events_interpolator',
+                        '_torch_compiled_for_fit')
+
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        for k in self._UNPICKLED_ATTRS:
+            state.pop(k, None)
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self.mus_interpolator = None
+        self.ps_interpolator = None
+        self.n_model_events_interpolator = _no_n_model_events
+        self._rebuild_host_interpolators()
+
+    def _rebuild_host_interpolators(self):
+        """The interpolator closures of the stored builds, as prepare() and
+        set_data() made them."""
+        for name, build in self._builds.items():
+            kind = build[0]
+            if kind == 'constant':
+                continue      # self.ps / self.n_model_events carry it
+            if kind == 'global':
+                interp = _global_host_interpolator(build[1], build[2])
+            else:
+                interp = self._source_wise_interpolator(
+                    build[1], scalar=name == 'mus')
+            if name == 'mus':
+                self.mus_interpolator = interp
+            elif name == 'ps':
+                self.ps_interpolator = interp
+            elif name == 'n_model_events':
+                self.n_model_events_interpolator = interp
 
     # -- data --------------------------------------------------------------------
 
@@ -471,8 +551,7 @@ class LogLikelihoodBase:
             zs = np.asarray(zs, dtype=float)
             mus = np.array(self.mus_interpolator(zs), dtype=float)
             ps = self.ps_interpolator(zs)
-            n_model_events = (None if self.n_model_events_interpolator is None
-                              else self.n_model_events_interpolator(zs))
+            n_model_events = self.n_model_events_interpolator(zs)
         else:
             mus = np.array(self.base_model.expected_events(), dtype=float)
             ps = self.ps

@@ -1,13 +1,14 @@
 """Morphers: interpolate model-valued functions between shape-parameter
 anchors.
 
-Counterpart of :mod:`blueice_tpu.morphers` for the slice the port runs: the
-:class:`GridInterpolator` (full cartesian anchor grid, multilinear
-interpolation) and :class:`LogMorpher`, geometric (log) template morphing
-around it. A morpher builds a dense anchor tensor once
-(:meth:`~GridInterpolator.build_tensor`) and evaluates it on the host in
-numpy (:meth:`~GridInterpolator.host_eval`) or on a torch tensor
-(:meth:`~GridInterpolator.eval`).
+Counterpart of :mod:`blueice_tpu.morphers`: the :class:`GridInterpolator`
+(full cartesian anchor grid, multilinear interpolation), the
+:class:`RadialInterpolator` (scattered latin-hypercube anchors,
+normalized-exponential distance weights) and :class:`LogMorpher`, geometric
+(log) template morphing around either. A morpher builds a dense anchor
+tensor once (:meth:`~Morpher.build_tensor`) and evaluates it on the host in
+numpy (:meth:`~Morpher.host_eval`) or on a torch tensor
+(:meth:`~Morpher.eval`).
 """
 
 import numpy as np
@@ -15,9 +16,10 @@ import torch
 
 from .exceptions import NoShapeParameters, InvalidParameterSpecification
 from .ops.interp import morph_templates, morph_templates_np
-from .utils import arrays_to_grid, inherit_docstring_from
+from .utils import arrays_to_grid, combine_dicts, inherit_docstring_from
 
-__all__ = ['Morpher', 'GridInterpolator', 'LogMorpher', 'MORPHERS']
+__all__ = ['Morpher', 'GridInterpolator', 'RadialInterpolator', 'LogMorpher',
+           'latin', 'radial_weights', 'MORPHERS']
 
 
 class Morpher:
@@ -53,6 +55,15 @@ class Morpher:
     def host_eval(self, tensor, zs):
         """Numpy (float64) twin of :meth:`eval`, for the host path."""
         raise NotImplementedError
+
+    def make_interpolator(self, f, extra_dims, anchor_models):
+        """A host callable zs -> numpy array interpolating f between the
+        anchors (:meth:`build_tensor` once, then :meth:`host_eval`)."""
+        tensor = np.asarray(self.build_tensor(f, extra_dims, anchor_models))
+
+        def interpolator(zs):
+            return np.asarray(self.host_eval(tensor, np.asarray(zs)))
+        return interpolator
 
 
 class GridInterpolator(Morpher):
@@ -96,6 +107,111 @@ class GridInterpolator(Morpher):
     @inherit_docstring_from(Morpher)
     def host_eval(self, tensor, zs):
         return morph_templates_np(tensor, self.anchor_z_arrays, zs)
+
+
+def radial_weights(zs, normed_anchors, mins, lengths, r_influence):
+    """Normalized-exponential weights (n_anchors,) of the scattered anchors
+    at the point ``zs`` (k,), on tensors: each anchor's weight decays as
+    exp(-r / r_influence) / r_influence with its distance r from the point
+    in bounds-normalized coordinates, and the weights sum to 1.
+
+    The squared distance is floored at the dtype's smallest normal before
+    the square root: sqrt'(0) is inf, so without the floor every derivative
+    at a point exactly on an anchor would be NaN. The tensors' dtype is
+    that of ``zs`` and ``normed_anchors`` promoted."""
+    dtype = torch.promote_types(zs.dtype, normed_anchors.dtype)
+    zs = zs.to(dtype)
+
+    def cast(x):
+        return torch.as_tensor(x, dtype=dtype, device=zs.device)
+    normed = (zs - cast(mins)) / cast(lengths)
+    diffs = cast(normed_anchors) - normed[None, :]
+    sumsq = torch.sum(diffs * diffs, dim=-1)
+    rs = torch.sqrt(torch.clamp(sumsq, min=torch.finfo(dtype).tiny))
+    r_influence = cast(r_influence)
+    weights = torch.exp(-rs / r_influence) / r_influence
+    return weights / torch.sum(weights)
+
+
+class RadialInterpolator(Morpher):
+    """Scattered-anchor morpher: latin-hypercube anchors inside the shape
+    parameters' bounds, normalized-exponential distance weighting. Its
+    anchors are random (numpy's global RandomState, :func:`latin`), so
+    the compiled likelihood's fits take the autodiff engine (no anchor
+    grid for the closed forms)."""
+
+    @inherit_docstring_from(Morpher)
+    def __init__(self, config, shape_parameters):
+        defaults = dict(r_sample_points=5,
+                        hypercube_shuffle_steps=500,
+                        decay_response_to_density='constant')
+        config = combine_dicts(defaults, config)
+        super().__init__(config, shape_parameters)
+
+    @inherit_docstring_from(Morpher)
+    def get_anchor_points(self, bounds, n_models=10):
+        if n_models is None:
+            n_models = 10
+        zs_list = latin(n_models, len(self.shape_parameters), box=bounds,
+                        shuffle_steps=self.config['hypercube_shuffle_steps'])
+        zs_list = list(map(tuple, zs_list))
+
+        bounds = np.array(bounds, dtype=float)
+        self._mins = bounds[:, 0]
+        self._lengths = bounds[:, 1] - bounds[:, 0]
+        self._normed_model_zs = np.array(
+            [(np.array(_zs) - self._mins) / self._lengths for _zs in zs_list])
+
+        # Radius of influence: mean distance to the closest sample points
+        from scipy.spatial import KDTree
+        r0s = KDTree(self._normed_model_zs).query(
+            self._normed_model_zs,
+            min(self.config['r_sample_points'], len(zs_list)))[0]
+        r0s = np.atleast_2d(r0s).reshape(len(zs_list), -1).mean(axis=1)
+        decay_response = self.config['decay_response_to_density']
+        if decay_response == 'constant':
+            r0s = np.ones_like(r0s) * r0s.mean()
+        elif decay_response != 'proportional':
+            raise NotImplementedError(decay_response)
+        self._r0s = r0s
+
+        self._anchor_order = zs_list
+        return zs_list
+
+    @property
+    def r_influence(self):
+        """(n_anchors,) each anchor's decay length: its r0 times the
+        config's decay_multiplier (default 5)."""
+        return self._r0s * self.config.get('decay_multiplier', 5)
+
+    @inherit_docstring_from(Morpher)
+    def build_tensor(self, f, extra_dims, anchor_models):
+        return np.array([np.broadcast_to(f(anchor_models[zs]), extra_dims)
+                         for zs in self._anchor_order])
+
+    @inherit_docstring_from(Morpher)
+    def eval(self, tensor, zs):
+        tensor = torch.as_tensor(tensor)
+        zs = torch.as_tensor(zs, device=tensor.device)
+        if not zs.is_floating_point():
+            zs = zs.to(tensor.dtype)
+        w = radial_weights(zs.reshape(-1), torch.as_tensor(
+            self._normed_model_zs, dtype=tensor.dtype), self._mins,
+            self._lengths, self.r_influence)
+        dtype = torch.promote_types(w.dtype, tensor.dtype)
+        return torch.tensordot(w.to(dtype), tensor.to(dtype), dims=1)
+
+    @inherit_docstring_from(Morpher)
+    def host_eval(self, tensor, zs):
+        tensor = np.asarray(tensor)
+        normed = ((np.asarray(zs, dtype=float).ravel() - self._mins)
+                  / self._lengths)
+        diffs = self._normed_model_zs - normed[None, :]
+        rs = np.sqrt(np.sum(diffs * diffs, axis=-1))
+        r_influence = self.r_influence
+        weights = np.exp(-rs / r_influence) / r_influence
+        weights = weights / weights.sum()
+        return np.tensordot(weights, tensor, axes=(0, 0))
 
 
 class LogMorpher:
@@ -186,4 +302,40 @@ class LogMorpher:
         return raw * scale[(...,) + (None,) * len(axes)]
 
 
-MORPHERS = {x.__name__: x for x in [GridInterpolator]}
+def latin(n, d, box=None, shuffle_steps=500, rng=None):
+    """Latin hypercube of n points in d dimensions, spread-optimized by
+    random pairwise coordinate swaps. Each step draws ``randint(n),
+    randint(n), randint(d)`` from ``rng`` (default: numpy's global
+    RandomState), as the JAX package's does, so one ``np.random.seed``
+    gives both the same anchors."""
+    if rng is None:
+        rng = np.random
+    randint = getattr(rng, 'integers', None) or rng.randint
+    # Diagonal start
+    pts = (np.arange(n, dtype=float) / max(n - 1, 1))[:, None] * np.ones((1, d))
+
+    def spread(p):
+        # sum of inverse pairwise distances (lower = better spread)
+        diff = p[:, None, :] - p[None, :, :]
+        dist = np.sqrt((diff ** 2).sum(-1))
+        iu = np.triu_indices(n, k=1)
+        return (1.0 / dist[iu]).sum()
+
+    if n > 1:
+        best = spread(pts)
+        for _ in range(shuffle_steps):
+            p1, p2, k = randint(n), randint(n), randint(d)
+            newpts = pts.copy()
+            newpts[p1, k], newpts[p2, k] = newpts[p2, k], newpts[p1, k]
+            s = spread(newpts)
+            if s < best:
+                pts, best = newpts, s
+
+    if box is None:
+        return pts
+    for i in range(len(box)):
+        pts[:, i] = box[i][0] + pts[:, i] * (box[i][1] - box[i][0])
+    return pts
+
+
+MORPHERS = {x.__name__: x for x in [GridInterpolator, RadialInterpolator]}

@@ -3,8 +3,8 @@
 This replaces the reference's ``multihist.Histdd`` dependency (used at reference
 blueice/source.py:24,287 and blueice/likelihood.py:11,608) with a small host-side
 class whose payload is a plain numpy array — the natural feed for device-resident
-template tensors. Filling uses ``numpy.histogramdd`` (the JAX package's native
-C++ filler is not ported yet; it has the same semantics).
+template tensors. Filling goes through the native C++ filler
+(:mod:`blueice_tpu_torch.native`), with ``numpy.histogramdd``'s semantics.
 """
 
 from functools import reduce
@@ -82,17 +82,15 @@ class Hist:
 
     def add(self, *coordinate_arrays, weights=None):
         """Histogram the given per-axis coordinate arrays into this histogram
-        (numpy.histogramdd semantics)."""
+        (native C++ accumulation when available, numpy otherwise; both with
+        numpy.histogramdd semantics)."""
         if len(coordinate_arrays) != self.ndim:
             raise ValueError("Need %d coordinate arrays, got %d"
                              % (self.ndim, len(coordinate_arrays)))
+        from ..native import histogram_nd
         sample = np.stack([np.asarray(c, dtype=float) for c in coordinate_arrays],
                           axis=-1)
-        if weights is not None and len(weights) != sample.shape[0]:
-            raise ValueError("weights has length %d, expected %d"
-                             % (len(weights), sample.shape[0]))
-        h, _ = np.histogramdd(sample, bins=self.edges, weights=weights)
-        self.values += h
+        self.values += histogram_nd(sample, self.edges, weights=weights)
         return self
 
     def bin_indices(self, *coordinate_arrays):

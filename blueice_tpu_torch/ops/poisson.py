@@ -10,8 +10,27 @@ profile statistics need.
 import numpy as np
 import torch
 
-__all__ = ['binned_poisson_logl', 'binned_poisson_logl_constant',
-           'extended_logl', 'extended_logl_np']
+__all__ = ['poisson_logpmf', 'poisson_logpmf_np', 'binned_poisson_logl',
+           'binned_poisson_logl_constant', 'extended_logl', 'extended_logl_np']
+
+
+def poisson_logpmf(k, mu):
+    """log PMF of Poisson(mu) at counts k, on tensors. mu == 0 gives 0 at
+    k == 0 and -inf elsewhere (as scipy.stats.poisson.logpmf)."""
+    k = torch.as_tensor(k)
+    mu = torch.as_tensor(mu)
+    if not k.is_floating_point():
+        k = k.to(mu.dtype if mu.is_floating_point()
+                 else torch.get_default_dtype())
+    return torch.xlogy(k, mu) - mu - torch.lgamma(k + 1.0)
+
+
+def poisson_logpmf_np(k, mu):
+    """Numpy (float64) twin of :func:`poisson_logpmf` for the host."""
+    from scipy.special import gammaln, xlogy
+    k = np.asarray(k, dtype=float)
+    mu = np.asarray(mu, dtype=float)
+    return xlogy(k, mu) - mu - gammaln(k + 1.0)
 
 
 def binned_poisson_logl(mus, pmfs, observed, include_constant=True):

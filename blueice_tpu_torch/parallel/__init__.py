@@ -1,3 +1,5 @@
+from .tasks import (compute_single, compute_many, compute_all,
+                    create_models_ipyparallel)
 from .fitter import make_toy_fitter, minimize_newton
 from .toys import (make_mesh, shard_toys, BinnedToyStudy, UnbinnedToyStudy,
                    ToyResults, seed_of, child_seed)

@@ -660,7 +660,8 @@ class _ParamGraph:
         if self.K == 0:
             empty = torch.zeros(batch + (0,), dtype=x.dtype, device=x.device)
             return (x, empty.long(), empty, empty,
-                    self.mus_flat.expand(batch + (1, self.S)))
+                    self.live(self.mus_flat.expand(batch + (1, self.S)), x,
+                              fv))
         zs = [self.value_of(sp, x, fv) for sp in self.shape_names]
         idx = torch.stack([cell_index(a, clip(z, a[0], a[-1]))
                            for a, z in zip(self.arrs, zs)], dim=-1)
@@ -668,7 +669,19 @@ class _ParamGraph:
         hi = torch.stack([a[idx[..., d] + 1]
                           for d, a in enumerate(self.arrs)], -1)
         return (x, idx, lo, hi - lo,
-                self.mus_flat[fused.corner_ids(self.strides, idx, self.G)])
+                self.live(self.mus_flat[fused.corner_ids(self.strides, idx,
+                                                         self.G)], x, fv))
+
+    def live(self, musc, x, fv):
+        """The mus corners (..., C, S) scaled by the live time over the
+        base live time, for a likelihood compiled with
+        ``include_livetime`` (a fit never floats it, so the factor is a
+        constant of the fit)."""
+        base = getattr(self.compiled, 'base_livetime', None)
+        if base is None:
+            return musc
+        scale = self.value_of('livetime_days', x, fv) / base
+        return musc * scale[..., None, None]
 
     def values(self, x, fv, lo, width, musc, derivs=False):
         """(m (..., S), t (..., K), prior (...)), plus with ``derivs`` the

@@ -6,7 +6,8 @@ with torch ops for tensors, so one likelihood carries them on the host path
 and in the compiled torch likelihood alike. :class:`MultivariateNormalPrior`
 is the correlated constraint over several parameters that
 :func:`blueice_tpu_torch.composition.correlated_gaussian_constraint` builds
-on.
+on. :class:`TensorPrior` carries any other log-prior callable that computes
+with torch tensors into the compiled likelihood.
 """
 
 import math
@@ -14,7 +15,8 @@ import math
 import numpy as np
 import torch
 
-__all__ = ['NormalPrior', 'UniformPrior', 'MultivariateNormalPrior']
+__all__ = ['NormalPrior', 'UniformPrior', 'MultivariateNormalPrior',
+           'TensorPrior']
 
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 
@@ -168,5 +170,42 @@ class MultivariateNormalPrior:
                      self.mean.tobytes(), self.cov.tobytes()))
 
 
+class TensorPrior:
+    """A user's log-prior callable in the compiled likelihood: it must
+    compute elementwise with torch tensors (ordinary arithmetic or torch
+    functions). Its derivatives, which the closed-form fit engines read,
+    come from ``torch.func``."""
+
+    kind = 'callable'
+
+    def __init__(self, func):
+        self.func = func
+        try:
+            out = func(torch.zeros((), dtype=torch.float64))
+            if not torch.is_tensor(out):
+                raise TypeError("returned %r, not a tensor" % (out,))
+        except Exception as e:
+            raise TypeError(
+                "The log prior %r does not compute with torch tensors, so "
+                "the likelihood cannot be compiled. Use NormalPrior / "
+                "UniformPrior or a callable built from torch operations "
+                "instead of e.g. a scipy.stats frozen logpdf (the host "
+                "__call__ path still accepts those)." % (func,)) from e
+
+    def __call__(self, x):
+        return self.func(x)
+
+    def grad(self, x):
+        """d/dx of the log prior, element by element."""
+        return torch.func.grad(lambda y: self.func(y).sum())(x)
+
+    def hess(self, x):
+        """d2/dx2 of the log prior, element by element."""
+        return torch.func.grad(lambda y: self.grad(y).sum())(x)
+
+    def __repr__(self):
+        return "TensorPrior(%r)" % (self.func,)
+
+
 #: prior kind -> class, for rebuilding priors from (kind, numbers) state
-PRIORS = {cls.kind: cls for cls in (NormalPrior, UniformPrior)}
+PRIORS = {cls.kind: cls for cls in (NormalPrior, UniformPrior, TensorPrior)}

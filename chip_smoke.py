@@ -202,13 +202,50 @@ of every launch counter:
    (``held_dense_calls``), where the same ops with TF32 products or with
    bfloat16 coefficients must fail (controls of the gate).
 
+After the sharding part runs the host part (``host_part``; ``python3
+chip_smoke.py host`` runs it alone), each phase between reset and read of
+every launch counter, at full width and uncut:
+
+23. (h1) the prepared xenon (512 toys) and unbinned_xenon (3 live days,
+   256 toys) likelihoods through ``pickle.dumps``/``loads`` and through
+   ``save_pickle``/``read_pickle``: each restored likelihood's profile (a
+   fresh study on the card, seed 0) bit-identical in t and max_ll to the
+   original's, its path's two kernels launched and no other; the
+   pickle's size and the dump and load seconds printed;
+24. (h2) the xenon model (host blob templates) built serially and with
+   ``prepare(n_cores=4)`` into fresh cache and task directories, the
+   process-wide template cache emptied before each: every anchor's mus
+   and pmf bit-identical, no task file left, a 512-toy profile (seed 0)
+   of each bit-identical, the xenon kernels launched and no other; both
+   builds' seconds printed;
+25. (h3) the xenon model with ``RadialInterpolator`` morphing (the
+   default 10 latin anchors, after ``np.random.seed(0)``): 64 toys fitted
+   on the card by ``engine='auto'``, which must pick the autodiff engine
+   and launch no kernel, and in float64 on the CPU: max |d max_ll| <=
+   0.05, median |d t| <= 0.01; fits/s printed;
+26. (h4) ``include_livetime``: the compiled xenon logl (float32, the
+   card) at 278, 139 and 556 live days and the combined SR0+SR1 Sum's,
+   one joint live time, at SR1's 246.7 days, half and twice it
+   (``LIVETIMES``), each within 0.05 of the host float64 value; no
+   kernel launched;
+27. (h5) the native histogram filler available; 2,000,000 events over
+   the XENON (cs1, log10_cs2) 50x62 edges with NaN, inf and exact-edge
+   values: counts equal to ``np.histogramdd``'s, weighted sums within
+   rtol 1e-12, both timed on the host CPU; the Gaussian unbinned path's
+   Monte-Carlo templates built through it equal to a numpy fill bit for
+   bit;
+28. (h6) one warm 512-toy xenon profile inside ``profile_to`` and
+   ``trace('xenon profile')``: the Chrome trace names ``vgh_kernel``,
+   ``ll_kernel`` and the span, the xenon kernels launched and no other;
+   the wall time with and without the profiler printed.
+
 Run with no arguments, as above, it is the smoke test. Path names as
 arguments (``python3 chip_smoke.py bb bblite``) run those paths alone and
 no statistics or roofline part: a quicker measurement of their kernels, which prints the
 same lines for them (``python3 chip_smoke.py combined xenon_log``: the
 composition paths alone). ``python3 chip_smoke.py inference`` runs the
 inference part alone (``autodiff`` the autodiff part, ``sharding`` the
-sharding part); it adds about 110 s to a run on an H100 (PERF.md
+sharding part, ``host`` the host part); it adds about 110 s to a run on an H100 (PERF.md
 section 6), most of it the phases' float64 checks and the host referee.
 
 The paths ``combined`` and ``xenon_log`` and the ``combined interval``
@@ -261,7 +298,7 @@ PATHS = {
     'xenon_log': ('xenon_log', 'wimp_rate_multiplier', 256, 8, None),
 }
 #: parts that run alone when named (``python3 chip_smoke.py inference``)
-PARTS = ('inference', 'autodiff', 'sharding')
+PARTS = ('inference', 'autodiff', 'sharding', 'host')
 #: the JAX package's median t of the path on the CPU, float64, and the
 #: bootstrap spread of that median (``measure_composition_reference.py``:
 #: 256 toys for each of seeds 0 and 1; PERF.md section 6)
@@ -2572,6 +2609,353 @@ def sharding_part(mods, api, studies):
         log("(s3) %s phase: %.1f s" % (label, time.time() - t0))
 
 
+# -- the host part --------------------------------------------------------
+
+#: (h1) the paths whose prepared likelihoods are pickled
+PICKLED = ('xenon', 'unbinned_xenon')
+#: (h2) worker processes of the parallel template build
+HOST_CORES = 4
+#: (h3) toys of the radial model, fitted on the card and on the CPU
+RADIAL_TOYS = 64
+#: (h4) live times (days) the compiled values are held at: the xenon
+#: model's base, half and twice it; for the SR0+SR1 Sum, whose one joint
+#: live time scales each child from its own base, SR1's (which holds 246.7
+#: of the 278.8 days): at 556 joint days SR0 runs at 17 times its base and
+#: |ll| ~ 4e5, which float32 resolves only to ~0.07 (a float32 CPU run)
+LIVETIMES = {'xenon': (278.0, 139.0, 556.0),
+             'SR0+SR1': (246.7, 123.35, 493.4)}
+#: (h4) allowed |compiled float32 - host float64| of a log likelihood
+LIVETIME_GAP = 0.05
+#: (h5) events of the native filler's sample
+FILL_EVENTS = 2_000_000
+
+
+def same_profile(what, a, b):
+    """Raise unless two (t, free, cond) profiles have bit-identical t and
+    max_ll."""
+    if not (np.array_equal(a[0], b[0])
+            and all(np.array_equal(x.max_ll, y.max_ll)
+                    for x, y in zip(a[1:], b[1:]))):
+        raise AssertionError("%s: t or max_ll differs from the original "
+                             "likelihood's profile" % what)
+
+
+def pickle_phase(mods, api, studies):
+    """(h1) each of ``PICKLED``'s prepared likelihoods through
+    ``pickle.dumps``/``loads`` and through ``save_pickle``/``read_pickle``;
+    each restored likelihood's profile (a fresh study on the card, seed 0)
+    bit-identical to the original's, its path's kernels launched and no
+    other."""
+    import pickle
+    import tempfile
+    from blueice_tpu_torch.utils.io import read_pickle, save_pickle
+    for label in PICKLED:
+        study, cls = path_study(label, api, studies)
+        _, target, n_toys, _, _ = PATHS[label]
+        ref = study.profile_ts(0, n_toys, target, 1.0)
+        t0 = time.time()
+        blob = pickle.dumps(study.lf)
+        dump_s = time.time() - t0
+        t0 = time.time()
+        restored = pickle.loads(blob)
+        load_s = time.time() - t0
+        tmp = tempfile.mkdtemp(prefix='chip_smoke_pickle_')
+        try:
+            path = os.path.join(tmp, 'lf.pkl')
+            t0 = time.time()
+            save_pickle(study.lf, path)
+            save_s = time.time() - t0
+            t0 = time.time()
+            read_back = read_pickle(path)
+            read_s = time.time() - t0
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        for how, lf in (('pickle.loads', restored),
+                        ('read_pickle', read_back)):
+            if '_torch_compiled_for_fit' in lf.__dict__:
+                raise AssertionError("(h1) %s: a device cache was pickled"
+                                     % label)
+            out, launches = counted(mods, lambda: cls(
+                lf, **STUDY_KW).profile_ts(0, n_toys, target, 1.0))
+            check_own_launches(label, launches, '(h1) %s' % how)
+            same_profile('(h1) %s after %s' % (label, how), out, ref)
+        log("(h1) %s: pickle %.1f MB, dumps %.3f s, loads %.3f s, "
+            "save_pickle %.3f s, read_pickle %.3f s; both restored "
+            "likelihoods' profiles (%d toys, seed 0) bit-identical in t and "
+            "max_ll" % (label, len(blob) / 1e6, dump_s, load_s, save_s,
+                        read_s, n_toys))
+
+
+def xenon_build(api, root, n_cores):
+    """The xenon model (host blob templates) prepared into fresh cache and
+    task directories under ``root``, the process-wide template cache
+    emptied first: (likelihood, seconds of ``prepare``)."""
+    from blueice_tpu_torch.models.source import Source
+    Source._data_cache.clear()
+    lf = api['xenon_like'].build_likelihood(
+        'binned', prepare=False, cache_dir=os.path.join(root, 'cache'),
+        task_dir=os.path.join(root, 'tasks'))
+    t0 = time.time()
+    lf.prepare(n_cores=n_cores)
+    return lf, time.time() - t0
+
+
+def parallel_build_phase(mods, api, tmp):
+    """(h2) the xenon model built serially and with ``prepare(n_cores=
+    HOST_CORES)``: every anchor's mus and pmf bit-identical, no task file
+    left, and a 512-toy profile (seed 0) of each bit-identical, the xenon
+    kernels launched and no other. Returns the serial build."""
+    serial, serial_s = xenon_build(api, os.path.join(tmp, 'serial'), 1)
+    pooled, pooled_s = xenon_build(api, os.path.join(tmp, 'pool'),
+                                   HOST_CORES)
+    for name in ('mus', 'ps'):
+        if not np.array_equal(serial._builds[name][2],
+                              pooled._builds[name][2]):
+            raise AssertionError("(h2) the parallel build's %s anchors "
+                                 "differ from the serial build's" % name)
+    left = os.listdir(os.path.join(tmp, 'pool', 'tasks'))
+    if left:
+        raise AssertionError("(h2) %d task files left" % len(left))
+    _, target, n_toys, _, _ = PATHS['xenon']
+    cls = api['BinnedToyStudy']
+    profiles = []
+    for lf in (serial, pooled):
+        out, launches = counted(mods, lambda: cls(lf, **STUDY_KW).profile_ts(
+            0, n_toys, target, 1.0))
+        check_own_launches('xenon', launches, '(h2) a profile')
+        profiles.append(out)
+    same_profile('(h2) the parallel build', profiles[1], profiles[0])
+    log("(h2) xenon templates (%s anchors x %d sources): serial prepare "
+        "%.2f s, prepare(n_cores=%d) %.2f s; mus and pmf anchors "
+        "bit-identical, the profiles (%d toys, seed 0) bit-identical"
+        % ('x'.join(str(n) for n in serial._builds['ps'][2].shape[:4]),
+           serial._builds['ps'][2].shape[4], serial_s, HOST_CORES,
+           pooled_s, n_toys))
+    return serial
+
+
+def radial_phase(mods, api):
+    """(h3) the xenon model with the scattered-anchor RadialInterpolator
+    (10 latin anchors after ``np.random.seed(0)``): ``RADIAL_TOYS`` toys
+    fitted on the card by ``engine='auto'`` (the autodiff engine, no kernel
+    launched) and in float64 on the CPU, held to phase 3's figures."""
+    from blueice_tpu_torch.parallel import fitter
+    lf = api['xenon_like'].build_likelihood('binned', prepare=False)
+    lf.config['morpher'] = 'RadialInterpolator'
+    np.random.seed(0)
+    t0 = time.time()
+    lf.prepare()
+    build_s = time.time() - t0
+    cls = api['BinnedToyStudy']
+    study = cls(lf, **STUDY_KW)
+    check_on_card('xenon radial', study.compiled)
+    if fitter._engine_family(study.compiled) != 'ad':
+        raise AssertionError("(h3) engine 'auto' does not pick 'ad'")
+    target = PATHS['xenon'][1]
+    toys = study.simulate(0, RADIAL_TOYS)
+    study._run_profile(toys, target, 1.0, None)          # warm
+    (t32, f32, c32), secs, peak = ad_profile(
+        '(h3) xenon radial', study, toys, target, mods)
+    cpu = cpu_referee_study(study, cls)
+    t0 = time.time()
+    t64, f64, c64 = cpu._run_profile(toys.cpu().double(), target, 1.0, None)
+    cpu_s = time.time() - t0
+    d_ll = np.maximum(np.abs(f32.max_ll - f64.max_ll),
+                      np.abs(c32.max_ll - c64.max_ll))
+    d_t = np.abs(t32 - t64)
+    log("(h3) xenon radial (%d anchors, built in %.1f s): %d toys, "
+        "engine 'ad' on the card warm %.3f s (%.2f profile fits/s, mean "
+        "iterations free %.1f, conditional %.1f, peak device memory %.2f "
+        "GB); float64 CPU %.1f s; max |d max_ll| %.4g, median |d t| %.4g, "
+        "median t %.4f" % (
+            len(lf.morpher._anchor_order), build_s, RADIAL_TOYS, secs,
+            RADIAL_TOYS / secs, f32.n_iter.mean(), c32.n_iter.mean(), peak,
+            cpu_s, d_ll.max(), np.median(d_t), np.median(t32)))
+    if not (d_ll.max() <= 0.05 and np.median(d_t) <= 0.01):
+        raise AssertionError("(h3) float32 radial fits disagree with "
+                             "float64")
+
+
+def livetime_phase(mods, api, lf):
+    """(h4) ``include_livetime``: the compiled xenon logl (float32, the
+    card) and the combined SR0+SR1 Sum's, with its one joint live time,
+    at ``LIVETIMES`` against the host float64 value, within
+    ``LIVETIME_GAP``; no kernel launched. The likelihoods' data are drawn
+    from seeded generators."""
+    import warnings
+    from blueice_tpu_torch import composition
+    from blueice_tpu_torch.compile import build_logl
+    lf.set_data(lf.base_model.simulate(rng=np.random.default_rng(0)))
+    joint = combined_likelihood(api['xenon_like'], api['likelihood'],
+                                composition)
+    for i, child in enumerate(joint.likelihood_list[:2]):
+        child.set_data(child.base_model.simulate(
+            rng=np.random.default_rng(10 + i)))
+    with warnings.catch_warnings():
+        # the children's base live times differ: the joint default is the
+        # first child's
+        warnings.simplefilter('ignore', UserWarning)
+        compiled = {'xenon': (build_logl(lf, include_livetime=True), lf),
+                    'SR0+SR1': (build_logl(joint, include_livetime=True),
+                                joint)}
+    rows = []
+
+    def evaluate():
+        for name, (c, host) in compiled.items():
+            check_on_card('(h4) %s' % name, c.children[0] if hasattr(
+                c, 'children') else c)
+            for days in LIVETIMES[name]:
+                rows.append((name, days, float(c(livetime_days=days)),
+                             float(host(livetime_days=days))))
+    _, launches = counted(mods, evaluate)
+    if any(launches.values()):
+        raise AssertionError("(h4) a kernel launched: %s" % launches)
+    for name, days, value, ref in rows:
+        log("(h4) %s at livetime_days %.1f: compiled float32 %.4f, host "
+            "float64 %.4f, |d| %.3g" % (name, days, value, ref,
+                                        abs(value - ref)))
+        if not abs(value - ref) <= LIVETIME_GAP:
+            raise AssertionError("(h4) %s at %.1f days: |d| %.3g > %g"
+                                 % (name, days, abs(value - ref),
+                                    LIVETIME_GAP))
+
+
+def native_phase(mods, api):
+    """(h5) the native filler: available; a 2-D sample of ``FILL_EVENTS``
+    over the XENON (cs1, log10_cs2) 50x62 edges, with NaN, inf and
+    exact-edge values, against ``np.histogramdd`` (counts exact, weighted
+    sums rtol 1e-12), both timed on this host's CPU; then the Gaussian
+    unbinned path's Monte-Carlo templates built through it equal to a
+    numpy fill of the same draws, bit for bit."""
+    from blueice_tpu_torch import native
+    from blueice_tpu_torch.models.source import Source
+    if not native.available():
+        raise AssertionError("(h5) the native filler is not available")
+    edges = [np.asarray(e, dtype=float) for _, e in
+             api['xenon_like'].build_config()['analysis_space']]
+    rng = np.random.default_rng(0)
+    sample = np.stack([rng.normal(50.0, 30.0, FILL_EVENTS),
+                       rng.normal(2.5, 0.8, FILL_EVENTS)], axis=-1)
+    for d, e in enumerate(edges):
+        sample[:5000, d] = e[rng.integers(0, len(e), 5000)]
+    sample[5000] = np.nan
+    sample[5001] = np.inf
+    sample[5002] = -np.inf
+    weights = rng.random(FILL_EVENTS)
+
+    def timed(fn):
+        t0 = time.time()
+        out = fn()
+        return out, time.time() - t0
+    (got, native_s), (ref, numpy_s) = (
+        timed(lambda: native.histogram_nd(sample, edges)),
+        timed(lambda: np.histogramdd(sample, bins=edges)[0]))
+    (got_w, native_w_s), (ref_w, numpy_w_s) = (
+        timed(lambda: native.histogram_nd(sample, edges, weights=weights)),
+        timed(lambda: np.histogramdd(sample, bins=edges,
+                                     weights=weights)[0]))
+    if not np.array_equal(got, ref):
+        raise AssertionError("(h5) native counts differ from numpy's")
+    rel = float(np.max(np.abs(got_w - ref_w) / np.maximum(np.abs(ref_w),
+                                                          1e-300)))
+    if not rel <= 1e-12:
+        raise AssertionError("(h5) weighted sums differ by %.3g" % rel)
+    log("(h5) native filler, %d events over %dx%d bins (NaN, inf, edges): "
+        "counts exact, weighted rtol %.3g; native %.4f s (weighted %.4f), "
+        "np.histogramdd %.4f s (weighted %.4f) on the host CPU"
+        % (FILL_EVENTS, len(edges[0]) - 1, len(edges[1]) - 1, rel,
+           native_s, native_w_s, numpy_s, numpy_w_s))
+
+    def templates():
+        Source._data_cache.clear()
+        lf = build_model('unbinned', api['xenon_like'], api['test_helpers'],
+                         api['likelihood'])
+        return [(s._pdf_histogram.values, s._n_events_histogram.values)
+                for m in lf.anchor_models.values() for s in m.sources]
+    t0 = time.time()
+    filled, launches = counted(mods, templates)
+    native_build_s = time.time() - t0
+    saved = native._LIB, native._TRIED
+    native._LIB, native._TRIED = None, True     # the numpy fallback
+    try:
+        t0 = time.time()
+        numpy_filled = templates()
+        numpy_build_s = time.time() - t0
+    finally:
+        native._LIB, native._TRIED = saved
+    if any(launches.values()):
+        raise AssertionError("(h5) a kernel launched: %s" % launches)
+    if not all(np.array_equal(a, b) for x, y in zip(filled, numpy_filled)
+               for a, b in zip(x, y)):
+        raise AssertionError("(h5) a native-filled template differs from "
+                             "the numpy fill")
+    log("(h5) the Gaussian unbinned model's %d Monte-Carlo templates: "
+        "native fill bit-identical to numpy's; built in %.2f s (native) and "
+        "%.2f s (numpy)" % (len(filled), native_build_s, numpy_build_s))
+
+
+def profiler_phase(mods, api, studies, tmp):
+    """(h6) one warm xenon profile inside ``profile_to`` and
+    ``trace('xenon profile')``: the written trace names the binned vgh and
+    value kernels and the span; the profile's wall time with and without
+    the profiler."""
+    from blueice_tpu_torch.utils import profile_to, trace
+    study, _ = path_study('xenon', api, studies)
+    _, target, n_toys, _, _ = PATHS['xenon']
+    study.profile_ts(0, n_toys, target, 1.0)             # warm
+    t0 = time.time()
+    study.profile_ts(0, n_toys, target, 1.0)
+    torch.cuda.synchronize()
+    plain_s = time.time() - t0
+
+    def profiled():
+        t0 = time.time()
+        with profile_to(os.path.join(tmp, 'profile')) as prof:
+            with trace('xenon profile'):
+                study.profile_ts(0, n_toys, target, 1.0)
+                torch.cuda.synchronize()
+            inside = time.time() - t0
+        return prof, inside, time.time() - t0
+    (prof, inside_s, total_s), launches = counted(mods, profiled)
+    check_own_launches('xenon', launches, '(h6) the profiled run')
+    with open(prof.trace_path) as f:
+        events = json.load(f)['traceEvents']
+    names = [e.get('name', '') for e in events]
+    found = {key: sum(key in n for n in names)
+             for key in ('vgh_kernel', 'll_kernel', 'xenon profile')}
+    log("(h6) xenon profile (%d toys) inside profile_to and trace: %d trace "
+        "events, %s; wall %.3f s without the profiler, %.3f s inside it "
+        "(%.3f s with the trace written)"
+        % (n_toys, len(events), found, plain_s, inside_s, total_s))
+    if not all(found.values()):
+        raise AssertionError("(h6) the trace lacks %s"
+                             % [k for k, v in found.items() if not v])
+
+
+def host_part(mods, api, studies):
+    """(h1)-(h6): pickled likelihoods, the parallel template build, the
+    radial morpher, the live time, the native filler and the profiler
+    hooks, each phase between reset and read of every launch counter. No
+    kernel rows (no kernel of its own)."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_host_')
+
+    def timed(name, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        log("%s phase: %.1f s" % (name, time.time() - t0))
+        return out
+    try:
+        timed('(h1)', pickle_phase, mods, api, studies)
+        serial = timed('(h2)', parallel_build_phase, mods, api, tmp)
+        timed('(h3)', radial_phase, mods, api)
+        timed('(h4)', livetime_phase, mods, api, serial)
+        timed('(h5)', native_phase, mods, api)
+        timed('(h6)', profiler_phase, mods, api, studies, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def roofline_part(mods):
     """Parts 4 and 5: the op-mix kernel against its plain version, the
     op-mix ceilings between reset and read of every counter, and the vgh
@@ -2726,6 +3110,10 @@ def main(labels):
         t0 = time.time()
         sharding_part(mods, api, studies)
         log("sharding part: %.1f s" % (time.time() - t0))
+    if not labels or 'host' in labels:
+        t0 = time.time()
+        host_part(mods, api, studies)
+        log("host part: %.1f s" % (time.time() - t0))
     if not labels:
         t0 = time.time()
         rows += roofline_part(mods)

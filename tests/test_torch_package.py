@@ -46,6 +46,9 @@ def test_imports_without_jax():
     assert {'blueice_tpu_torch.parallel.distributed',
             'blueice_tpu_torch.dryrun',
             'blueice_tpu_torch.ops.unbinned_dense'} <= set(modules)
+    assert {'blueice_tpu_torch.cli', 'blueice_tpu_torch.parallel.tasks',
+            'blueice_tpu_torch.plots',
+            'blueice_tpu_torch.native'} <= set(modules)
     code = textwrap.dedent("""
         import importlib, sys
         sys.modules['jax'] = None
@@ -165,8 +168,14 @@ def test_not_ported_features_say_so(lf):
         BinnedToyStudy(lf, device='cpu').simulate(0, 2, mesh=object())
     with pytest.raises(NotImplementedError, match="'fused', 'ad'"):
         make_toy_fitter(lf.make_logl(device='cpu'), engine='pallas')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        lf.prepare(n_cores=2)
+    # parallel template builds are ported: prepare(n_cores=2) builds the
+    # same anchor tensors through task files and a process pool
+    pooled = build_likelihood('binned', prepare=False, **SIZE)
+    pooled.prepare(n_cores=2)
+    np.testing.assert_array_equal(pooled._builds['mus'][2],
+                                  lf._builds['mus'][2])
+    np.testing.assert_array_equal(pooled._builds['ps'][2],
+                                  lf._builds['ps'][2])
 
 
 def test_source_wise_and_autodiff_fits_are_ported(lf):
