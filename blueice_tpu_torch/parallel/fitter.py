@@ -52,6 +52,7 @@ from ..ops.binned_vgh import (_ll_from_P, binned_vgh_log,
                               corner_weight_tables, log_morph_from_lerp)
 from ..ops.interp import cell_index, clip
 from ..ops.unbinned_vgh import reference_center
+from ..utils.progress import count, trace, traced
 
 __all__ = ['Transform', 'make_transform', 'minimize_newton',
            'make_toy_fitter', 'check_fixed_in_bounds', 'unbinned_center',
@@ -233,14 +234,17 @@ def _solve_spd_small(A, b):
         x2 = (c02 * bb[0] + c12 * bb[1] + c22 * bb[2]) / det
         return torch.stack([x0, x1, x2], dim=-1)
     if n <= 16:
-        L, info = torch.linalg.cholesky_ex(A)
-        x = torch.cholesky_solve(b[..., None], L)[..., 0]
+        # the batched factor and solve copy to and from the host, and wait
+        with trace('sync'):
+            L, info = torch.linalg.cholesky_ex(A)
+            x = torch.cholesky_solve(b[..., None], L)[..., 0]
     else:
         x, info = torch.linalg.solve_ex(A, b)
     return torch.where((info == 0)[..., None], x,
                        torch.full_like(x, float('nan')))
 
 
+@traced('newton.solve')
 def _damped_solve(H, g, lam):
     """-(H + lam * diag(max(|diag H|, 1e-10)))^-1 g, with its scale d."""
     d = torch.clamp(torch.abs(torch.diagonal(H, dim1=-2, dim2=-1)),
@@ -252,6 +256,14 @@ def _all_finite(x):
     return torch.isfinite(x).all(dim=-1, keepdim=True)
 
 
+def _nonzero(mask):
+    """The indices of ``mask``'s true entries: a host sync, since
+    ``torch.nonzero`` waits for the device to size its output."""
+    with trace('sync'):
+        return torch.nonzero(mask).flatten()
+
+
+@traced('newton.fit')
 def minimize_newton(f_many, vgh, u0, max_iter=60, tol=1e-8, ftol=None,
                     init_damping=1e-3, polish=4, kink_coords=None,
                     kink_jumps=(0.3, -0.3, 0.1, -0.1), snap_anchors=None):
@@ -277,30 +289,36 @@ def minimize_newton(f_many, vgh, u0, max_iter=60, tol=1e-8, ftol=None,
     :return: (u_min (B, n), f_min (B,), n_iters (B,)).
     """
     B, n = u0.shape
+    count('newton.lanes_started', B)
     dt, dev = u0.dtype, u0.device
-    eye = torch.eye(n, dtype=dt, device=dev)
     if ftol is None:
         ftol = 1e-3 if dt == torch.float32 else 1e-10
-    if kink_coords is None:
-        kink_coords = tuple(range(n))
-        drop_dirs = eye
-    else:
-        kink_coords = tuple(kink_coords)
-        drop_dirs = (eye[list(kink_coords)] if kink_coords
-                     else torch.zeros((0, n), dtype=dt, device=dev))
+    # rows of eye picked by a host list, and tables copied from host lists:
+    # each copy waits for the device
+    with trace('sync'):
+        eye = torch.eye(n, dtype=dt, device=dev)
+        if kink_coords is None:
+            kink_coords = tuple(range(n))
+            drop_dirs = eye
+        else:
+            kink_coords = tuple(kink_coords)
+            drop_dirs = (eye[list(kink_coords)] if kink_coords
+                         else torch.zeros((0, n), dtype=dt, device=dev))
+        alphas = torch.tensor([1.0, 0.4, 0.1], dtype=dt, device=dev)
+        jumps = torch.tensor(list(kink_jumps), dtype=dt, device=dev)
+        snaps = ([] if snap_anchors is None else
+                 [(ci, torch.as_tensor(np.asarray(a), dtype=dt, device=dev))
+                  for ci, a in zip(kink_coords, snap_anchors)
+                  if a is not None])
+        polish_steps = torch.tensor(
+            [0.3, -0.3, 0.1, -0.1, 0.03, -0.03, 0.01, -0.01, 3e-3, -3e-3,
+             1e-3, -1e-3, 3e-4, -3e-4, 1e-4, -1e-4, 3e-5, -3e-5, 1e-5,
+             -1e-5], dtype=dt, device=dev)
     n_drop = drop_dirs.shape[0]
-    alphas = torch.tensor([1.0, 0.4, 0.1], dtype=dt, device=dev)
-    jumps = torch.tensor(list(kink_jumps), dtype=dt, device=dev)
-    snaps = ([] if snap_anchors is None else
-             [(ci, torch.as_tensor(np.asarray(a), dtype=dt, device=dev))
-              for ci, a in zip(kink_coords, snap_anchors) if a is not None])
-    polish_steps = torch.tensor(
-        [0.3, -0.3, 0.1, -0.1, 0.03, -0.03, 0.01, -0.01, 3e-3, -3e-3, 1e-3,
-         -1e-3, 3e-4, -3e-4, 1e-4, -1e-4, 3e-5, -3e-5, 1e-5, -1e-5],
-        dtype=dt, device=dev)
 
     def best_of(lanes, cands):
-        fs = f_many(lanes, cands)
+        with trace('newton.value'):
+            fs = f_many(lanes, cands)
         fs = torch.where(torch.isfinite(fs), fs,
                          torch.full_like(fs, float('inf')))
         best = torch.argmin(fs, dim=1)
@@ -308,7 +326,8 @@ def minimize_newton(f_many, vgh, u0, max_iter=60, tol=1e-8, ftol=None,
         return best, fs[rows, best], cands[rows, best]
 
     def newton_step(lanes, u, fval, lam, nu, it, stall, rounds):
-        _, g, H = vgh(lanes, u)
+        with trace('newton.vgh'):
+            _, g, H = vgh(lanes, u)
         g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
         H = torch.where(torch.isfinite(H), H, torch.zeros_like(H))
         du, d = _damped_solve(H, g, lam)
@@ -414,7 +433,8 @@ def minimize_newton(f_many, vgh, u0, max_iter=60, tol=1e-8, ftol=None,
 
     all_lanes = torch.arange(B, device=dev)
     u = u0.clone()
-    f = f_many(all_lanes, u[:, None, :])[:, 0]
+    with trace('newton.value'):
+        f = f_many(all_lanes, u[:, None, :])[:, 0]
     lam = torch.full((B,), init_damping, dtype=dt, device=dev)
     nu = torch.full((B,), 2.0, dtype=dt, device=dev)
     it = torch.zeros(B, dtype=torch.int64, device=dev)
@@ -425,30 +445,45 @@ def minimize_newton(f_many, vgh, u0, max_iter=60, tol=1e-8, ftol=None,
     improved = torch.zeros(B, dtype=torch.bool, device=dev)
 
     for _ in range(max_iter):
-        active = ~done & (it < max_iter)
-        in_polish = pc >= 0
-        lanes_n = torch.nonzero(active & ~in_polish).flatten()
-        lanes_p = torch.nonzero(active & in_polish).flatten()
-        if lanes_n.numel() == 0 and lanes_p.numel() == 0:
-            break
-        if lanes_n.numel():
-            L = lanes_n
-            out = newton_step(L, u[L], f[L], lam[L], nu[L], it[L], stall[L],
-                              rounds[L])
-            u[L], f[L], lam[L], nu[L] = out['u'], out['f'], out['lam'], out['nu']
-            it[L], done[L], stall[L] = out['it'], out['done'], out['stall']
-            pc[L] = torch.where(out['pc_enter'], torch.zeros_like(pc[L]), pc[L])
-            improved[L] = False
-        if lanes_p.numel():
-            L = lanes_p
-            out = polish_step(L, u[L], f[L], lam[L], nu[L], pc[L], rounds[L],
-                              improved[L])
-            u[L], f[L], lam[L], nu[L] = out['u'], out['f'], out['lam'], out['nu']
-            it[L] = it[L] + 1
-            done[L] = done[L] | out['finished']
-            stall[L] = 0
-            pc[L], rounds[L], improved[L] = (out['pc'], out['rounds'],
-                                             out['improved'])
+        with trace('newton.iter'):
+            with trace('newton.select'):
+                active = ~done & (it < max_iter)
+                in_polish = pc >= 0
+                lanes_n = _nonzero(active & ~in_polish)
+                lanes_p = _nonzero(active & in_polish)
+            if lanes_n.numel() == 0 and lanes_p.numel() == 0:
+                break
+            count('newton.iterations')
+            count('newton.lanes_stepped', lanes_n.numel() + lanes_p.numel())
+            if lanes_n.numel():
+                L = lanes_n
+                with trace('newton.step'):
+                    out = newton_step(L, u[L], f[L], lam[L], nu[L], it[L],
+                                      stall[L], rounds[L])
+                with trace('newton.scatter'):
+                    u[L], f[L], lam[L], nu[L] = (out['u'], out['f'],
+                                                 out['lam'], out['nu'])
+                    it[L], done[L], stall[L] = (out['it'], out['done'],
+                                                out['stall'])
+                    pc[L] = torch.where(out['pc_enter'],
+                                        torch.zeros_like(pc[L]), pc[L])
+                    # a host scalar's write copies it, and waits
+                    with trace('sync'):
+                        improved[L] = False
+            if lanes_p.numel():
+                L = lanes_p
+                with trace('newton.polish'):
+                    out = polish_step(L, u[L], f[L], lam[L], nu[L], pc[L],
+                                      rounds[L], improved[L])
+                with trace('newton.scatter'):
+                    u[L], f[L], lam[L], nu[L] = (out['u'], out['f'],
+                                                 out['lam'], out['nu'])
+                    it[L] = it[L] + 1
+                    done[L] = done[L] | out['finished']
+                    with trace('sync'):
+                        stall[L] = 0
+                    pc[L], rounds[L], improved[L] = (out['pc'], out['rounds'],
+                                                     out['improved'])
     return u, f, it
 
 
@@ -651,6 +686,7 @@ class _ParamGraph:
         """Parameter ``nm`` as a tensor of x's batch shape."""
         return self.routing.value_of(nm, x, fv)
 
+    @traced('graph.cells')
     def cells(self, u, fv):
         """(x, idx (..., K) lower anchor-cell indices, lo and width (..., K)
         of those cells, mus corners (..., 2^K, S)) — piecewise constant in u
@@ -683,6 +719,7 @@ class _ParamGraph:
         scale = self.value_of('livetime_days', x, fv) / base
         return musc * scale[..., None, None]
 
+    @traced('graph.values')
     def values(self, x, fv, lo, width, musc, derivs=False):
         """(m (..., S), t (..., K), prior (...)), plus with ``derivs`` the
         slopes dt_d/dz_d (..., K) JAX's clip derivatives give."""
@@ -720,6 +757,7 @@ class _ParamGraph:
                  else torch.zeros_like(t))
         return m, t, prior, (corner, R, E, slope)
 
+    @traced('graph.chain')
     def chain(self, u, x, fv, musc, t, parts, g_mt, H_mt):
         """Negated gradient and Hessian in u of -(ll + prior), from the
         likelihood's (g, H) in (m, t) and this graph's closed-form first and

@@ -39,6 +39,7 @@ from ..compile import build_logl
 from . import distributed
 from .fitter import (make_toy_fitter, check_fixed_in_bounds, unbinned_center,
                      tree_map)
+from ..utils.progress import count, trace, traced
 
 __all__ = ['make_mesh', 'shard_toys', 'ToyMesh', 'BinnedToyStudy',
            'UnbinnedToyStudy', 'ToyResults', 'seed_of', 'child_seed']
@@ -90,9 +91,10 @@ def _refine_stragglers(fit_long, data, x, ll, it, cap, fixed_values=None,
         idx = np.flatnonzero(it >= cap)
     if idx.size == 0:
         return x, ll, it, 0
-    xs, lls, its = (v.cpu().numpy() for v in
-                    fit_long(data, fixed_values, x0=x[idx],
-                             lanes=idx if lanes is None else lanes))
+    out = fit_long(data, fixed_values, x0=x[idx],
+                   lanes=idx if lanes is None else lanes)
+    with trace('sync'):
+        xs, lls, its = (v.cpu().numpy() for v in out)
     better = lls >= ll[idx]
     x[idx[better]] = xs[better]
     ll[idx[better]] = lls[better]
@@ -322,13 +324,16 @@ class _Whole:
         return fit(self.data, fixed_values, x0=x0)
 
     @staticmethod
+    @traced('study.gather')
     def gather(*tensors):
-        return [v.cpu().numpy() for v in tensors]
+        with trace('sync'):
+            return [v.cpu().numpy() for v in tensors]
 
     @staticmethod
     def local(x):
         return x
 
+    @traced('study.refine')
     def refine(self, fit_long, x, ll, it, cap, fixed_values=None, idx=None):
         return _refine_stragglers(fit_long, self.data, x, ll, it, cap,
                                   fixed_values, idx)
@@ -349,12 +354,14 @@ class _Shard(_Whole):
         self.study, self.mesh, self.toys = study, mesh, toys
         self._stragglers = (None, None)
 
+    @traced('study.gather')
     def gather(self, *tensors):
         return distributed.gather_to_hosts(tensors, self.mesh)
 
     def local(self, x):
         return x[self.rows]
 
+    @traced('study.refine')
     def refine(self, fit_long, x, ll, it, cap, fixed_values=None, idx=None):
         if idx is None:
             idx = np.flatnonzero(np.asarray(it) >= cap)
@@ -468,13 +475,19 @@ class _ToyStudy:
                                                      n_toys, mesh)
         return seed, n_toys
 
+    @traced('study.fit')
     def _fit(self, ens, fixed=None, guess=None):
         fit, fit_long, names = self._fit_entry(fixed, guess)
-        x, ll, it = ens.gather(*ens.stage(fit))
+        with trace('study.stage', fit='free'):
+            out = ens.stage(fit)
+        x, ll, it = ens.gather(*out)
+        count('study.toys', len(it))
         if fit_long is not None:
-            x, ll, it, _ = ens.refine(fit_long, x, ll, it, self.max_iter)
+            x, ll, it, n = ens.refine(fit_long, x, ll, it, self.max_iter)
+            count('study.refit_toys', n)
         return ToyResults(names, x, ll, it)
 
+    @traced('study.profile')
     def _profile(self, ens, target, hypothesis, fixed):
         """(t, free ToyResults, conditional ToyResults) of an ensemble
         (:meth:`_ensemble`). Stragglers are refined in pairs: a toy that
@@ -485,15 +498,20 @@ class _ToyStudy:
         (fit_free, free_long, fit_cond, cond_long, names_free, names_cond,
          warm_cols) = self._profile_fn(target, fixed)
         h = [float(hypothesis)]
-        xf, llf, itf = ens.stage(fit_free)
+        with trace('study.stage', fit='free'):
+            xf, llf, itf = ens.stage(fit_free)
         x0c = xf[:, warm_cols] if warm_cols else None
-        xc, llc, itc = ens.stage(fit_cond, h, x0=x0c)
+        with trace('study.stage', fit='cond'):
+            xc, llc, itc = ens.stage(fit_cond, h, x0=x0c)
         xf, llf, itf, xc, llc, itc = ens.gather(xf, llf, itf, xc, llc, itc)
+        count('study.toys', len(itf))
         if free_long is not None:
             idx = np.flatnonzero((itf >= self.max_iter)
                                  | (itc >= self.max_iter))
-            xf, llf, itf = ens.refine(free_long, xf, llf, itf,
-                                      self.max_iter, idx=idx)[:3]
+            # one refit of each toy, its free and conditional fit a pair
+            xf, llf, itf, n = ens.refine(free_long, xf, llf, itf,
+                                         self.max_iter, idx=idx)
+            count('study.refit_toys', n)
             xc, llc, itc = ens.refine(cond_long, xc, llc, itc,
                                       self.max_iter, fixed_values=h,
                                       idx=idx)[:3]
@@ -518,6 +536,7 @@ class _ToyStudy:
                 names_cond, _warm_cols(names_free, names_cond))
         return self._profile_cache[key]
 
+    @traced('study.profile_grid')
     def _profile_grid(self, ens, target, hypotheses, fixed,
                       return_cond=True):
         """(ts (H, n_toys), hypotheses, free ToyResults, conditional
@@ -529,20 +548,30 @@ class _ToyStudy:
         every hypothesis.)"""
         (fit_free, free_long, fit_cond, cond_long, names_free, names_cond,
          warm_cols) = self._profile_fn(target, fixed)
-        xf, llf, itf = ens.gather(*ens.stage(fit_free))
+        with trace('study.stage', fit='free'):
+            out = ens.stage(fit_free)
+        xf, llf, itf = ens.gather(*out)
+        # the toys enter the free fit and each hypothesis's conditional fit
+        count('study.toys', len(itf) * (1 + len(hypotheses)))
         if free_long is not None:
-            xf, llf, itf = ens.refine(free_long, xf, llf, itf,
-                                      self.max_iter)[:3]
+            xf, llf, itf, n = ens.refine(free_long, xf, llf, itf,
+                                         self.max_iter)
+            count('study.refit_toys', n)
         x0c = ens.local(xf[:, warm_cols]) if warm_cols else None
         refine = None
         if cond_long is not None:
             def refine(xc, llc, itc, h):
-                return ens.refine(cond_long, xc, llc, itc, self.max_iter,
-                                  fixed_values=[h])[:3]
+                xc, llc, itc, n = ens.refine(cond_long, xc, llc, itc,
+                                             self.max_iter, fixed_values=[h])
+                count('study.refit_toys', n)
+                return xc, llc, itc
+
+        def call_cond(h):
+            with trace('study.stage', fit='cond'):
+                return ens.stage(fit_cond, [h], x0=x0c)
         ts, conds = _cond_scan(
-            hypotheses, lambda h: ens.stage(fit_cond, [h], x0=x0c), refine,
-            llf, names_cond, self.max_iter, need_cond=return_cond,
-            gather=ens.gather)
+            hypotheses, call_cond, refine, llf, names_cond, self.max_iter,
+            need_cond=return_cond, gather=ens.gather)
         return ts, hypotheses, ToyResults(names_free, xf, llf, itf), conds
 
     def profile_ts_grid(self, seed_or_generator, target, hypotheses, n_toys,
