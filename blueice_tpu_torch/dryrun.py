@@ -98,8 +98,9 @@ def ensemble_digest(toys):
 
 
 def _launch_modules():
-    from .ops import fused, fused_bb, fused_bb_lite, fused_unbinned
-    return (fused, fused_bb, fused_bb_lite, fused_unbinned)
+    from .ops import (fused, fused_bb, fused_bb_lite, fused_unbinned,
+                      param_graph)
+    return (fused, fused_bb, fused_bb_lite, fused_unbinned, param_graph)
 
 
 def _launches():

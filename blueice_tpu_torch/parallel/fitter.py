@@ -21,7 +21,9 @@ for the Beeston-Barlow modes :mod:`~blueice_tpu_torch.ops.fused_bb` and
 :mod:`~blueice_tpu_torch.ops.fused_bb_lite`, and for the extended unbinned
 likelihood :mod:`~blueice_tpu_torch.ops.fused_unbinned`), and is chained to
 u through the tiny parameter graph with its first and second derivatives in
-closed form.
+closed form; where the likelihood runs on the CUDA kernels, that graph does
+too (:mod:`~blueice_tpu_torch.ops.param_graph`: one launch from u to the
+kernels' inputs, one for the chain rule).
 
 An unbinned fit's data is each toy's per-event density tensor at every
 anchor point, (B, G, S, E), with its event mask and the per-toy centering
@@ -47,7 +49,7 @@ import numpy as np
 import torch
 
 from ..exceptions import NoOpimizationNecessary
-from ..ops import fused, fused_bb, fused_bb_lite, fused_unbinned
+from ..ops import fused, fused_bb, fused_bb_lite, fused_unbinned, param_graph
 from ..ops.binned_vgh import (_ll_from_P, binned_vgh_log,
                               corner_weight_tables, log_morph_from_lerp)
 from ..ops.interp import cell_index, clip
@@ -604,15 +606,56 @@ class _Routing:
 
     def value_of(self, nm, x, fv):
         """Parameter ``nm`` as a tensor of x's batch shape (None: ones)."""
-        if nm is None:
-            return torch.ones(x.shape[:-1], dtype=x.dtype, device=x.device)
-        if nm in self.name_pos:
-            return x[..., self.name_pos[nm]]
-        if nm in self.rt_pos:
-            return fv[..., self.rt_pos[nm]]
-        v = self.fixed[nm] if nm in self.fixed else self.defaults[nm]
-        return torch.full(x.shape[:-1], float(v), dtype=x.dtype,
+        kind, where = self.source_of(nm)
+        if kind == param_graph.FLOATING:
+            return x[..., where]
+        if kind == param_graph.RUNTIME:
+            return fv[..., where]
+        return torch.full(x.shape[:-1], where, dtype=x.dtype,
                           device=x.device)
+
+    def source_of(self, nm):
+        """Where :meth:`value_of` reads ``nm`` (and the parameter-graph
+        kernels' tables, which mirror it): (FLOATING, its column of x),
+        (RUNTIME, its column of fv) or (CONSTANT, its value); None reads as
+        the constant 1."""
+        if nm is None:
+            return param_graph.CONSTANT, 1.0
+        if nm in self.name_pos:
+            return param_graph.FLOATING, self.name_pos[nm]
+        if nm in self.rt_pos:
+            return param_graph.RUNTIME, self.rt_pos[nm]
+        v = self.fixed[nm] if nm in self.fixed else self.defaults[nm]
+        return param_graph.CONSTANT, float(v)
+
+
+#: Test hook: keep every parameter graph on its PyTorch ops, read when a
+#: graph is built (:class:`_ParamGraph`); for tests and the A/B of the two.
+_FORCE_TORCH_GRAPH = False
+
+
+def _graph_kernel_eligible(graph, n, use_fused):
+    """Whether ``graph``, a :class:`_ParamGraph` over ``n`` floating
+    coordinates, runs as the CUDA kernels of
+    :mod:`~blueice_tpu_torch.ops.param_graph`: where the likelihood ops are
+    the CUDA kernel wrappers (``use_fused`` on a CUDA device), in float32,
+    1 <= K <= 4 and 1 <= S <= 8 (the kernels' range), every prior term
+    Normal, and the graph within the kernels' tables: at most 32 floating
+    coordinates, 256 anchors over all axes and 32 prior terms, and at most
+    S + K distinct floating coordinates read
+    (:func:`~blueice_tpu_torch.ops.param_graph.compact_columns`)."""
+    compiled, K, S = graph.compiled, graph.K, graph.S
+    priors = compiled.prior_terms
+    pg = param_graph
+    return bool(use_fused and compiled.device.type == 'cuda'
+                and compiled.dtype == torch.float32
+                and 1 <= K <= pg.MAX_K and 1 <= S <= pg.MAX_S
+                and all(getattr(pr, 'kind', None) == 'normal'
+                        for _, pr in priors)
+                and n <= pg.MAX_N and len(priors) <= pg.MAX_PRIORS
+                and sum(len(a) for a in compiled.anchor_arrays)
+                <= pg.MAX_ANCHORS
+                and len(pg.compact_columns(graph)) <= S + K)
 
 
 class _ParamGraph:
@@ -628,10 +671,18 @@ class _ParamGraph:
     runtime-fixed values, aligned with ``runtime_fixed``. ``routed``: for a
     child of a compiled Sum, the joint names it declares (see
     :class:`_Routing`).
+
+    Where the likelihood ops are the CUDA kernel wrappers (``use_fused`` on
+    a CUDA device) and the model is in the graph kernels' range
+    (:func:`_graph_kernel_eligible`), :meth:`evaluate` and :meth:`gradient`
+    run as two hand-written kernels
+    (:mod:`~blueice_tpu_torch.ops.param_graph`, ``kernel`` their tables);
+    elsewhere as the PyTorch ops of
+    :meth:`cells`, :meth:`values` and :meth:`chain`. Chosen once, here.
     """
 
     def __init__(self, compiled, names, fixed, transform, runtime_fixed=(),
-                 routed=None):
+                 routed=None, use_fused=False):
         dt, dev = compiled.dtype, compiled.device
         self.compiled, self.transform = compiled, transform
         self.routing = _Routing(compiled.defaults, names, fixed,
@@ -681,6 +732,44 @@ class _ParamGraph:
         corner_weight_tables(torch.zeros((1, K), dtype=dt, device=dev))
         self.strict = torch.as_tensor(~compiled.allowed_negative,
                                       device=dev)
+        self.kernel = None
+        if not _FORCE_TORCH_GRAPH \
+                and _graph_kernel_eligible(self, n, use_fused):
+            self.kernel = param_graph.build_tables(self, n,
+                                                   len(runtime_fixed))
+
+    def evaluate(self, u, fv, derivs=False, want_x=False):
+        """The graph at u (L, n), or at candidates u (L, A, n), with each
+        lane's runtime-fixed values fv (L, R): ``(idx, t, m, prior, x,
+        parts)``, idx, t and m contiguous, the likelihood ops' inputs. On
+        the kernels x is None without ``want_x``, and parts None; on the
+        PyTorch ops ``parts`` holds, with ``derivs``, what :meth:`gradient`
+        reads."""
+        if self.kernel is not None:
+            count('graph.kernel')
+            with trace('graph.values'):
+                idx, t, m, prior, x = param_graph.graph_fwd(
+                    self.kernel, u, fv, want_x)
+            return idx, t, m, prior, x, None
+        count('graph.torch')
+        if u.dim() == 3:
+            fv = fv[:, None, :].expand(u.shape[:2] + fv.shape[-1:])
+        x, idx, lo, width, musc = self.cells(u, fv)
+        out = self.values(x, fv, lo, width, musc, derivs=derivs)
+        m, t, prior = out[:3]
+        parts = (x, musc, t, out[3]) if derivs else None
+        return idx, t.contiguous(), m.contiguous(), prior, x, parts
+
+    def gradient(self, u, fv, parts, g_mt, H_mt):
+        """(g, H) in u of -(ll + prior) at u (L, n) from the likelihood's
+        (g, H) in (m, t) (:meth:`chain`); ``parts`` from
+        :meth:`evaluate` with ``derivs``."""
+        if self.kernel is not None:
+            with trace('graph.chain'):
+                return param_graph.graph_chain(self.kernel, u, fv, g_mt,
+                                               H_mt)
+        x, musc, t, rest = parts
+        return self.chain(u, x, fv, musc, t, rest, g_mt, H_mt)
 
     def value_of(self, nm, x, fv):
         """Parameter ``nm`` as a tensor of x's batch shape."""
@@ -875,7 +964,7 @@ def _make_analytic_parts(compiled, names, fixed, transform, use_fused,
     K, S, G, n_bins = _grid_dims(compiled)
     anchor = compiled.ps_tensor.reshape(G, S, n_bins).contiguous()
     graph = _ParamGraph(compiled, names, fixed, transform, runtime_fixed,
-                        routed)
+                        routed, use_fused=use_fused)
     if compiled.log_morph:
         if use_fused:
             raise ValueError(
@@ -891,22 +980,17 @@ def _make_analytic_parts(compiled, names, fixed, transform, use_fused,
         — one value-kernel launch for the line search / polish batch; with
         ``domain`` also where the compiled logl is finite there
         (:func:`_in_domain`)."""
-        fvA = fv[:, None, :].expand(u_cands.shape[:2] + fv.shape[-1:])
-        x, idx, lo, width, musc = graph.cells(u_cands, fvA)
-        m, t, prior = graph.values(x, fvA, lo, width, musc)
-        lls = ll_op(anchor, graph.strides, idx, t.contiguous(),
-                    m.contiguous(), data)
+        idx, t, m, prior, x, _ = graph.evaluate(u_cands, fv, want_x=domain)
+        lls = ll_op(anchor, graph.strides, idx, t, m, data)
         if domain:
+            fvA = fv[:, None, :].expand(u_cands.shape[:2] + fv.shape[-1:])
             return -(lls + prior), _in_domain(graph, x, fvA, m)
         return -(lls + prior)
 
     def vgh(u, data, fv):
-        x, idx, lo, width, musc = graph.cells(u, fv)
-        m, t, prior, parts = graph.values(x, fv, lo, width, musc,
-                                          derivs=True)
-        ll, g_mt, H_mt = vgh_op(anchor, graph.strides, idx, t.contiguous(),
-                                m.contiguous(), data)
-        g, H = graph.chain(u, x, fv, musc, t, parts, g_mt, H_mt)
+        idx, t, m, prior, _, parts = graph.evaluate(u, fv, derivs=True)
+        ll, g_mt, H_mt = vgh_op(anchor, graph.strides, idx, t, m, data)
+        g, H = graph.gradient(u, fv, parts, g_mt, H_mt)
         return -(ll + prior), g, H
 
     return value_many, vgh
@@ -1139,7 +1223,8 @@ def _make_unbinned_parts(compiled, names, fixed, transform, use_fused,
     With the test hook :data:`_FORCE_DENSE_UNBINNED` set, both go to the
     dense engine instead, on any device.
     """
-    graph = _ParamGraph(compiled, names, fixed, transform, runtime_fixed)
+    graph = _ParamGraph(compiled, names, fixed, transform, runtime_fixed,
+                        use_fused=use_fused and not _FORCE_DENSE_UNBINNED)
     outlier = compiled.outlier_likelihood
     if _FORCE_DENSE_UNBINNED:
         vgh_op, ll_op = _dense_unbinned_ops()
@@ -1152,25 +1237,22 @@ def _make_unbinned_parts(compiled, names, fixed, transform, use_fused,
 
     def value_many(u_cands, data, rows, fv, domain=False):
         ps, mask, (inv_ref, ref_msum, _) = data
-        fvA = fv[:, None, :].expand(u_cands.shape[:2] + fv.shape[-1:])
-        x, idx, lo, width, musc = graph.cells(u_cands, fvA)
-        m, t, prior = graph.values(x, fvA, lo, width, musc)
+        idx, t, m, prior, x, _ = graph.evaluate(u_cands, fv, want_x=domain)
         moff = (m.sum(-1) - ref_msum[rows][:, None]).contiguous()
-        lls = ll_op(ps, graph.strides, rows, idx, t.contiguous(),
-                    m.contiguous(), mask, inv_ref, moff, outlier)
+        lls = ll_op(ps, graph.strides, rows, idx, t, m, mask, inv_ref, moff,
+                    outlier)
         if domain:
+            fvA = fv[:, None, :].expand(u_cands.shape[:2] + fv.shape[-1:])
             return -(lls + prior), _in_domain(graph, x, fvA, m)
         return -(lls + prior)
 
     def vgh(u, data, rows, fv):
         ps, mask, (inv_ref, ref_msum, _) = data
-        x, idx, lo, width, musc = graph.cells(u, fv)
-        m, t, prior, parts = graph.values(x, fv, lo, width, musc,
-                                          derivs=True)
+        idx, t, m, prior, _, parts = graph.evaluate(u, fv, derivs=True)
         moff = (m.sum(-1) - ref_msum[rows]).contiguous()
-        ll, g_mt, H_mt = vgh_op(ps, graph.strides, rows, idx, t.contiguous(),
-                                m.contiguous(), mask, inv_ref, moff, outlier)
-        g, H = graph.chain(u, x, fv, musc, t, parts, g_mt, H_mt)
+        ll, g_mt, H_mt = vgh_op(ps, graph.strides, rows, idx, t, m, mask,
+                                inv_ref, moff, outlier)
+        g, H = graph.gradient(u, fv, parts, g_mt, H_mt)
         return -(ll + prior), g, H
 
     return value_many, vgh

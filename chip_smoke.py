@@ -46,16 +46,25 @@ For each path:
    the study's own scored event tensors (all toys of the path, A = 12 and
    20);
 2. the path itself, twice (seeds 0 and 1), with every launch counter set
-   to 0 just before and read just after: the path's own two kernels must
-   have launched, the others not (``combined``: the xenon kernels;
-   ``xenon_log``: none); the profile statistic is checked against the
+   to 0 just before and read just after: the path's own two kernels and
+   the parameter graph's two (``GRAPH_KERNELS``, ``ops/param_graph.py``)
+   must have launched, the others not (``combined``: the xenon kernels and
+   the graph's; ``xenon_log``: none); the profile statistic is checked against the
    reference's statistics (median t band, mean fitted target in
    (0.7, 1.3); for ``combined`` and ``xenon_log`` the band is centred on
    the JAX package's own median t on the CPU, ``JAX_MEDIAN_T``); then, on
    the five single-likelihood paths, the value and the vgh kernel over one
    profile's own calls (``replay_calls``: every call of the wrapper
    recorded, their launches replayed from CUDA graphs, summed time beside
-   summed bound);
+   summed bound); then, on the six paths with kernels, the parameter
+   graph's two kernels over one profile's own calls (``graph_rows``: every
+   ``graph_fwd`` and ``graph_chain`` call recorded, each held to the
+   PyTorch graph at the same inputs, idx equal, t, m, the prior and x
+   within 1e-6 of the call's largest entry, g and H within 1e-5 of each
+   lane's; the kernels alone replayed from CUDA graphs, the wrapper calls
+   and the PyTorch graph timed, all summed beside the summed bound; rows
+   ``graph_fwd`` and ``graph_chain`` of the path in the ``{"kernels":
+   ...}`` line);
 3. the same toys (counts, or event sets) fitted on CUDA in float32 and on
    the CPU in float64 (plain versions): max |d max_ll| <= 0.05, median
    |d t| <= 0.01.
@@ -73,6 +82,10 @@ Then the roofline part (``blueice_tpu_torch.utils.roofline``):
    unbinned engine's (``roofline_record``, the last by
    ``measure_unbinned_jnp``), printed as a table, and per kernel warm and
    L2-cold (an L2-cold HBM share above 100% fails).
+
+Wherever a phase below has a path's kernels launch and no other, the
+parameter graph's two kernels count among the path's (``own_kernels``):
+they run wherever a path's likelihood kernels do.
 
 Between the paths and the roofline part runs the statistics part
 (``STATS``), on the studies of the paths above
@@ -129,8 +142,8 @@ interval (bestfit_jax)' in the ``{"kernels": ...}`` line):
    ``REFEREE_SCIPY``), the target within 5e-3 of the referee's, the errors
    finite and within 5% of the float64 CPU fit's;
 13. ``bestfit_emcee_device`` on xenon and unbinned_xenon (``CHAIN``: 40
-   walkers, 1,000 steps, 500 burn-in, errors): the value kernel exactly
-   2 n_steps + 2 launches, the chain under CUDA's sync debug mode 'error';
+   walkers, 1,000 steps, 500 burn-in, errors): the value kernel and the
+   graph's forward kernel exactly 2 n_steps + 2 launches each, no other, the chain under CUDA's sync debug mode 'error';
    the last ensemble plus one walker out of bounds through the walkers'
    log_prob against its plain version on the card (relative 1e-5, -inf at
    the same places); every median within its own posterior sigma of the
@@ -381,8 +394,8 @@ def rel_to_toy_max(a, b):
 def ptxas_report(lib_paths):
     """The -Xptxas -v lines (registers, spills, static shared memory) of the
     instantiations the paths run: S = 6, K = 4 (XENON) and S = 2, K = 1
-    (Gaussian unbinned), and of the four op-mix kernels, from the logs kept
-    beside the libraries."""
+    (Gaussian unbinned), the parameter graph's at K = 4 and K = 1, and of
+    the four op-mix kernels, from the logs kept beside the libraries."""
     lines = []
     for path in lib_paths:
         with open(path[:-3] + '.log') as f:
@@ -391,8 +404,11 @@ def ptxas_report(lib_paths):
             name = entry.split("'", 1)[0]
             shape = re.search(r'([a-z_]+_kernel)ILi(\d)ELi(\d)E', name)
             mix = re.search(r'(op_mix_kernel)ILi(\d)E', name)
+            graph = re.search(r'(graph_[a-z]+_kernel)ILi(\d)EE', name)
             if mix:
                 label = '%s<%s>' % mix.groups()
+            elif graph and graph.group(2) in ('4', '1'):
+                label = '%s<%s>' % graph.groups()
             elif shape and (shape.group(2, 3) == ('6', '4') or (
                     shape.group(2, 3) == ('2', '1') and 'unbinned' in path)):
                 label = '%s<%s,%s>' % shape.groups()
@@ -411,8 +427,9 @@ def ptxas_report(lib_paths):
 
 
 def sass_functions(lib_path):
-    """{(kernel, S, K): SASS text} of a library's fit kernels and {('op_mix',
-    kind, None): ...} of its op-mix kernels (``cuobjdump -sass``; the
+    """{(kernel, S, K): SASS text} of a library's fit kernels ({(kernel,
+    None, K): ...} of the parameter graph's) and {('op_mix', kind, None):
+    ...} of its op-mix kernels (``cuobjdump -sass``; the
     anonymous namespace's mangled name, which differs between two builds,
     left out), or None where the toolkit has no cuobjdump."""
     tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
@@ -425,8 +442,11 @@ def sass_functions(lib_path):
         name, body = block.split('\n', 1)
         mix = re.search(r'op_mix_kernelILi(\d)E', name)
         shape = re.search(r'\d([a-z][a-z_]*_kernel)ILi(\d)ELi(\d)E', name)
+        graph = re.search(r'\d(graph_[a-z]+_kernel)ILi(\d)EE', name)
         if mix:
             funcs[('op_mix', mix.group(1), None)] = body
+        elif graph:
+            funcs[(graph.group(1), None, graph.group(2))] = body
         elif shape:
             funcs[shape.groups()] = body
     return funcs
@@ -462,6 +482,10 @@ def sass_census(lib_paths):
                 if S == '0' and ffma < 64:
                     raise AssertionError("the fma mix compiled to %d FFMA "
                                          "(< 64): its loop was folded" % ffma)
+            elif S is None and K in ('4', '1'):
+                lines.append('%s<%s>: %d SASS instructions, %d LDL, %d STL'
+                             % (name, K, len(ops), count('LDL'),
+                                count('STL')))
             elif (S, K) == ('6', '4') or ((S, K) == ('2', '1')
                                           and 'unbinned' in path):
                 lines.append('%s<%s,%s>: %d SASS instructions, %d LDL, %d '
@@ -943,11 +967,18 @@ def read_launches(mods):
     return launches
 
 
-def check_own_launches(label, launches, what):
-    """Print a phase's launches; raise unless both of the path's kernels
-    launched in it and no other kernel did."""
-    log("%s kernel launches in %s: %s" % (label, what, launches))
+def own_kernels(label):
+    """The kernels a phase of the path launches: its two likelihood kernels
+    and, with them, the parameter graph's two (``GRAPH_KERNELS``)."""
     own = [name for name, _, _, _ in META[label]]
+    return own + list(GRAPH_KERNELS) if own else own
+
+
+def check_own_launches(label, launches, what):
+    """Print a phase's launches; raise unless each of the path's kernels
+    (``own_kernels``) launched in it and no other kernel did."""
+    log("%s kernel launches in %s: %s" % (label, what, launches))
+    own = own_kernels(label)
     if not all(launches[name] > 0 for name in own):
         raise AssertionError("%s: a kernel of the path never launched in %s"
                              % (label, what))
@@ -980,6 +1011,7 @@ def main_path(label, study, mods, rows):
                                   free.n_iter.mean(), cond.n_iter.mean()))
     for row in rows:
         row['launches'] = launches[row['name']]
+    return launches
 
 
 def distinct_per_row(x):
@@ -1187,6 +1219,254 @@ def replay_calls(label, study, mods, rows, contract='value'):
     next(r for r in rows if r['name'] == spec.wrapper).update(out)
 
 
+# -- the parameter graph's kernels ---------------------------------------------
+
+#: the parameter graph's two kernels (``ops/param_graph.py``,
+#: ``csrc/param_graph.cu``), which run wherever a path's likelihood kernels
+#: run; their limits against the PyTorch graph (``tests/test_torch_param_graph
+#: .py``'s): t, m, the prior and x relative to the call's largest entry; H
+#: relative to each lane's largest entry, g to each lane's largest gradient
+#: term (``gradient_terms``: near a fit's optimum g is a small difference
+#: of such terms, which the two sum in other orders); idx equal
+GRAPH_KERNELS = ('graph_fwd', 'graph_chain')
+GRAPH_TOLERANCE = (1e-6, 1e-5)
+#: what they replace: the JAX package's parameter graph, jnp ops that XLA
+#: fuses (no Pallas kernel)
+GRAPH_REPLACES = 'blueice_tpu/parallel/fitter.py:996'
+
+
+def record_graph_calls(run):
+    """Every parameter-graph call of ``run()`` that ran on the kernels:
+    (forward calls, chain calls), each the graph, its inputs and the outputs
+    the path got, cloned. ``_ParamGraph.evaluate`` and ``.gradient`` are
+    wrapped on the class for the run (so graphs built before it count too)
+    and put back after."""
+    from blueice_tpu_torch.parallel import fitter
+    cls = fitter._ParamGraph
+    evaluate, gradient = cls.evaluate, cls.gradient
+    fwd, chain = [], []
+
+    def clone(x):
+        return x.clone() if torch.is_tensor(x) else x
+
+    def recording_evaluate(graph, u, fv, derivs=False, want_x=False):
+        out = evaluate(graph, u, fv, derivs, want_x)
+        if graph.kernel is not None:
+            fwd.append((graph, u.clone(), fv.clone(), derivs, want_x,
+                        tuple(clone(o) for o in out[:5])))
+        return out
+
+    def recording_gradient(graph, u, fv, parts, g_mt, H_mt):
+        out = gradient(graph, u, fv, parts, g_mt, H_mt)
+        if graph.kernel is not None:
+            chain.append((graph, u.clone(), fv.clone(), g_mt.clone(),
+                          H_mt.clone(), tuple(o.clone() for o in out)))
+        return out
+    cls.evaluate, cls.gradient = recording_evaluate, recording_gradient
+    try:
+        run()
+    finally:
+        cls.evaluate, cls.gradient = evaluate, gradient
+    torch.cuda.synchronize()
+    return fwd, chain
+
+
+@contextlib.contextmanager
+def torch_ops(graph):
+    """The graph on its PyTorch ops (no kernel tables) inside the block."""
+    tables, graph.kernel = graph.kernel, None
+    try:
+        yield graph
+    finally:
+        graph.kernel = tables
+
+
+def graph_gap(what, a, b, per_lane=False, scale=None):
+    """max |a - b| over b's largest |entry| (``per_lane``: each lane's, the
+    lanes on the first axis; ``scale``: a given scale of each lane), over
+    the finite entries; raises unless a and b are finite at the same
+    places."""
+    fa, fb = torch.isfinite(a), torch.isfinite(b)
+    if not torch.equal(fa, fb):
+        raise AssertionError("%s: the kernel and the PyTorch graph are not "
+                             "finite at the same places (%d and %d entries "
+                             "not)" % (what, int((~fa).sum()),
+                                       int((~fb).sum())))
+    if not b.numel():
+        return 0.0
+    zero = torch.zeros_like(b)
+    diff = (torch.where(fb, a, zero) - torch.where(fb, b, zero)).abs()
+    size = torch.where(fb, b, zero).abs()
+    if per_lane or scale is not None:
+        if scale is None:
+            scale = size.flatten(1).max(1).values
+        return float((diff.flatten(1).max(1).values
+                      / scale.clamp(min=1e-30)).max())
+    return float(diff.max()) / max(float(size.max()), 1e-30)
+
+
+def gradient_terms(graph, u, fv, parts, g_mt):
+    """Each lane's largest gradient term (L,), the scale of g's float32
+    rounding: max over the coordinates n of |d1_n| (sum_m |J_mn g_mt_m| +
+    |prior gradient_n|), J the Jacobian of (m, t) in x and d1 the
+    transform's slope. From the PyTorch graph's chain, linear in g_mt:
+    d1 J_m = g(0) - g(e_m) (H_mt zero; ``parts`` from its ``evaluate``
+    with ``derivs``)."""
+    L, P = g_mt.shape
+    H0 = g_mt.new_zeros((L, P, P))
+    with torch_ops(graph):
+        base = graph.gradient(u, fv, parts, torch.zeros_like(g_mt), H0)[0]
+        terms = base.abs()
+        for m in range(P):
+            e = torch.zeros_like(g_mt)
+            e[:, m] = 1.0
+            col = base - graph.gradient(u, fv, parts, e, H0)[0]
+            terms = terms + (g_mt[:, m:m + 1] * col).abs()
+    return terms.max(1).values
+
+
+def graph_work(name, graph, u, fv, want_x=False):
+    """(bytes, float32 operations) of one graph-kernel call. Bytes: the
+    inputs read once and the outputs written once (graph_fwd: each row's u,
+    idx, t, m, prior and x where asked; graph_chain: each lane's u, g_mt,
+    H_mt, g and H; each lane's fv) and the tables (the mus anchors and the
+    GraphDesc) once. Operations, the leading terms only, so a lower bound:
+    graph_fwd the lerp of each source's 2^K corners axis by axis (3 a pair)
+    and the rate and efficiency products; graph_chain each corner's weight
+    and its first and second t-derivatives summed over the sources, and
+    J^T H_mt J over J's nonzeros."""
+    S, K, n, R = graph.S, graph.K, u.shape[-1], fv.shape[-1]
+    C, NP, P = 2 ** K, K * (K - 1) // 2, S + K
+    L, rows = u.shape[0], u.numel() // n
+    tables = 4 * graph.kernel.mus.numel() + graph.kernel.desc_dev.numel()
+    if name == 'graph_fwd':
+        per_row = 4 * n + 8 * K + 4 * K + 4 * S + 4 + (4 * n if want_x else 0)
+        return (rows * per_row + 4 * L * R + tables,
+                float(rows * S * (3 * (C - 1) + 2)))
+    per_lane = 4 * (2 * n + R + P + P * P + n * n)
+    ops = 2 * C * S * (1 + K + NP) + 4 * P * (S * (K + 2) + K)
+    return L * per_lane + tables, float(L * ops)
+
+
+def graph_rows(label, study, launches):
+    """The parameter graph's two kernels over one profile's own calls
+    (``record_graph_calls``: the path's study, seed 0, its toys): each
+    call's outputs against the PyTorch graph's at the same inputs
+    (``GRAPH_TOLERANCE``), then timed over those calls: the kernel alone
+    (each call's launcher, the launches of a group of calls, by candidates
+    A, captured in one CUDA graph and replayed, ``time_calls``), the whole
+    wrapper calls and the PyTorch graph (CUDA events around all the calls),
+    summed, beside the summed bound (``graph_work``). Returns their two rows
+    of the ``kernels`` line, ``launches`` (the main path's) in each."""
+    from blueice_tpu_torch.ops import param_graph
+    from blueice_tpu_torch.utils.roofline import bound
+    _, target, n_toys, _, _ = PATHS[label]
+    fwd, chain = record_graph_calls(lambda: study.profile_ts(
+        0, n_toys=n_toys, target=target, hypothesis=1.0))
+    if not (fwd and chain):
+        raise AssertionError("%s: the profile made no call of a graph kernel"
+                             % label)
+    ftol, ctol = GRAPH_TOLERANCE
+    errs = dict.fromkeys(('t', 'm', 'prior', 'x', 'g', 'H', 'g_lane'), 0.0)
+    for graph, u, fv, _, want_x, got in fwd:
+        with torch_ops(graph):
+            ref = graph.evaluate(u, fv)
+        if not torch.equal(got[0], ref[0]):
+            raise AssertionError("%s graph_fwd: idx differs from the PyTorch "
+                                 "graph's at L = %d" % (label, u.shape[0]))
+        for key, a, b in zip(('t', 'm', 'prior', 'x'), got[1:5], ref[1:5]):
+            if key != 'x' or want_x:
+                errs[key] = max(errs[key], graph_gap(
+                    '%s graph_fwd %s' % (label, key), a, b))
+    plain_parts = []
+    for graph, u, fv, g_mt, H_mt, (g, H) in chain:
+        with torch_ops(graph):
+            parts = graph.evaluate(u, fv, derivs=True)[5]
+            ref_g, ref_H = graph.gradient(u, fv, parts, g_mt, H_mt)
+        plain_parts.append(parts)
+        errs['g'] = max(errs['g'], graph_gap(
+            '%s graph_chain g' % label, g, ref_g,
+            scale=gradient_terms(graph, u, fv, parts, g_mt)))
+        errs['g_lane'] = max(errs['g_lane'], graph_gap(
+            '%s graph_chain g' % label, g, ref_g, per_lane=True))
+        errs['H'] = max(errs['H'], graph_gap('%s graph_chain H' % label, H,
+                                             ref_H, per_lane=True))
+    torch.cuda.synchronize()
+
+    def plain_fwd():
+        for graph, u, fv, derivs, _, _ in fwd:
+            with torch_ops(graph):
+                graph.evaluate(u, fv, derivs=derivs)
+
+    def plain_chain():
+        for (graph, u, fv, g_mt, H_mt, _), parts in zip(chain, plain_parts):
+            with torch_ops(graph):
+                graph.gradient(u, fv, parts, g_mt, H_mt)
+    def fwd_args(graph, u, fv, derivs, want_x, got):
+        return graph.kernel, u, fv, want_x
+
+    def chain_args(graph, u, fv, g_mt, H_mt, got):
+        return graph.kernel, u, fv, g_mt, H_mt
+
+    def candidates(call, _):
+        u = call[1]
+        return u.shape[1] if u.dim() == 3 else 1
+    kinds = {
+        'graph_fwd': dict(
+            calls=fwd, err=max(errs[k] for k in ('t', 'm', 'prior', 'x')),
+            tol=ftol, plain=plain_fwd, args=fwd_args,
+            wrapper=param_graph.graph_fwd,
+            launcher=param_graph.graph_fwd_launcher,
+            work=lambda graph, u, fv, _, want_x, __:
+                graph_work('graph_fwd', graph, u, fv, want_x)),
+        'graph_chain': dict(
+            calls=chain, err=max(errs['g'], errs['H']), tol=ctol,
+            plain=plain_chain, args=chain_args,
+            wrapper=param_graph.graph_chain,
+            launcher=param_graph.graph_chain_launcher,
+            work=lambda graph, u, fv, *_: graph_work('graph_chain', graph,
+                                                     u, fv))}
+    rows = []
+    for name, kind in kinds.items():
+        calls, args, wrapper = kind['calls'], kind['args'], kind['wrapper']
+        per_A = time_calls(lambda *c: kind['launcher'](*args(*c)), calls,
+                           None, key=candidates)
+        kernel_ms = sum(per_A.values())
+        ms = cuda_ms(lambda: [wrapper(*args(*c)) for c in calls], runs=3,
+                     warmup=1)
+        plain_ms = cuda_ms(kind['plain'], runs=3, warmup=1)
+        work = [kind['work'](*c) for c in calls]
+        bound_ms = sum(bound(b, f)[0] for b, f in work)
+        nbytes = sum(b for b, _ in work)
+        lanes = [c[1].shape[0] for c in calls]
+        log("%s %s over one profile's own calls: %d calls, mean lanes L "
+            "%.1f (min %d, max %d), rows %d; largest gap to the PyTorch "
+            "graph %.3g (limit %.0e; %s); kernel alone summed %.4f ms (%s), "
+            "wrapper calls summed %.4f ms, PyTorch graph summed %.4f ms; "
+            "bound summed %.4f ms (%.1f MB)"
+            % (label, name, len(calls), np.mean(lanes), min(lanes),
+               max(lanes), sum(c[1].numel() // c[1].shape[-1] for c in calls),
+               kind['err'], kind['tol'], ', '.join(
+                   '%s %.3g' % (k, errs[k]) for k in (
+                       ('t', 'm', 'prior', 'x') if name == 'graph_fwd'
+                       else ('g', 'H', 'g_lane'))),
+               kernel_ms, ', '.join('A=%d: %.4f ms' % a for a in per_A.items()),
+               ms, plain_ms, bound_ms, nbytes / 1e6))
+        if not kind['err'] <= kind['tol']:
+            raise AssertionError("%s %s: the kernel disagrees with the "
+                                 "PyTorch graph by %.3g (limit %.0e)"
+                                 % (label, name, kind['err'], kind['tol']))
+        rows.append(dict(
+            name=name, path=label, route='cuda', source=CSRC + 'param_graph.cu',
+            replaces=GRAPH_REPLACES, also_replaces=None, library_ms=None,
+            launches=launches[name], max_rel_err=kind['err'],
+            replay_calls=len(calls), replay_mean_lanes=float(np.mean(lanes)),
+            kernel_ms=kernel_ms, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by='bytes' if all(bound(b, f)[1] == 'bytes'
+                                    for b, f in work) else 'mixed'))
+    return rows
+
+
 def two_precisions(label, study, cls):
     """Phase 3: the same toys in float32 on the card and in float64 on the
     CPU (plain versions)."""
@@ -1256,10 +1536,12 @@ def run_path(label, mods, api):
         kernel_study = (types.SimpleNamespace(compiled=children[1])
                         if label == 'combined' else study)
         rows = kernel_rows(label, kernel_study, mods)
-    main_path(label, study, mods, rows)
+    launches = main_path(label, study, mods, rows)
     for contract in CALLS:
         if label in CALLS[contract]:
             replay_calls(label, study, mods, rows, contract)
+    if META[label]:
+        rows += graph_rows(label, study, launches)
     two_precisions(label, study, cls)
     return rows, study, cls
 
@@ -2008,13 +2290,12 @@ def chain_phase(label, lf, referee, mods):
         (res, ll, errs), launches = counted(mods, run)
     finally:
         mcmc.sample_stretch = sample
-    value = META[label][1][0]
+    # each value call: one forward graph launch and one value kernel launch
+    want = dict.fromkeys((META[label][1][0], 'graph_fwd'), 2 * n_steps + 2)
     log("%s kernel launches: %s" % (phase, launches))
-    if launches[value] != 2 * n_steps + 2 or any(
-            n for name, n in launches.items() if name != value):
-        raise AssertionError("%s: the value kernel launched %d times (want "
-                             "%d) or another kernel launched"
-                             % (phase, launches[value], 2 * n_steps + 2))
+    if any(n != want.get(name, 0) for name, n in launches.items()):
+        raise AssertionError("%s: launches %s, want %s and no other"
+                             % (phase, launches, want))
     chain = seen['chain']
     accept = float((chain[:, 1:] != chain[:, :-1]).any(-1).double().mean())
 
@@ -3060,7 +3341,7 @@ def main(labels):
     from blueice_tpu_torch import likelihood, test_helpers
     from blueice_tpu_torch.examples import xenon_like
     from blueice_tpu_torch.ops import (fused, fused_bb, fused_bb_lite,
-                                       fused_unbinned)
+                                       fused_unbinned, param_graph)
     from blueice_tpu_torch.parallel import BinnedToyStudy, UnbinnedToyStudy
     from blueice_tpu_torch.utils import roofline, set_progress
 
@@ -3072,7 +3353,8 @@ def main(labels):
                                           torch.version.cuda,
                                           torch.cuda.get_device_name(0)))
     mods = dict(fused=fused, fused_bb=fused_bb, fused_bb_lite=fused_bb_lite,
-                fused_unbinned=fused_unbinned, roofline=roofline)
+                fused_unbinned=fused_unbinned, param_graph=param_graph,
+                roofline=roofline)
     api = dict(xenon_like=xenon_like, test_helpers=test_helpers,
                likelihood=likelihood, BinnedToyStudy=BinnedToyStudy,
                UnbinnedToyStudy=UnbinnedToyStudy)
