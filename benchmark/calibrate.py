@@ -9,8 +9,9 @@ In one process, set up once: for each seed of ``--seeds``, one call of the
 program at the cell's batch on that seed's first datasets, its sample of
 toys judged as a run judges it (the lower readings); for each seed of
 ``--control-seeds``, the lower-precision control put in the program's place
-on the same sampled toys (the reference with its anchor payloads in
-bfloat16, computing in float32), judged alike (the upper readings); for
+on the same sampled toys (the kind's reference built with
+``storage=torch.bfloat16``: binned, its anchor payloads in bfloat16,
+computing in float32), judged alike (the upper readings); for
 each seed of ``--fault-seeds``, the program with each planted fault of
 ``--faults`` (``harness/faults.py``), judged alike. One JSON line per
 reading on standard output (and appended to ``--out``), with each
@@ -82,12 +83,12 @@ def main(argv=None):
     import gc
     import numpy as np
     import torch
-    from benchmark.harness import check, faults, runner, system
-    from benchmark.reference.binned import BinnedModel, profile_fits
+    from benchmark.harness import check, faults, runner
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
     cx = runner.prepare(args.workload, 'cuda')
+    reference, system = cx.kind.reference, cx.kind.system
     cache_dir = os.path.join(runner.ROOT, 'build', 'benchmark_cache')
 
     def seeds_of(text):
@@ -96,18 +97,18 @@ def main(argv=None):
     def profile(study, seed):
         ens = cx.ensemble(seed)
         t0 = time.time()
-        t, free, cond = study._run_profile(ens.counts(0), cx.target,
+        t, free, cond = study._run_profile(ens.datasets(0), cx.target,
                                            cx.hypothesis, None)
         call_s = time.time() - t0
         calls = [dict(t=t, free=free, cond=cond)]
-        counts, prog, pairs = runner.sampled(cx.model, ens, calls, cx.target,
-                                             cx.hypothesis)
-        return call_s, calls, counts, prog, pairs
+        data, prog, pairs = runner.sampled(reference, cx.model, ens, calls,
+                                           cx.target, cx.hypothesis)
+        return call_s, calls, data, prog, pairs
 
-    def reading(side, seed, counts, prog, **extra):
+    def reading(side, seed, data, prog, **extra):
         t0 = time.time()
-        numbers, det = check.judge(cx.model, counts, prog, cx.target,
-                                   cx.hypothesis)
+        numbers, det = check.judge(reference, cx.model, data, prog,
+                                   cx.target, cx.hypothesis)
         row = dict(cell=args.workload, seed=seed, side=side,
                    judge_s=time.time() - t0, **numbers, **extra)
         row['gaps'] = _spread(det)
@@ -115,13 +116,13 @@ def main(argv=None):
 
     seeds, control_seeds = seeds_of(args.seeds), seeds_of(args.control_seeds)
     lf, study = system.build_study(cx.config, 'cuda', cache_dir, cx.dtype)
-    control = BinnedModel(cx.config, 'cuda', storage=torch.bfloat16)
+    control = reference.build(cx.config, 'cuda', storage=torch.bfloat16)
     for seed in seeds + [s for s in control_seeds if s not in seeds]:
-        call_s, calls, counts, prog, pairs = profile(study, seed)
+        call_s, calls, data, prog, pairs = profile(study, seed)
         if seed in seeds:
             t, free, cond = (calls[0][k] for k in ('t', 'free', 'cond'))
             row, det = reading(
-                'program', seed, counts, prog, call_s=call_s,
+                'program', seed, data, prog, call_s=call_s,
                 median_t=float(np.median(t)),
                 mean_iters=float(np.mean(np.concatenate(
                     [free.n_iter, cond.n_iter]))))
@@ -129,8 +130,9 @@ def main(argv=None):
                                       cx.model.names)
             _emit(row, args.out)
         if seed in control_seeds:
-            ctrl = profile_fits(control, counts, cx.target, cx.hypothesis)
-            _emit(reading('control', seed, counts, ctrl)[0], args.out)
+            ctrl = reference.profile_fits(control, data, cx.target,
+                                          cx.hypothesis)
+            _emit(reading('control', seed, data, ctrl)[0], args.out)
     del lf, study, control
     for name in [f for f in args.faults.split(',') if f]:
         gc.collect()
@@ -139,8 +141,8 @@ def main(argv=None):
                                        cx.dtype)
         faults.FAULTS[name](study)
         for seed in seeds_of(args.fault_seeds):
-            call_s, calls, counts, prog, pairs = profile(study, seed)
-            _emit(reading('fault.' + name, seed, counts, prog,
+            call_s, calls, data, prog, pairs = profile(study, seed)
+            _emit(reading('fault.' + name, seed, data, prog,
                           call_s=call_s)[0], args.out)
         del lf, study
     print(json.dumps(dict(done=True, seconds=time.time() - T_START)))

@@ -1,5 +1,6 @@
 """Whether what the timed path produced is correct: the sampled toys of the
-window judged against the float64 reference (``benchmark/reference/``).
+window judged against the float64 reference of the configuration's
+likelihood kind (``benchmark/reference/<kind>.py``).
 
 For each sampled toy the program's free and conditional fits (parameters
 and maximum log likelihood) and its t are compared with the reference's on
@@ -7,8 +8,8 @@ the same dataset. Four numbers:
 
 * ``ll_eval_gap``: the widest |program's log likelihood - the reference's
   at the program's parameters|, over the sample and both fits: the
-  compiled likelihood (morph, rates with live time and efficiency,
-  constraints, Beeston-Barlow).
+  compiled likelihood (binned: morph, rates with live time and
+  efficiency, constraints, Beeston-Barlow).
 * ``t_eval_gap``: the widest |program's t - 2 (reference's log likelihood
   at the free fit's parameters - at the conditional fit's)|, floored at
   0 as t is: the statistic the program reports for its own fits.
@@ -52,17 +53,17 @@ def full_points(names_fit, x, names_all, fixed):
     return out
 
 
-def judge(model, counts, prog, target, hypothesis):
-    """The four numbers of a sample of toys (their ``counts`` (T, N)) and
-    the program's results ``prog``: dict of arrays over the sample, x_free
-    / x_cond (T, P) in the reference's parameter order, ll_free, ll_cond, t.
+def judge(reference, model, data, prog, target, hypothesis):
+    """The four numbers of a sample of toys (``data``: the toys as the
+    kind's ``reference`` module takes them, ``model`` its model) and the
+    program's results ``prog``: dict of arrays over the sample, x_free /
+    x_cond (T, P) in the reference's parameter order, ll_free, ll_cond, t.
     Returns (numbers, details)."""
-    from ..reference.binned import profile_fits
     xf, xc = prog['x_free'], prog['x_cond']
-    at_f = model.loglik_at(xf, counts)
-    at_c = model.loglik_at(xc, counts)
-    ref = profile_fits(model, counts, target, hypothesis,
-                       x_judged=np.stack([xf, xc], 1))
+    at_f = model.loglik_at(xf, data)
+    at_c = model.loglik_at(xc, data)
+    ref = reference.profile_fits(model, data, target, hypothesis,
+                                 x_judged=np.stack([xf, xc], 1))
     eval_gap = np.maximum(np.abs(prog['ll_free'] - at_f),
                           np.abs(prog['ll_cond'] - at_c))
     t_eval_gap = np.abs(prog['t'] - np.maximum(2.0 * (at_f - at_c), 0.0))

@@ -1,5 +1,5 @@
 """The general generator of toy-ensemble traffic: a closed loop of calls,
-each a batch of fresh Poisson datasets drawn by the harness itself.
+each a batch of fresh datasets drawn by the harness itself.
 
 A traffic file (``benchmark/traffic/<name>.json``) gives: ``kind``
 (``closed_loop_ensemble``, the one this generator makes),
@@ -9,10 +9,11 @@ drawn at; the rest at the model's defaults), ``target`` and
 ``check_toys`` (how many of the window's toys the reference judges, drawn
 from the seed).
 
-Every dataset comes from ``--seed`` and its call's index alone: call ``i``
-draws ``torch.poisson`` of the reference's expected counts at the truth
-with a generator seeded by a hash of (seed, i), so the datasets of a call
-can be drawn again after the window, on the same device, bit for bit."""
+What one call's datasets are is the likelihood kind's: its reference's
+``sampler`` gives the draw (binned: Poisson counts of the expected counts
+at the truth), which the generator hands a generator seeded by a hash of
+(seed, call) alone, so the datasets of a call can be drawn again after the
+window, on the same device, bit for bit."""
 
 import hashlib
 
@@ -33,31 +34,24 @@ def stream_seed(seed, *keys):
 
 
 class Ensemble:
-    """Datasets of a closed-loop ensemble: :meth:`counts` of call ``i`` is
-    a (toys_per_call, *bins) float tensor on ``device``."""
+    """Datasets of a closed-loop ensemble: :meth:`datasets` of call ``i``
+    is ``draw(generator)``, the kind's ``toys_per_call`` datasets (opaque
+    here) on ``device``."""
 
-    def __init__(self, traffic, expected, bin_shape, seed, device,
-                 dtype=torch.float32):
+    def __init__(self, traffic, draw, seed, device):
         if traffic.get('kind') != 'closed_loop_ensemble':
             raise ValueError("this generator makes closed_loop_ensemble "
                              "traffic, not %r" % traffic.get('kind'))
         self.traffic = traffic
-        self.toys = int(traffic['toys_per_call'])
+        self.draw = draw
         self.seed = seed
         self.device = torch.device(device)
-        self.bin_shape = tuple(bin_shape)
-        # the expectation as the datasets' type holds it, once
-        self.rates = torch.as_tensor(expected, device=self.device).to(
-            dtype).reshape(1, -1).expand(self.toys, -1).contiguous()
 
-    def counts(self, call, rows=None):
-        """The datasets of call ``call`` (all, or the ``rows``)."""
+    def datasets(self, call):
+        """The datasets of call ``call``."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(stream_seed(self.seed, 'call', call))
-        c = torch.poisson(self.rates, generator=gen)
-        if rows is not None:
-            c = c[torch.as_tensor(rows, device=self.device)]
-        return c.reshape((c.shape[0],) + self.bin_shape)
+        return self.draw(gen)
 
     def sample(self, calls, sizes):
         """The (call, toy) pairs the reference judges: ``check_toys``

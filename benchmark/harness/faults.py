@@ -7,6 +7,18 @@ import numpy as np
 __all__ = ['FAULTS']
 
 
+def _toys(data):
+    """The tensors of a call's datasets, each with the toys first: the
+    tensor itself, or the tensors of a tuple (an event set)."""
+    return tuple(data) if isinstance(data, (tuple, list)) else (data,)
+
+
+def _head(data, n):
+    """The first ``n`` toys of a call's datasets."""
+    head = tuple(v[:n] for v in _toys(data))
+    return head if isinstance(data, (tuple, list)) else head[0]
+
+
 def start_unchanged(study):
     """No Newton step and no polish: each fit returns its start point."""
     study.max_iter = 0
@@ -19,14 +31,14 @@ def half_start_unchanged(study):
     orig = study._run_profile
     unfitted = ({}, {})     # the fitters built with no step, cached apart
 
-    def half(counts, target, hypothesis, fixed, mesh=None):
-        t, free, cond = orig(counts, target, hypothesis, fixed)
+    def half(data, target, hypothesis, fixed, mesh=None):
+        t, free, cond = orig(data, target, hypothesis, fixed)
         kept = (study.max_iter, study.polish, study._profile_cache,
                 study._fit_cache)
         study.max_iter, study.polish = 0, 0
         study._profile_cache, study._fit_cache = unfitted
         try:
-            t0, free0, cond0 = orig(counts, target, hypothesis, fixed)
+            t0, free0, cond0 = orig(data, target, hypothesis, fixed)
         finally:
             (study.max_iter, study.polish, study._profile_cache,
              study._fit_cache) = kept
@@ -43,9 +55,9 @@ def half_left_out(study):
     """Half of the batch fitted, its results standing in for the rest."""
     orig = study._run_profile
 
-    def half(counts, target, hypothesis, fixed, mesh=None):
-        n = counts.shape[0]
-        t, free, cond = orig(counts[:n // 2], target, hypothesis, fixed)
+    def half(data, target, hypothesis, fixed, mesh=None):
+        n = _toys(data)[0].shape[0]
+        t, free, cond = orig(_head(data, n // 2), target, hypothesis, fixed)
         for r in (free, cond):
             r.x = np.concatenate([r.x, r.x])[:n]
             r.max_ll = np.concatenate([r.max_ll, r.max_ll])[:n]

@@ -6,8 +6,12 @@ configuration (``benchmark/configs/<config>.json``) and a traffic mix
 (``benchmark/traffic/<traffic>.json``); its correctness limits are in
 ``benchmark/limits/<cell>.json``; each metric is read by
 ``benchmark/metrics/<metric>.py`` (its ``read(run)`` returns a number, or
-None where it finds nothing to read). All are found by name, so a new
-configuration, mix, cell or metric is new files and entries only."""
+None where it finds nothing to read); the configuration's ``likelihood``
+key names its kind, whose reference (``benchmark/reference/<kind>.py``:
+the model, its fits, the datasets' draw and the judged rows) and system
+(``benchmark/harness/systems/<kind>.py``: the port's study) the run goes
+through. All are found by name, so a new configuration, mix, cell, metric
+or likelihood kind is new files and entries only."""
 
 import gc
 import importlib.util
@@ -19,10 +23,10 @@ import time
 
 import numpy as np
 
-from . import check, ensemble, roofline, system, trace
+from . import check, ensemble, roofline, trace
 
-__all__ = ['ROOT', 'FORBIDDEN', 'Run', 'load_cell', 'prepare', 'run_cell',
-           'sampled', 'forbidden_modules']
+__all__ = ['ROOT', 'FORBIDDEN', 'Run', 'load_cell', 'load_kind', 'prepare',
+           'run_cell', 'sampled', 'forbidden_modules']
 
 #: The checkout: the folder that holds BENCHMARK.json
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -71,14 +75,41 @@ def metric_entries(spec, cell, traced):
             and ('workloads' in m or m['moves'] in reported)]
 
 
-def load_reader(name, root=ROOT):
-    """The module ``benchmark/metrics/<name>.py``."""
-    path = os.path.join(root, 'benchmark', 'metrics', name + '.py')
-    mod_spec = importlib.util.spec_from_file_location(
-        'benchmark_metric_' + name.replace('.', '_'), path)
+def _load(module_name, path):
+    mod_spec = importlib.util.spec_from_file_location(module_name, path)
     module = importlib.util.module_from_spec(mod_spec)
     mod_spec.loader.exec_module(module)
     return module
+
+
+def load_reader(name, root=ROOT):
+    """The module ``benchmark/metrics/<name>.py``."""
+    return _load('benchmark_metric_' + name.replace('.', '_'),
+                 os.path.join(root, 'benchmark', 'metrics', name + '.py'))
+
+
+class Kind:
+    """A likelihood kind's two modules, found by its name: ``reference``
+    (``benchmark/reference/<name>.py``: ``build(config, device, storage)``,
+    ``profile_fits``, ``sampler``, ``take``, ``join``) and ``system``
+    (``benchmark/harness/systems/<name>.py``: ``build_study``)."""
+
+    def __init__(self, reference, system):
+        self.reference, self.system = reference, system
+
+
+def load_kind(name, root=ROOT):
+    """The :class:`Kind` of a configuration's ``likelihood`` ``name``."""
+    bench = os.path.join(root, 'benchmark')
+    paths = (os.path.join(bench, 'reference', name + '.py'),
+             os.path.join(bench, 'harness', 'systems', name + '.py'))
+    for path in paths:
+        if not os.path.isfile(path):
+            raise KeyError("no module %s for the likelihood kind %r"
+                           % (os.path.relpath(path, root), name))
+    tag = name.replace('.', '_')
+    return Kind(_load('benchmark_reference_' + tag, paths[0]),
+                _load('benchmark_system_' + tag, paths[1]))
 
 
 class Run:
@@ -119,10 +150,10 @@ def _window(study, ens, target, hypothesis, seconds=None, n_calls=None,
         if n_calls is not None and len(calls) >= n_calls:
             break
         with record_function('bench.draw'):
-            counts = ens.counts(len(calls))
+            data = ens.datasets(len(calls))
         t_call = time.perf_counter()
         with record_function('bench.study'):
-            t, free, cond = study._run_profile(counts, target, hypothesis,
+            t, free, cond = study._run_profile(data, target, hypothesis,
                                                None)
         calls.append(dict(t=t, free=free, cond=cond,
                           seconds=time.perf_counter() - t_call))
@@ -130,21 +161,21 @@ def _window(study, ens, target, hypothesis, seconds=None, n_calls=None,
     return calls, time.perf_counter() - t0
 
 
-def sampled(model, ens, calls, target, hypothesis):
-    """(counts (T, N) float64, the program's results on them, (call, toy)
-    pairs) of the sample of the window's toys that the check judges: the
-    datasets drawn again, the results in the reference's parameter
-    order."""
-    import torch
+def sampled(reference, model, ens, calls, target, hypothesis):
+    """(the reference's data of the sampled toys, the program's results on
+    them, (call, toy) pairs) of the sample of the window's toys that the
+    check judges: the datasets drawn again and their rows taken by the
+    kind's ``reference`` (``take``, ``join``), the results in the
+    reference's parameter order."""
     pairs = ens.sample(list(range(len(calls))), [len(c['t']) for c in calls])
     by_call = {}
     for c, j in pairs:
         by_call.setdefault(c, []).append(j)
-    counts, prog = [], {k: [] for k in ('x_free', 'x_cond', 'll_free',
-                                        'll_cond', 't')}
+    data, prog = [], {k: [] for k in ('x_free', 'x_cond', 'll_free',
+                                      'll_cond', 't')}
     fixed = {target: float(hypothesis)}
     for c, rows in sorted(by_call.items()):
-        counts.append(ens.counts(c, rows).reshape(len(rows), -1).double())
+        data.append(reference.take(ens.datasets(c), rows))
         r = calls[c]
         for key, res in (('free', r['free']), ('cond', r['cond'])):
             prog['x_' + key].append(check.full_points(
@@ -152,36 +183,38 @@ def sampled(model, ens, calls, target, hypothesis):
             prog['ll_' + key].append(np.asarray(res.max_ll, float)[rows])
         prog['t'].append(np.asarray(r['t'], float)[rows])
     prog = {k: np.concatenate(v) for k, v in prog.items()}
-    return torch.cat(counts), prog, pairs
+    return reference.join(data), prog, pairs
 
 
 def prepare(name, device, root=ROOT):
     """A :class:`Run`-like namespace of what a run of cell ``name`` sets
     up before the program: the cell's files (``spec``, ``cell``,
-    ``config``, ``traffic``, ``limits``), the float64 reference ``model``
-    on ``device``, the test (``target``, ``hypothesis``), the datasets'
-    ``dtype``, and ``ensemble(seed)``, the generator of a seed's datasets.
-    Sets the process's torch threads (:data:`THREADS`) and turns TF32
-    off."""
+    ``config``, ``traffic``, ``limits``), the configuration's likelihood
+    ``kind`` (:class:`Kind`), the float64 reference ``model`` on
+    ``device``, the ``truth`` (P,) the datasets are drawn at, the test
+    (``target``, ``hypothesis``), the datasets' ``dtype``, and
+    ``ensemble(seed)``, the generator of a seed's datasets. Sets the
+    process's torch threads (:data:`THREADS`) and turns TF32 off."""
     import torch
-    from ..reference.binned import BinnedModel
     spec, cell, config, traffic, limits = load_cell(name, root)
     torch.set_num_threads(THREADS)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    model = BinnedModel(config, device)
+    kind = load_kind(config['likelihood'], root)
+    model = kind.reference.build(config, device)
     truth = np.array(model.defaults, dtype=float)
     for k, v in traffic.get('truth', {}).items():
         truth[model.names.index(k)] = float(v)
-    X = torch.as_tensor(truth[None], dtype=torch.float64, device=device)
-    expected = model.expected(X, model.cells_of(X))[0]
     dtype = getattr(torch, config['dtype'])
+    draw = kind.reference.sampler(model, truth,
+                                  int(traffic['toys_per_call']), device,
+                                  dtype)
 
     def make(seed):
-        return ensemble.Ensemble(traffic, expected, model.bin_shape, seed,
-                                 device, dtype=dtype)
+        return ensemble.Ensemble(traffic, draw, seed, device)
     return Run(spec=spec, cell=cell, config=config, traffic=traffic,
-               limits=limits, model=model, target=traffic['target'],
+               limits=limits, kind=kind, model=model, truth=truth,
+               target=traffic['target'],
                hypothesis=float(traffic['hypothesis']), dtype=dtype,
                ensemble=make)
 
@@ -217,14 +250,16 @@ def run_cell(name, seed, seconds, traced, device='cuda', t_start=None,
                    if getattr(r, 'INTERPOSE', None) is not None]
     cache_dir = os.path.join(root, 'build', 'benchmark_cache')
     with roofline.installed(interposers):
-        lf, study = system.build_study(config, device, cache_dir, dtype=dtype)
+        lf, study = cx.kind.system.build_study(config, device, cache_dir,
+                                               dtype=dtype)
         marks['program'] = time.time() - t_start - reference_s
         if study_hook is not None:
             study_hook(study)
         if cuda:
             torch.cuda.reset_peak_memory_stats()
         # warm-up: one call at the cell's shapes, on datasets of its own
-        study._run_profile(ens.counts(ensemble.WARM_CALL), target, hyp, None)
+        study._run_profile(ens.datasets(ensemble.WARM_CALL), target, hyp,
+                           None)
         sync()
         setup_s = time.time() - t_start - reference_s
         records = None
@@ -262,8 +297,10 @@ def run_cell(name, seed, seconds, traced, device='cuda', t_start=None,
             records = trace.records_of(prof, attempted, n_iter, interposers)
             del prof
         t_judge = time.time()
-        counts, prog, pairs = sampled(model, ens, calls, target, hyp)
-        numbers = check.judge(model, counts, prog, target, hyp)[0]
+        data, prog, pairs = sampled(cx.kind.reference, model, ens, calls,
+                                    target, hyp)
+        numbers = check.judge(cx.kind.reference, model, data, prog, target,
+                              hyp)[0]
         judged = len(pairs)
         judge_s = time.time() - t_judge
         run = Run(setup_s=setup_s, window_s=window_s, attempted=attempted,

@@ -1,7 +1,8 @@
-"""The system under test: the port's binned likelihood and toy study, built
-from a configuration file through the port's public config API (as
-``blueice_tpu_torch.examples.xenon_like.build_config`` and
-``build_likelihood`` build theirs)."""
+"""The binned kind's system under test: the port's binned likelihood and
+``BinnedToyStudy``, built from a configuration file through the port's
+public config API (as ``blueice_tpu_torch.examples.xenon_like.build_config``
+and ``build_likelihood`` build theirs). Its datasets are the counts tensors
+that ``benchmark/reference/binned.py`` draws."""
 
 import os
 

@@ -20,6 +20,11 @@ each key means).
 The reference computes in float64. ``storage=torch.bfloat16`` makes the
 lower-precision control: the anchor payloads rounded to bfloat16, every
 operation in float32.
+
+As the binned likelihood kind (``benchmark/README.md``, "Adding a likelihood
+kind") it also gives the harness :func:`build`, the datasets of one call
+(:func:`sampler`: Poisson counts per bin at the truth) and the judged rows
+of them as the reference's data (:func:`take`, :func:`join`).
 """
 
 import itertools
@@ -28,7 +33,8 @@ import math
 import numpy as np
 import torch
 
-__all__ = ['BinnedModel', 'profile_fits', 'BLOB_SETTINGS']
+__all__ = ['BinnedModel', 'profile_fits', 'BLOB_SETTINGS', 'build',
+           'sampler', 'take', 'join']
 
 #: The blob source's shape settings and the response key that scales each
 #: (see the configuration files); any other shape parameter must be the
@@ -438,3 +444,41 @@ def profile_fits(model, counts, target, hypothesis, x_judged=None):
     res = {k: np.concatenate(v) for k, v in out.items()}
     res['t'] = np.maximum(2.0 * (res['ll_free'] - res['ll_cond']), 0.0)
     return res
+
+
+# -- the binned kind's draws and data ---------------------------------------
+
+def build(config, device='cpu', storage=torch.float64):
+    """The reference model of a configuration file (:class:`BinnedModel`)."""
+    return BinnedModel(config, device, storage=storage)
+
+
+def sampler(model, truth, toys, device, dtype):
+    """The draw of one call's datasets: ``draw(generator)`` gives ``toys``
+    Poisson datasets, a (toys, *bins) tensor in ``dtype`` on ``device``, of
+    the expected counts at the point ``truth`` (P,) in :attr:`names`
+    order."""
+    device = torch.device(device)
+    X = torch.as_tensor(np.asarray(truth, dtype=float)[None],
+                        dtype=torch.float64, device=model.device)
+    expected = model.expected(X, model.cells_of(X))[0]
+    # the expectation as the datasets' type holds it, once
+    rates = torch.as_tensor(expected, device=device).to(dtype).reshape(
+        1, -1).expand(toys, -1).contiguous()
+    shape = (toys,) + model.bin_shape
+
+    def draw(generator):
+        return torch.poisson(rates, generator=generator).reshape(shape)
+    return draw
+
+
+def take(datasets, rows):
+    """The datasets ``rows`` of one call's as the reference's data: (len
+    (rows), N) float64 counts."""
+    idx = torch.as_tensor(rows, device=datasets.device)
+    return datasets[idx].reshape(len(rows), -1).double()
+
+
+def join(parts):
+    """The reference's data of several :func:`take` parts, in order."""
+    return torch.cat(parts)

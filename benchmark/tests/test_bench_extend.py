@@ -1,14 +1,17 @@
-"""A configuration, a traffic mix, a cell and a per-layer metric added as
-new files (and entries), which the harness finds with no existing file
-edited; a whole run of each new cell on the CPU, untraced and traced."""
+"""A configuration, a traffic mix, a cell, a per-layer metric and a
+likelihood kind added as new files (and entries), which the harness finds
+with no existing file edited; a whole run of each new cell on the CPU,
+untraced and traced."""
 
+import hashlib
 import json
 import subprocess
 import sys
 
 import pytest
 
-from benchmark.harness import runner
+import events_kind
+from benchmark.harness import faults, runner
 
 
 @pytest.mark.parametrize('cell', ['tiny.tiny_mix', 'tiny_bb.tiny_mix'])
@@ -39,9 +42,11 @@ def test_new_metric_is_read_in_the_traced_run(checkout):
 def test_same_seed_same_datasets(checkout):
     cx = runner.prepare('tiny.tiny_mix', 'cpu', root=str(checkout))
     a, b = cx.ensemble(2 ** 31 + 7), cx.ensemble(2 ** 31 + 7)
-    assert (a.counts(0) == b.counts(0)).all()
-    assert (a.counts(1, [3, 1]) == a.counts(1)[[3, 1]]).all()
-    assert not (a.counts(0) == a.counts(1)).all()
+    take = cx.kind.reference.take
+    assert (a.datasets(0) == b.datasets(0)).all()
+    assert (take(a.datasets(1), [3, 1])
+            == a.datasets(1)[[3, 1]].reshape(2, -1)).all()
+    assert not (a.datasets(0) == a.datasets(1)).all()
 
 
 def test_run_in_a_process_loads_no_jax(checkout):
@@ -71,3 +76,38 @@ def test_benchmark_json_keeps_the_contract_shape():
     for c in spec['workloads']:
         cx = runner.load_cell(c['name'])
         assert cx[2]['name'] == c['config']
+
+
+def _hashes(folder):
+    return {str(p.relative_to(folder)): hashlib.sha256(p.read_bytes())
+            .hexdigest() for p in sorted(folder.rglob('*'))
+            if p.is_file() and '__pycache__' not in p.parts}
+
+
+@pytest.mark.parametrize('traced', [False, True], ids=['untraced', 'traced'])
+def test_new_likelihood_kind_runs_from_files(checkout, traced):
+    """An event-set kind (``events_kind.py``: an unbinned likelihood through
+    ``UnbinnedToyStudy``) added as new files and entries: its cell runs
+    correct, and no file that the checkout had is changed."""
+    before = _hashes(checkout)
+    before.pop('BENCHMARK.json')
+    events_kind.add(checkout)
+    result, lines = runner.run_cell(events_kind.CELL, 2 ** 33 + 9, 0.5,
+                                    traced, device='cpu', root=str(checkout))
+    assert result['correct'], lines
+    assert result['attempted'] > 0 and result['failed'] == 0
+    assert result['judged_toys'] == events_kind.MIX['check_toys']
+    assert set(result['metrics']) == (
+        {'iters_per_fit', 'median_t'} if traced
+        else {'toys_per_s', 'setup_s'})
+    after = _hashes(checkout)
+    assert {k: after.get(k) for k in before} == before
+
+
+@pytest.mark.parametrize('fault', ['half_left_out', 'answer_altered'])
+def test_new_likelihood_kind_fails_a_broken_path(checkout, fault):
+    events_kind.add(checkout)
+    result, lines = runner.run_cell(events_kind.CELL, 2 ** 33 + 10, 0.0,
+                                    False, device='cpu', root=str(checkout),
+                                    study_hook=faults.FAULTS[fault])
+    assert not result['correct'], lines

@@ -14,7 +14,6 @@ import pytest
 import torch
 
 from benchmark.harness import check, ensemble, faults, runner
-from benchmark.reference.binned import BinnedModel, profile_fits
 
 
 @pytest.mark.parametrize('fault', sorted(faults.FAULTS))
@@ -47,15 +46,15 @@ def test_control_fails_the_limits(cell):
     cell's own batch does not fit a test run on the CPU, nor do more of
     the reference's fits), judged as a run judges them."""
     cx = runner.prepare(cell, 'cpu')
+    reference = cx.kind.reference
     traffic = dict(cx.traffic, toys_per_call=64)
-    X = torch.as_tensor(cx.model.defaults[None])
-    ens = ensemble.Ensemble(traffic, cx.model.expected(
-        X, cx.model.cells_of(X))[0], cx.model.bin_shape, 2 ** 31 + 3, 'cpu',
-        dtype=cx.dtype)
-    counts = ens.counts(0, [0, 1]).reshape(2, -1).double()
-    control = BinnedModel(cx.config, 'cpu', storage=torch.bfloat16)
-    ctrl = profile_fits(control, counts, cx.target, cx.hypothesis)
-    numbers = check.judge(cx.model, counts, ctrl, cx.target,
+    ens = ensemble.Ensemble(traffic, reference.sampler(
+        cx.model, cx.model.defaults, 64, 'cpu', cx.dtype), 2 ** 31 + 3,
+        'cpu')
+    counts = reference.take(ens.datasets(0), [0, 1])
+    control = reference.build(cx.config, 'cpu', storage=torch.bfloat16)
+    ctrl = reference.profile_fits(control, counts, cx.target, cx.hypothesis)
+    numbers = check.judge(reference, cx.model, counts, ctrl, cx.target,
                           cx.hypothesis)[0]
     ok, lines = check.verdict(numbers, cx.limits)
     assert not ok, lines

@@ -37,6 +37,7 @@ def test_reference_imports_nothing_of_the_program(path):
 @pytest.mark.parametrize('path', sorted(
     glob.glob(os.path.join(BENCH, '*.py'))
     + glob.glob(os.path.join(BENCH, 'harness', '*.py'))
+    + glob.glob(os.path.join(BENCH, 'harness', 'systems', '*.py'))
     + glob.glob(os.path.join(BENCH, 'metrics', '*.py'))),
     ids=lambda p: os.path.relpath(p, BENCH))
 def test_no_file_imports_jax(path):

@@ -5,7 +5,7 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark.harness import system
+from benchmark.harness.systems import binned as system
 from benchmark.reference.binned import BinnedModel, profile_fits
 from conftest import tiny_config
 
