@@ -1130,12 +1130,19 @@ class UnbinnedToyStudy(_ToyStudy):
         return out.reshape(rows.shape[0], n, E).permute(1, 0, 2)
 
     def _fit_data(self, events):
-        """The fitters' data of an event set: (ps, mask, center)."""
+        """The fitters' data of an event set: (ps, mask, center). Counts
+        the toys scored and their event slots (``study.scored_toys``,
+        ``study.event_slots``) from the event set's shape."""
         coords, mask, bins = events
-        ps = self.score_events(coords, bins)
+        with trace('study.score'):
+            ps = self.score_events(coords, bins)
+            count('study.scored_toys', coords.shape[0])
+            count('study.event_slots', coords.shape[0] * coords.shape[1])
         mask = torch.as_tensor(mask, dtype=torch.bool,
                                device=self.device).contiguous()
-        return ps, mask, unbinned_center(self.compiled, ps, mask)
+        with trace('study.center'):
+            center = unbinned_center(self.compiled, ps, mask)
+        return ps, mask, center
 
     _prepare = _fit_data
 

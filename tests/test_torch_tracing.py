@@ -2,15 +2,18 @@
 ``set_tracing``, ``take``) around a small XENON-style binned profile on the
 CPU: nothing recorded while tracing is off, the same numbers either way,
 spans that nest under their call, counters that agree with the fits'
-iteration counts and the straggler pass, and spans on the profiler's clock."""
+iteration counts and the straggler pass, and spans on the profiler's clock;
+around a small unbinned profile, the event scoring's and centring's spans
+and counters, which read nothing more of the device."""
 
 import bisect
 
 import numpy as np
 import pytest
+import torch
 
 from blueice_tpu_torch.utils import progress, profile_to
-from blueice_tpu_torch.parallel import BinnedToyStudy
+from blueice_tpu_torch.parallel import BinnedToyStudy, UnbinnedToyStudy
 from blueice_tpu_torch.examples.xenon_like import build_likelihood
 
 from test_torch_profile_grid_map import (  # noqa: F401
@@ -188,3 +191,95 @@ def test_trace_is_a_shared_no_op_while_off():
     with progress.trace('newton.iter'):
         progress.count('newton.iterations')
     assert progress.take() == {'spans': [], 'counters': {}}
+
+
+@pytest.fixture(scope='module')
+def unbinned_lf():
+    """The XENON-style likelihood as an extended unbinned one over 4 x 3
+    bins, 0.1 live days (about 60 events a toy)."""
+    return build_likelihood('unbinned', n_cs1_bins=4, n_cs2_bins=3,
+                            livetime_days=0.1)
+
+
+def test_unbinned_profile_records_scoring_and_centring(unbinned_lf, tracing):
+    """Each event set's fit data are made once in a profile, before its
+    ``study.profile`` call: one ``study.score`` and one ``study.center``
+    span, scoring before centring, neither waiting on the device (no
+    ``sync`` inside); ``study.scored_toys`` counts the toys and
+    ``study.event_slots`` their padded event slots, B x n_max, inside the
+    scoring's span."""
+    study = UnbinnedToyStudy(unbinned_lf, device='cpu', max_iter=30)
+    study.profile_ts(3, N_TOYS, TARGET, 1.0)
+    study.profile_ts(4, N_TOYS, TARGET, 1.0)
+    got = progress.take()
+    spans, counters = got['spans'], got['counters']
+    roots = [spans[i] for i, s in enumerate(spans) if s.parent is None]
+    assert [s.name for s in roots] == [
+        'study.score', 'study.center', 'study.profile'] * 2
+    for i, s in enumerate(spans):
+        if s.name in ('study.score', 'study.center'):
+            assert not [k for k in spans if k.parent == i]
+    assert counters['study.scored_toys'] == 2 * N_TOYS
+    assert counters['study.event_slots'] == 2 * N_TOYS * study.n_max
+    for s in roots:
+        if s.name == 'study.score':
+            assert s.counts == {'study.scored_toys': N_TOYS,
+                                'study.event_slots': N_TOYS * study.n_max}
+        else:
+            assert 'study.scored_toys' not in s.counts
+
+
+#: The tensor methods that read a value back to the host
+HOST_READS = ('item', 'tolist', 'cpu', 'numpy', '__int__', '__float__',
+              '__bool__', '__index__')
+
+
+@pytest.mark.parametrize('on', [False, True], ids=['off', 'on'])
+def test_unbinned_spans_read_nothing_of_the_device(unbinned_lf, monkeypatch,
+                                                  on):
+    """The scoring's and centring's spans and counters add no host read
+    of a tensor (on the card, each would wait for the device), with
+    tracing off or on: an event set's fit data are made with the same reads
+    back, and the same data, as scoring and centring without them; with
+    tracing off nothing is recorded."""
+    from blueice_tpu_torch.parallel.fitter import unbinned_center
+    study = UnbinnedToyStudy(unbinned_lf, device='cpu', max_iter=30)
+    events = study.simulate(5, N_TOYS)
+    coords, mask, bins = events
+    reads = []
+
+    def counted(make):
+        reads.clear()
+        with monkeypatch.context() as patch:
+            for name in HOST_READS:
+                def read(self, *args, _name=name,
+                         _original=getattr(torch.Tensor, name), **kwargs):
+                    reads.append(_name)
+                    return _original(self, *args, **kwargs)
+                patch.setattr(torch.Tensor, name, read)
+            out = make()
+        return list(reads), out
+
+    def plain():
+        ps = study.score_events(coords, bins)
+        return ps, mask, unbinned_center(study.compiled, ps, mask)
+
+    progress.take()
+    progress.set_tracing(on)
+    try:
+        spanned, data = counted(lambda: study._fit_data(events))
+    finally:
+        progress.set_tracing(False)
+    got = progress.take()
+    without, data0 = counted(plain)
+    assert spanned == without
+    assert torch.equal(data[0], data0[0]) and torch.equal(data[1], data0[1])
+    for a, b in zip(data[2], data0[2]):
+        assert torch.equal(a, b)
+    if on:
+        assert [s.name for s in got['spans']] == ['study.score',
+                                                  'study.center']
+        assert got['counters'] == {'study.scored_toys': N_TOYS,
+                                   'study.event_slots': N_TOYS * study.n_max}
+    else:
+        assert got == {'spans': [], 'counters': {}}
