@@ -99,8 +99,9 @@ def ensemble_digest(toys):
 
 def _launch_modules():
     from .ops import (fused, fused_bb, fused_bb_lite, fused_unbinned,
-                      param_graph)
-    return (fused, fused_bb, fused_bb_lite, fused_unbinned, param_graph)
+                      newton_step, param_graph)
+    return (fused, fused_bb, fused_bb_lite, fused_unbinned, param_graph,
+            newton_step)
 
 
 def _launches():

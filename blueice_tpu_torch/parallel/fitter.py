@@ -49,7 +49,8 @@ import numpy as np
 import torch
 
 from ..exceptions import NoOpimizationNecessary
-from ..ops import fused, fused_bb, fused_bb_lite, fused_unbinned, param_graph
+from ..ops import (fused, fused_bb, fused_bb_lite, fused_unbinned,
+                   newton_step, param_graph)
 from ..ops.binned_vgh import (_ll_from_P, binned_vgh_log,
                               corner_weight_tables, log_morph_from_lerp)
 from ..ops.interp import cell_index, clip
@@ -258,11 +259,153 @@ def _all_finite(x):
     return torch.isfinite(x).all(dim=-1, keepdim=True)
 
 
+def _finite_or_zero(x):
+    return torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+
+
 def _nonzero(mask):
     """The indices of ``mask``'s true entries: a host sync, since
     ``torch.nonzero`` waits for the device to size its output."""
     with trace('sync'):
         return torch.nonzero(mask).flatten()
+
+
+def _step_kernel_eligible(device, dtype):
+    """Whether a fit's Newton steps run as the CUDA kernels of
+    :mod:`~blueice_tpu_torch.ops.newton_step`: on every CUDA device, for
+    any number of coordinates; the PyTorch step (:func:`_step_candidates`,
+    :func:`_step_update`) on the CPU. Raises ValueError for a fit on a
+    CUDA device in a dtype the kernels do not take (float32, float64)."""
+    if torch.device(device).type != 'cuda':
+        return False
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError("the Newton step on a CUDA device takes float32 or "
+                         "float64, got %s" % dtype)
+    return True
+
+
+class _StepConsts:
+    """The PyTorch step's constant tensors of a fit over ``n`` coordinates:
+    the identity, the drop directions (the kink coordinates' rows of it),
+    the line-search fractions, the jumps and the snaps (coordinate,
+    u-space anchors tensor)."""
+
+    def __init__(self, n, kink_coords, kink_jumps, snaps, dt, dev):
+        self.eye = torch.eye(n, dtype=dt, device=dev)
+        self.drop_dirs = (self.eye[list(kink_coords)] if kink_coords
+                          else torch.zeros((0, n), dtype=dt, device=dev))
+        self.n_drop = self.drop_dirs.shape[0]
+        self.alphas = torch.tensor(newton_step.ALPHAS, dtype=dt, device=dev)
+        self.jumps = torch.tensor(list(kink_jumps), dtype=dt, device=dev)
+        self.snaps = [(ci, torch.as_tensor(a, dtype=dt, device=dev))
+                      for ci, a in snaps]
+
+
+def _step_candidates(c, u, g, H, lam):
+    """The Newton step's line-search candidates (L, A, n) at u (L, n), from
+    the lanes' finite gradient g (L, n) and Hessian H (L, n, n) and their
+    damping lam (L,): the damped Newton step at 3 fractions, with each kink
+    coordinate dropped, the jumps along each kink coordinate, each snap
+    coordinate onto its nearest anchor and, with snaps, the active-set
+    step. ``c``: the fit's :class:`_StepConsts`."""
+    n, dev = u.shape[1], u.device
+    du, d = _damped_solve(H, g, lam)
+    du = torch.where(_all_finite(du), du,
+                     -g / (torch.clamp(lam, min=1.0)[:, None] * d))
+    # Ascent proposals of an indefinite damped Hessian become a
+    # curvature-scaled steepest-descent step
+    du = torch.where(((g * du).sum(-1) > 0)[:, None],
+                     -g / (d * (1.0 + lam)[:, None]), du)
+
+    cands = [u[:, None, :] + c.alphas[None, :, None] * du[:, None, :],
+             u[:, None, :] + du[:, None, :] * (1.0 - c.drop_dirs)[None]]
+    if c.jumps.numel():
+        cands.append((u[:, None, None, :] + c.jumps[None, :, None, None]
+                      * c.drop_dirs[None, None, :, :]).reshape(
+                          u.shape[0], -1, n))
+    if c.snaps:
+        # Second-order snap: coordinate ci onto its nearest anchor, the
+        # rest from the reduced Newton system under that displacement
+        rows = torch.arange(u.shape[0], device=dev)
+        act = torch.ones_like(u)
+        for ci, au in c.snaps:
+            dist = torch.abs(au[None, :] - u[:, ci:ci + 1])
+            nearest = au[torch.argmin(dist, dim=1)]
+            delta = nearest - u[:, ci]
+            mask = 1.0 - c.eye[ci]
+            gm = (g + H[:, :, ci] * delta[:, None]) * mask
+            Hm = (H * (mask[:, None] * mask[None, :])
+                  + torch.outer(c.eye[ci], c.eye[ci]))
+            du_s, _ = _damped_solve(Hm, gm, lam)
+            du_s = torch.where(_all_finite(du_s), du_s,
+                               torch.zeros_like(du_s))
+            cand = u + du_s
+            cand[rows, ci] = nearest
+            cands.append(cand[:, None, :])
+            at_anchor = dist.min(dim=1).values < 1e-6
+            act = act * torch.where(at_anchor[:, None], mask[None],
+                                    torch.ones_like(mask)[None])
+        # Active-set candidate: freeze every at-anchor kink coordinate
+        ga = g * act
+        Ha = H * (act[:, :, None] * act[:, None, :]) + torch.diag_embed(
+            1.0 - act)
+        du_a, _ = _damped_solve(Ha, ga, lam)
+        du_a = torch.where(_all_finite(du_a), du_a, torch.zeros_like(du_a))
+        cands.append((u + du_a * act)[:, None, :])
+    return torch.cat(cands, dim=1)
+
+
+def _pick_best(fs, cands):
+    """Each lane's first least candidate of values fs (L, A), non-finite
+    as +inf: (index, value, candidate)."""
+    fs = torch.where(torch.isfinite(fs), fs,
+                     torch.full_like(fs, float('inf')))
+    best = torch.argmin(fs, dim=1)
+    rows = torch.arange(cands.shape[0], device=cands.device)
+    return best, fs[rows, best], cands[rows, best]
+
+
+def _step_update(g, H, u, fval, lam, nu, it, stall, rounds, best, f_try,
+                 u_try, n_drop, tol, ftol, polish):
+    """The Newton step's result at its lanes from the winning candidate
+    (index ``best``, value ``f_try``, point ``u_try``): accept it or not,
+    the Nielsen gain-ratio damping, the stop rule and the polish entry."""
+    du_eff = u_try - u
+    accept = torch.isfinite(f_try) & (f_try < fval)
+    # Nielsen gain-ratio damping schedule
+    predicted = -((g * du_eff).sum(-1)
+                  + 0.5 * (du_eff * (H @ du_eff[:, :, None])[:, :, 0])
+                  .sum(-1))
+    rho = (fval - f_try) / torch.where(predicted > 0, predicted,
+                                       torch.ones_like(predicted))
+    good = accept & (predicted > 0)
+    shrink = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
+    lam_new = torch.clamp(
+        torch.where(good, lam * shrink,
+                    torch.where(accept, lam, lam * nu)), 1e-12, 1e10)
+    nu_new = torch.where(accept, torch.full_like(nu, 2.0),
+                         torch.clamp(nu * 2.0, max=64.0))
+    u_new = torch.where(accept[:, None], u_try, u)
+    f_new = torch.where(accept, f_try, fval)
+
+    gnorm = torch.abs(g).max(dim=-1).values
+    step = torch.abs(u_new - u).max(dim=-1).values
+    fdelta = fval - f_new
+    stall_new = torch.where(fdelta > ftol, torch.zeros_like(stall),
+                            stall + 1)
+    undamped = (best == 0) | ((best >= 3) & (best < 3 + n_drop))
+    converged = ((gnorm < tol)
+                 | (accept & (step < 1e-14))
+                 | (accept & (fdelta <= ftol) & (lam < 1e-2)
+                    & undamped & (it > 3))
+                 | (lam_new > 1e8)
+                 | (stall_new >= 4))
+    enter_polish = converged & (rounds < polish)
+    return dict(u=u_new, f=f_new, lam=lam_new, nu=nu_new, it=it + 1,
+                done=converged & ~enter_polish,
+                stall=torch.where(converged, torch.zeros_like(stall),
+                                  stall_new),
+                pc_enter=enter_polish)
 
 
 @traced('newton.fit')
@@ -278,6 +421,13 @@ def minimize_newton(f_many, vgh, u0, max_iter=60, tol=1e-8, ftol=None,
     1e-10 in float64), or the damping/stall safeguards; a converged lane
     then polishes one coordinate per iteration (up to ``polish`` sweeps)
     and resumes Newton if a sweep improved f.
+
+    The Newton step runs as two CUDA kernels
+    (:mod:`~blueice_tpu_torch.ops.newton_step`, one launch before the
+    step's value call and one after, which writes the lanes' state) on a
+    CUDA device, and as the PyTorch ops of :func:`_step_candidates` and
+    :func:`_step_update` on the CPU (:func:`_step_kernel_eligible`). Chosen
+    once, here.
 
     :param f_many: f_many(lanes, cands) -> (L, A) objective values at
       candidates ``cands`` (L, A, n) of the lanes ``lanes`` (L,) (an index
@@ -295,125 +445,56 @@ def minimize_newton(f_many, vgh, u0, max_iter=60, tol=1e-8, ftol=None,
     dt, dev = u0.dtype, u0.device
     if ftol is None:
         ftol = 1e-3 if dt == torch.float32 else 1e-10
+    kink_coords = tuple(range(n)) if kink_coords is None \
+        else tuple(kink_coords)
+    kink_jumps = tuple(kink_jumps)
+    snaps = ([] if snap_anchors is None else
+             [(ci, np.asarray(a)) for ci, a in zip(kink_coords, snap_anchors)
+              if a is not None])
+    table = consts = None
     # rows of eye picked by a host list, and tables copied from host lists:
     # each copy waits for the device
     with trace('sync'):
         eye = torch.eye(n, dtype=dt, device=dev)
-        if kink_coords is None:
-            kink_coords = tuple(range(n))
-            drop_dirs = eye
+        if _step_kernel_eligible(dev, dt):
+            table = newton_step.build_table(n, kink_coords, kink_jumps,
+                                            snaps, dev)
         else:
-            kink_coords = tuple(kink_coords)
-            drop_dirs = (eye[list(kink_coords)] if kink_coords
-                         else torch.zeros((0, n), dtype=dt, device=dev))
-        alphas = torch.tensor([1.0, 0.4, 0.1], dtype=dt, device=dev)
-        jumps = torch.tensor(list(kink_jumps), dtype=dt, device=dev)
-        snaps = ([] if snap_anchors is None else
-                 [(ci, torch.as_tensor(np.asarray(a), dtype=dt, device=dev))
-                  for ci, a in zip(kink_coords, snap_anchors)
-                  if a is not None])
+            consts = _StepConsts(n, kink_coords, kink_jumps, snaps, dt, dev)
         polish_steps = torch.tensor(
             [0.3, -0.3, 0.1, -0.1, 0.03, -0.03, 0.01, -0.01, 3e-3, -3e-3,
              1e-3, -1e-3, 3e-4, -3e-4, 1e-4, -1e-4, 3e-5, -3e-5, 1e-5,
              -1e-5], dtype=dt, device=dev)
-    n_drop = drop_dirs.shape[0]
 
     def best_of(lanes, cands):
         with trace('newton.value'):
             fs = f_many(lanes, cands)
-        fs = torch.where(torch.isfinite(fs), fs,
-                         torch.full_like(fs, float('inf')))
-        best = torch.argmin(fs, dim=1)
-        rows = torch.arange(cands.shape[0], device=dev)
-        return best, fs[rows, best], cands[rows, best]
+        return _pick_best(fs, cands)
 
-    def newton_step(lanes, u, fval, lam, nu, it, stall, rounds):
+    def newton_step_torch(lanes, u, fval, lam, nu, it, stall, rounds):
+        count('newton.step_torch')
         with trace('newton.vgh'):
             _, g, H = vgh(lanes, u)
-        g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
-        H = torch.where(torch.isfinite(H), H, torch.zeros_like(H))
-        du, d = _damped_solve(H, g, lam)
-        du = torch.where(_all_finite(du), du,
-                         -g / (torch.clamp(lam, min=1.0)[:, None] * d))
-        # Ascent proposals of an indefinite damped Hessian become a
-        # curvature-scaled steepest-descent step
-        du = torch.where(((g * du).sum(-1) > 0)[:, None],
-                         -g / (d * (1.0 + lam)[:, None]), du)
+        g, H = _finite_or_zero(g), _finite_or_zero(H)
+        cands = _step_candidates(consts, u, g, H, lam)
+        best, f_try, u_try = best_of(lanes, cands)
+        return _step_update(g, H, u, fval, lam, nu, it, stall, rounds, best,
+                            f_try, u_try, consts.n_drop, tol, ftol, polish)
 
-        cands = [u[:, None, :] + alphas[None, :, None] * du[:, None, :],
-                 u[:, None, :] + du[:, None, :] * (1.0 - drop_dirs)[None]]
-        if jumps.numel():
-            cands.append((u[:, None, None, :] + jumps[None, :, None, None]
-                          * drop_dirs[None, None, :, :]).reshape(
-                              u.shape[0], -1, n))
-        if snaps:
-            # Second-order snap: coordinate ci onto its nearest anchor, the
-            # rest from the reduced Newton system under that displacement
-            rows = torch.arange(u.shape[0], device=dev)
-            act = torch.ones_like(u)
-            for ci, au in snaps:
-                dist = torch.abs(au[None, :] - u[:, ci:ci + 1])
-                nearest = au[torch.argmin(dist, dim=1)]
-                delta = nearest - u[:, ci]
-                mask = 1.0 - eye[ci]
-                gm = (g + H[:, :, ci] * delta[:, None]) * mask
-                Hm = (H * (mask[:, None] * mask[None, :])
-                      + torch.outer(eye[ci], eye[ci]))
-                du_s, _ = _damped_solve(Hm, gm, lam)
-                du_s = torch.where(_all_finite(du_s), du_s,
-                                   torch.zeros_like(du_s))
-                cand = u + du_s
-                cand[rows, ci] = nearest
-                cands.append(cand[:, None, :])
-                at_anchor = dist.min(dim=1).values < 1e-6
-                act = act * torch.where(at_anchor[:, None], mask[None],
-                                        torch.ones_like(mask)[None])
-            # Active-set candidate: freeze every at-anchor kink coordinate
-            ga = g * act
-            Ha = H * (act[:, :, None] * act[:, None, :]) + torch.diag_embed(
-                1.0 - act)
-            du_a, _ = _damped_solve(Ha, ga, lam)
-            du_a = torch.where(_all_finite(du_a), du_a,
-                               torch.zeros_like(du_a))
-            cands.append((u + du_a * act)[:, None, :])
-        best, f_try, u_try = best_of(lanes, torch.cat(cands, dim=1))
-        du_eff = u_try - u
-
-        accept = torch.isfinite(f_try) & (f_try < fval)
-        # Nielsen gain-ratio damping schedule
-        predicted = -((g * du_eff).sum(-1)
-                      + 0.5 * (du_eff * (H @ du_eff[:, :, None])[:, :, 0])
-                      .sum(-1))
-        rho = (fval - f_try) / torch.where(predicted > 0, predicted,
-                                           torch.ones_like(predicted))
-        good = accept & (predicted > 0)
-        shrink = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
-        lam_new = torch.clamp(
-            torch.where(good, lam * shrink,
-                        torch.where(accept, lam, lam * nu)), 1e-12, 1e10)
-        nu_new = torch.where(accept, torch.full_like(nu, 2.0),
-                             torch.clamp(nu * 2.0, max=64.0))
-        u_new = torch.where(accept[:, None], u_try, u)
-        f_new = torch.where(accept, f_try, fval)
-
-        gnorm = torch.abs(g).max(dim=-1).values
-        step = torch.abs(u_new - u).max(dim=-1).values
-        fdelta = fval - f_new
-        stall_new = torch.where(fdelta > ftol, torch.zeros_like(stall),
-                                stall + 1)
-        undamped = (best == 0) | ((best >= 3) & (best < 3 + n_drop))
-        converged = ((gnorm < tol)
-                     | (accept & (step < 1e-14))
-                     | (accept & (fdelta <= ftol) & (lam < 1e-2)
-                        & undamped & (it > 3))
-                     | (lam_new > 1e8)
-                     | (stall_new >= 4))
-        enter_polish = converged & (rounds < polish)
-        return dict(u=u_new, f=f_new, lam=lam_new, nu=nu_new, it=it + 1,
-                    done=converged & ~enter_polish,
-                    stall=torch.where(converged, torch.zeros_like(stall),
-                                      stall_new),
-                    pc_enter=enter_polish)
+    def newton_step_kernels(lanes):
+        """The step on the kernels, its result written into the batch
+        state at ``lanes``."""
+        count('newton.step_kernel')
+        with trace('newton.vgh'):
+            _, g, H = vgh(lanes, u[lanes])
+        g, H = g.contiguous(), H.contiguous()
+        cands = newton_step.newton_cands(table, lanes, u, lam, g, H)
+        with trace('newton.value'):
+            fs = f_many(lanes, cands)
+        newton_step.newton_accept(
+            table, lanes, fs.contiguous(), cands, g, H,
+            (u, f, lam, nu, it, done, stall, pc, rounds, improved), tol,
+            ftol, polish)
 
     def polish_step(lanes, u, fval, lam, nu, pc, rounds, improved):
         e = eye[torch.clamp(pc, 0, n - 1)]
@@ -434,9 +515,9 @@ def minimize_newton(f_many, vgh, u0, max_iter=60, tol=1e-8, ftol=None,
                     improved=improved & ~last)
 
     all_lanes = torch.arange(B, device=dev)
-    u = u0.clone()
+    u = u0.clone(memory_format=torch.contiguous_format)
     with trace('newton.value'):
-        f = f_many(all_lanes, u[:, None, :])[:, 0]
+        f = f_many(all_lanes, u[:, None, :])[:, 0].contiguous()
     lam = torch.full((B,), init_damping, dtype=dt, device=dev)
     nu = torch.full((B,), 2.0, dtype=dt, device=dev)
     it = torch.zeros(B, dtype=torch.int64, device=dev)
@@ -457,11 +538,14 @@ def minimize_newton(f_many, vgh, u0, max_iter=60, tol=1e-8, ftol=None,
                 break
             count('newton.iterations')
             count('newton.lanes_stepped', lanes_n.numel() + lanes_p.numel())
-            if lanes_n.numel():
+            if lanes_n.numel() and table is not None:
+                with trace('newton.step'):
+                    newton_step_kernels(lanes_n)
+            elif lanes_n.numel():
                 L = lanes_n
                 with trace('newton.step'):
-                    out = newton_step(L, u[L], f[L], lam[L], nu[L], it[L],
-                                      stall[L], rounds[L])
+                    out = newton_step_torch(L, u[L], f[L], lam[L], nu[L],
+                                            it[L], stall[L], rounds[L])
                 with trace('newton.scatter'):
                     u[L], f[L], lam[L], nu[L] = (out['u'], out['f'],
                                                  out['lam'], out['nu'])
@@ -482,8 +566,7 @@ def minimize_newton(f_many, vgh, u0, max_iter=60, tol=1e-8, ftol=None,
                                                  out['lam'], out['nu'])
                     it[L] = it[L] + 1
                     done[L] = done[L] | out['finished']
-                    with trace('sync'):
-                        stall[L] = 0
+                    stall.index_fill_(0, L, 0)
                     pc[L], rounds[L], improved[L] = (out['pc'], out['rounds'],
                                                      out['improved'])
     return u, f, it

@@ -26,8 +26,9 @@ model the repo supports, float32 on the card:
   band_shift and band_width_scale (rho = 0.5), 256 toys; each child runs
   the binned kernels (``combined_likelihood``);
 * ``xenon_log``: the binned model with geometric (log) template morphing,
-  256 toys; no kernel may launch, since the kernels bake in the linear
-  lerp (``xenon_log_likelihood``).
+  256 toys; no likelihood kernel may launch, since the kernels bake in the
+  linear lerp (``xenon_log_likelihood``); the Newton step's two do, as in
+  every fit on the card.
 
 For each path:
 
@@ -64,12 +65,26 @@ For each path:
    lane's; the kernels alone replayed from CUDA graphs, the wrapper calls
    and the PyTorch graph timed, all summed beside the summed bound; rows
    ``graph_fwd`` and ``graph_chain`` of the path in the ``{"kernels":
-   ...}`` line);
+   ...}`` line); then, on every path, the Newton step's two kernels over
+   one profile's own calls (``step_rows``: every ``newton_cands`` and
+   ``newton_accept`` call recorded; #20 held to the PyTorch step in
+   float64 on the same inputs, each lane within 1e-4 of its largest
+   candidate or twice the float32 PyTorch step's gap, and no more lanes
+   on another branch of the step than twice the float32 PyTorch step's,
+   ``cands_gate``; #21 held to the float32 PyTorch step's write-back,
+   every lane's state equal but lam (1e-5 relative) except where float32
+   rounding decides, ``accept_gate``; timed as the graph's, rows
+   ``newton_cands`` / ``newton_accept`` of the path);
 3. the same toys (counts, or event sets) fitted on CUDA in float32 and on
    the CPU in float64 (plain versions): max |d max_ll| <= 0.05, median
    |d t| <= 0.01.
 
-Then the roofline part (``blueice_tpu_torch.utils.roofline``):
+Then, in a run with no arguments, the Newton step's kernels at the
+benchmark cells' shape (``step_cell_rows``: n = 8, A = 12, L = 131,072 and
+4,096 lanes, float32): each alone, warm and L2-cold, beside its bytes
+bound, and the step around its value call on the kernels against the
+PyTorch step's ops (rows with path 'cells'). Then the roofline part
+(``blueice_tpu_torch.utils.roofline``):
 
 4. the op-mix kernel (``csrc/op_mix.cu``) vs its plain version for each mix
    (fma, bb, bblite, poisson), one loop trip on the check inputs
@@ -85,7 +100,11 @@ Then the roofline part (``blueice_tpu_torch.utils.roofline``):
 
 Wherever a phase below has a path's kernels launch and no other, the
 parameter graph's two kernels count among the path's (``own_kernels``):
-they run wherever a path's likelihood kernels do.
+they run wherever a path's likelihood kernels do; and so do the Newton
+step's two (``STEP_KERNELS``), which every fit on the card takes, on every
+engine: where a phase below fits on the autodiff or the dense engine with
+no kernel launched, the step's two launched and no other
+(``only_step_launches``).
 
 Between the paths and the roofline part runs the statistics part
 (``STATS``), on the studies of the paths above
@@ -394,8 +413,10 @@ def rel_to_toy_max(a, b):
 def ptxas_report(lib_paths):
     """The -Xptxas -v lines (registers, spills, static shared memory) of the
     instantiations the paths run: S = 6, K = 4 (XENON) and S = 2, K = 1
-    (Gaussian unbinned), the parameter graph's at K = 4 and K = 1, and of
-    the four op-mix kernels, from the logs kept beside the libraries."""
+    (Gaussian unbinned), the parameter graph's at K = 4 and K = 1, the
+    Newton step's in float32 at n = 8 and 7 (the cells' free and
+    conditional fits) and at any n (N = 0), and of the four op-mix
+    kernels, from the logs kept beside the libraries."""
     lines = []
     for path in lib_paths:
         with open(path[:-3] + '.log') as f:
@@ -405,8 +426,12 @@ def ptxas_report(lib_paths):
             shape = re.search(r'([a-z_]+_kernel)ILi(\d)ELi(\d)E', name)
             mix = re.search(r'(op_mix_kernel)ILi(\d)E', name)
             graph = re.search(r'(graph_[a-z]+_kernel)ILi(\d)EE', name)
+            step = re.search(r'(newton_[a-z]+_kernel)I([fd])Li(\d+)E', name)
             if mix:
                 label = '%s<%s>' % mix.groups()
+            elif step and step.group(2) == 'f' and step.group(3) in (
+                    '8', '7', '0'):
+                label = '%s<float,%s>' % (step.group(1), step.group(3))
             elif graph and graph.group(2) in ('4', '1'):
                 label = '%s<%s>' % graph.groups()
             elif shape and (shape.group(2, 3) == ('6', '4') or (
@@ -969,9 +994,11 @@ def read_launches(mods):
 
 def own_kernels(label):
     """The kernels a phase of the path launches: its two likelihood kernels
-    and, with them, the parameter graph's two (``GRAPH_KERNELS``)."""
+    and, with them, the parameter graph's two (``GRAPH_KERNELS``); and the
+    Newton step's two (``STEP_KERNELS``), which every fit on the card
+    takes."""
     own = [name for name, _, _, _ in META[label]]
-    return own + list(GRAPH_KERNELS) if own else own
+    return (own + list(GRAPH_KERNELS) if own else own) + list(STEP_KERNELS)
 
 
 def check_own_launches(label, launches, what):
@@ -1467,6 +1494,413 @@ def graph_rows(label, study, launches):
     return rows
 
 
+# -- the Newton step's kernels -------------------------------------------------
+
+#: the Newton step's two kernels (``ops/newton_step.py``,
+#: ``csrc/newton_step.cu``), which every fit on the card takes
+STEP_KERNELS = ('newton_cands', 'newton_accept')
+#: their limits (``tests/test_torch_newton_step.py``'s): the candidates
+#: within 1e-4 of each lane's largest |candidate| (at least 1) of the
+#: PyTorch step in float64 on the same inputs, or within twice the float32
+#: PyTorch step's own gap there, whichever is larger; the accept kernel's
+#: state equal to the float32 PyTorch step's but lam (1e-5 relative)
+STEP_TOLERANCE = (1e-4, 1e-5)
+#: what they replace: the JAX package's Newton step, jnp ops inside one
+#: jitted lax.while_loop body that XLA fuses (no Pallas kernel)
+STEP_REPLACES = 'blueice_tpu/parallel/fitter.py:291'
+#: the benchmark cells' step: n = 8 coordinates, kink coordinates 4-7 (no
+#: jumps), each a snap onto three anchors: A = 12 candidates
+CELL_STEP = (8, (4, 5, 6, 7), ())
+CELL_LANES = (131072, 4096)
+
+
+def record_step_calls(run):
+    """Every Newton-step kernel call of ``run()``: (candidate calls, accept
+    calls), each the call's arguments cloned before the call (the state
+    the accept kernel writes, too) and its outputs after.
+    ``newton_step.newton_cands`` and ``.newton_accept``, which the fitter
+    reads at each call, are wrapped for the run and put back after."""
+    from blueice_tpu_torch.ops import newton_step
+    cands_w, accept_w = newton_step.newton_cands, newton_step.newton_accept
+    cands, accepts = [], []
+
+    def rec_cands(table, lanes, u, lam, g, H):
+        args = (table, lanes.clone(), u.clone(), lam.clone(), g.clone(),
+                H.clone())
+        out = cands_w(table, lanes, u, lam, g, H)
+        cands.append((args, out.clone()))
+        return out
+
+    def rec_accept(table, lanes, fs, cs, g, H, state, tol, ftol, polish):
+        args = (table, lanes.clone(), fs.clone(), cs.clone(), g.clone(),
+                H.clone(), tuple(x.clone() for x in state), tol, ftol,
+                polish)
+        accept_w(table, lanes, fs, cs, g, H, state, tol, ftol, polish)
+        accepts.append((args, tuple(x.clone() for x in state)))
+    # the launchers count on the module's names
+    rec_cands.launches = rec_accept.launches = 0
+    newton_step.newton_cands, newton_step.newton_accept = (rec_cands,
+                                                           rec_accept)
+    try:
+        run()
+    finally:
+        newton_step.newton_cands, newton_step.newton_accept = (cands_w,
+                                                               accept_w)
+    torch.cuda.synchronize()
+    return cands, accepts
+
+
+def step_consts(table, dtype, device):
+    """The PyTorch step's constants (``fitter._StepConsts``) of a kernel
+    table."""
+    from blueice_tpu_torch.parallel import fitter
+    snaps = [(c, np.asarray(table.anchors[table.snap_off[s]:
+                                          table.snap_off[s + 1]]))
+             for s, c in enumerate(table.snap_coord)]
+    return fitter._StepConsts(table.n, table.drop_coord, table.jumps, snaps,
+                              dtype, device)
+
+
+def torch_cands(table, lanes, u, lam, g, H, dtype=None):
+    """The PyTorch step's candidates at the kernel's inputs (in ``dtype``,
+    default theirs)."""
+    from blueice_tpu_torch.parallel import fitter
+    dt = dtype or u.dtype
+    c = step_consts(table, dt, u.device)
+    return fitter._step_candidates(
+        c, u[lanes].to(dt), fitter._finite_or_zero(g).to(dt),
+        fitter._finite_or_zero(H).to(dt), lam[lanes].to(dt))
+
+
+def torch_accept(table, lanes, fs, cands, g, H, state, tol, ftol, polish):
+    """The PyTorch step's winner, update and write-back at the lanes, into
+    ``state`` (the fitter's scatter)."""
+    from blueice_tpu_torch.parallel import fitter
+    u, f, lam, nu, it, done, stall, pc, rounds, improved = state
+    L = lanes
+    g, H = fitter._finite_or_zero(g), fitter._finite_or_zero(H)
+    best, f_try, u_try = fitter._pick_best(fs, cands)
+    out = fitter._step_update(g, H, u[L], f[L], lam[L], nu[L], it[L],
+                              stall[L], rounds[L], best, f_try, u_try,
+                              table.n_drop, tol, ftol, polish)
+    u[L], f[L], lam[L], nu[L] = out['u'], out['f'], out['lam'], out['nu']
+    it[L], done[L], stall[L] = out['it'], out['done'], out['stall']
+    pc[L] = torch.where(out['pc_enter'], torch.zeros_like(pc[L]), pc[L])
+    improved[L] = False
+
+
+def step_branches(table, u, g, H, lam, cands):
+    """Each lane's branches (L, 1 + systems) of its candidates (L, A, n) at
+    u (L, n), from float64: the Newton step's (0 the solve, 1 the
+    steepest-descent rescue of a failed solve, 2 the ascent test's step)
+    and, per snap and the active set, 1 where its solve was not finite (its
+    step zeroed)."""
+    u, lam, cands = u.double(), lam.double(), cands.double()
+    g, H = (torch.where(torch.isfinite(x), x, torch.zeros_like(x)).double()
+            for x in (g, H))
+    d = H.diagonal(dim1=-2, dim2=-1).abs().clamp(min=1e-10)
+    x = cands[:, 0] - u
+    scale = u.abs().max(-1).values.clamp(min=1.0)
+
+    def near(y):
+        return (x - y).abs().max(-1).values <= 1e-5 * scale
+    newton = torch.zeros(u.shape[0], dtype=torch.int64, device=u.device)
+    newton[near(-g / (lam.clamp(min=1.0)[:, None] * d))] = 1
+    newton[near(-g / (d * (1.0 + lam)[:, None]))] = 2
+    out = [newton]
+    base = 3 + table.n_drop * (1 + table.n_jump)
+    for s, ci in enumerate(table.snap_coord):
+        step = cands[:, base + s] - u
+        step[:, ci] = 0.0
+        out.append((step == 0).all(-1).long())
+    if table.n_snap:
+        out.append((cands[:, -1] == u).all(-1).long())
+    return torch.stack(out, -1)
+
+
+def cands_gate(calls):
+    """#20 over recorded calls against the PyTorch step in float64 on the
+    same inputs (``STEP_TOLERANCE``): each lane's gap over its largest
+    |candidate| (at least 1). A lane whose branches (``step_branches``)
+    are float64's is held to the tolerance or to twice the float32 PyTorch
+    step's gap, the larger; a lane whose branch float32 rounding turned is
+    counted, and the kernel may turn no more than twice the float32
+    PyTorch step's such lanes, plus one. Returns the report dict."""
+    tol = STEP_TOLERANCE[0]
+    rep = dict(lanes=0, worst=0.0, worst_torch=0.0, flips=0, flips_torch=0,
+               over=0)
+    for (table, lanes, u, lam, g, H), got in calls:
+        ref = torch_cands(table, lanes, u, lam, g, H, torch.float64)
+        ref32 = torch_cands(table, lanes, u, lam, g, H)
+        scale = ref.abs().flatten(1).max(1).values.clamp(min=1.0)
+
+        def gap(a):
+            return ((a.double() - ref).abs().flatten(1).max(1).values
+                    / scale)
+        e_k, e_t = gap(got), gap(ref32)
+        args = (table, u[lanes], g, H, lam[lanes])
+        b64 = step_branches(*args, ref)
+        same_k = (step_branches(*args, got) == b64).all(-1)
+        same_t = (step_branches(*args, ref32) == b64).all(-1)
+        allowed = torch.maximum(torch.full_like(e_t, tol), 2.0 * e_t)
+        rep['lanes'] += lanes.numel()
+        rep['flips'] += int((~same_k).sum())
+        rep['flips_torch'] += int((~same_t).sum())
+        rep['over'] += int((same_k & (e_k > allowed)).sum())
+        if bool(same_k.any()):
+            rep['worst'] = max(rep['worst'], float(e_k[same_k].max()))
+        if bool(same_t.any()):
+            rep['worst_torch'] = max(rep['worst_torch'],
+                                     float(e_t[same_t].max()))
+    rep['ok'] = (rep['over'] == 0
+                 and rep['flips'] <= 2 * rep['flips_torch'] + 1)
+    return rep
+
+
+ACCEPT_STATE = ('u', 'f', 'lam', 'nu', 'it', 'done', 'stall', 'pc', 'rounds',
+                'improved')
+
+
+def accept_gate(calls):
+    """#21 over recorded calls against the PyTorch step's winner, update
+    and write-back in the same dtype on the same inputs: every lane's
+    state equal but lam (``STEP_TOLERANCE``, relative). A lane that
+    differs must sit within float32 rounding of a decision: the predicted
+    decrease (g . du + du . H du / 2 in float64 from the same inputs)
+    within 8 n float32 units of its terms' magnitude of 0, or the new
+    damping within 1e-5 of 1e8. Returns the report dict."""
+    rtol = STEP_TOLERANCE[1]
+    rep = dict(lanes=0, differ=0, unexplained=0, worst_lam=0.0)
+    for (table, lanes, fs, cands, g, H, before, tol, ftol, polish), got in \
+            calls:
+        ref = [x.clone() for x in before]
+        torch_accept(table, lanes, fs, cands, g, H, ref, tol, ftol, polish)
+        bad = torch.zeros(lanes.numel(), dtype=torch.bool,
+                          device=lanes.device)
+        for name, a, b in zip(ACCEPT_STATE, got, ref):
+            a, b = a[lanes], b[lanes]
+            if name == 'lam':
+                rel = ((a - b).abs() / b.abs()).double()
+                rep['worst_lam'] = max(rep['worst_lam'], float(rel.max()))
+                bad |= rel > rtol
+            else:
+                diff = a != b
+                bad |= diff.flatten(1).any(1) if diff.dim() > 1 else diff
+        rep['lanes'] += lanes.numel()
+        if not bool(bad.any()):
+            continue
+        rows = torch.arange(lanes.numel(), device=lanes.device)
+        best = torch.where(torch.isfinite(fs), fs, torch.full_like(
+            fs, float('inf'))).argmin(1)
+        du = (cands[rows, best] - before[0][lanes]).double()
+        g64 = torch.where(torch.isfinite(g), g, torch.zeros_like(g)).double()
+        H64 = torch.where(torch.isfinite(H), H, torch.zeros_like(H)).double()
+        gd = g64 * du
+        hd = du[:, :, None] * H64 * du[:, None, :]
+        predicted = -(gd.sum(-1) + 0.5 * hd.sum((1, 2)))
+        terms = gd.abs().sum(-1) + 0.5 * hd.abs().sum((1, 2))
+        n = table.n
+        near = predicted.abs() <= 8 * n * F32_UNIT * terms
+        near |= (ref[2][lanes].double() / 1e8 - 1.0).abs() <= 1e-5
+        rep['differ'] += int(bad.sum())
+        rep['unexplained'] += int((bad & ~near).sum())
+    rep['ok'] = rep['unexplained'] == 0
+    return rep
+
+
+def step_work(name, args):
+    """(bytes, float32 operations) of one Newton-step kernel call. Bytes:
+    each input read once and each output written once, at the call's L
+    lanes (the batch state only at the lanes; the accept kernel's winning
+    candidate row alone; pc, written where a lane enters polish, not
+    counted) and the table once. Operations, the leading terms only, so a
+    lower bound: #20 a Cholesky factor and two triangular solves a system
+    (n^3 / 3 + 2 n^2 multiply-adds), #21 H du (n^2)."""
+    table, lanes = args[0], args[1]
+    n, L, A = table.n, lanes.numel(), table.A
+    es = args[2].element_size()
+    tab = 8 * table.tab.numel()
+    if name == 'newton_cands':
+        systems = 1 + (table.n_snap + 1 if table.n_snap else 0)
+        nbytes = 8 * L + es * L * (n + 1 + n + n * n + A * n) + tab
+        return nbytes, 2.0 * L * systems * (n ** 3 / 3 + 2 * n * n)
+    nbytes = (8 * L + es * L * (A + n + n + n * n) + es * L * (2 * n + 6)
+              + 8 * L * 5 + 2 * L)
+    return nbytes, 2.0 * L * n * n
+
+
+def step_rows(label, study, launches):
+    """The Newton step's two kernels over one profile's own calls
+    (``record_step_calls``: the path's study, seed 0, its toys): #20 held
+    to the PyTorch step in float64 (``cands_gate``), #21 to the PyTorch
+    step in the fit's dtype (``accept_gate``), then timed over those
+    calls: the kernel alone (the launches of a group of calls, by
+    candidates A, captured in one CUDA graph and replayed, ``time_calls``),
+    the whole wrapper calls and the PyTorch step's ops (CUDA events around
+    all the calls), summed, beside the summed bound (``step_work``).
+    Returns their two rows of the ``kernels`` line, ``launches`` (the main
+    path's) in each."""
+    from blueice_tpu_torch.ops import newton_step
+    from blueice_tpu_torch.utils.roofline import bound
+    _, target, n_toys, _, _ = PATHS[label]
+    cands, accepts = record_step_calls(lambda: study.profile_ts(
+        0, n_toys=n_toys, target=target, hypothesis=1.0))
+    if not (cands and accepts):
+        raise AssertionError("%s: the profile made no Newton-step kernel "
+                             "call" % label)
+    gates = {'newton_cands': cands_gate(cands),
+             'newton_accept': accept_gate(accepts)}
+    torch.cuda.synchronize()
+
+    def accept_args(args):
+        # a copy of the state each, which the timed launches write
+        return args[:6] + (tuple(x.clone() for x in args[6]),) + args[7:]
+    kinds = {
+        'newton_cands': dict(
+            calls=[args for args, _ in cands],
+            launcher=newton_step.newton_cands_launcher,
+            wrapper=newton_step.newton_cands,
+            plain=lambda args: torch_cands(*args)),
+        'newton_accept': dict(
+            calls=[accept_args(args) for args, _ in accepts],
+            launcher=newton_step.newton_accept_launcher,
+            wrapper=newton_step.newton_accept,
+            plain=lambda args: torch_accept(*args))}
+    rows = []
+    for name, kind in kinds.items():
+        calls, gate = kind['calls'], gates[name]
+        per_A = time_calls(kind['launcher'], calls, None,
+                           key=lambda args, _: args[0].A)
+        kernel_ms = sum(per_A.values())
+        ms = cuda_ms(lambda: [kind['wrapper'](*c) for c in calls], runs=3,
+                     warmup=1)
+        plain_ms = cuda_ms(lambda: [kind['plain'](c) for c in calls],
+                           runs=3, warmup=1)
+        work = [step_work(name, c) for c in calls]
+        bound_ms = sum(bound(b, f)[0] for b, f in work)
+        lanes = [c[1].numel() for c in calls]
+        n = calls[0][0].n
+        log("%s %s over one profile's own calls: %d calls, n %d, mean lanes "
+            "L %.1f (min %d, max %d); against the PyTorch step %s; kernel "
+            "alone summed %.4f ms (%s), wrapper calls summed %.4f ms, "
+            "PyTorch step summed %.4f ms; bound summed %.4f ms (%.1f MB)"
+            % (label, name, len(calls), n, np.mean(lanes), min(lanes),
+               max(lanes), json.dumps(gate), kernel_ms,
+               ', '.join('A=%d: %.4f ms' % a for a in per_A.items()), ms,
+               plain_ms, bound_ms, sum(b for b, _ in work) / 1e6))
+        if not gate['ok']:
+            raise AssertionError("%s %s: the kernel disagrees with the "
+                                 "PyTorch step: %s" % (label, name, gate))
+        rows.append(dict(
+            name=name, path=label, route='cuda',
+            source=CSRC + 'newton_step.cu', replaces=STEP_REPLACES,
+            also_replaces=None, library_ms=None, launches=launches[name],
+            max_rel_err=gate.get('worst', gate.get('worst_lam')),
+            gate=gate, replay_calls=len(calls),
+            replay_mean_lanes=float(np.mean(lanes)), kernel_ms=kernel_ms,
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by='bytes' if all(bound(b, f)[1] == 'bytes'
+                                    for b, f in work) else 'mixed'))
+    return rows
+
+
+def cell_step_batch(L, dev, seed=0):
+    """A synthetic step at the benchmark cells' shape (``CELL_STEP``, L
+    lanes, float32, SPD Hessians): (table, lanes, state, g, H)."""
+    from blueice_tpu_torch.ops import newton_step
+    n, kinks, jumps = CELL_STEP
+    rng = np.random.default_rng(seed)
+    snaps = [(c, np.array([-1.0, 0.0, 1.0])) for c in kinks]
+    u = rng.normal(0.0, 1.0, (L, n))
+    u[rng.random(L) < 0.3, 4] = 0.0
+    M = rng.normal(0.0, 1.0, (L, n, n))
+    H = M @ M.transpose(0, 2, 1) + n * np.eye(n)
+
+    def t(x, dt=torch.float32):
+        return torch.as_tensor(x, dtype=dt, device=dev).contiguous()
+    state = (t(u), t(rng.normal(0.0, 1.0, L)), t(np.full(L, 1e-3)),
+             t(np.full(L, 2.0)), t(np.zeros(L), torch.int64),
+             t(np.zeros(L, bool), torch.bool), t(np.zeros(L), torch.int64),
+             t(-np.ones(L), torch.int64), t(np.zeros(L), torch.int64),
+             t(np.zeros(L, bool), torch.bool))
+    table = newton_step.build_table(n, kinks, jumps, snaps, dev)
+    return (table, t(np.arange(L), torch.int64), state,
+            t(rng.normal(0.0, 3.0, (L, n))), t(H))
+
+
+def step_cell_rows():
+    """The Newton step's kernels at the benchmark cells' shape
+    (``CELL_STEP``; ``CELL_LANES``): each kernel alone, warm and L2-cold
+    (``roofline.cold_launches``), beside its bound (``step_work``), and the
+    step as the fit runs it around its value call (the two kernels, with
+    fixed values standing in for the value call) against the PyTorch
+    step's ops (``torch_cands``, ``torch_accept``), host clock around a
+    synchronize, median of 21, in turns (kernels, PyTorch, PyTorch,
+    kernels). Returns the kernels' rows (path 'cells')."""
+    from blueice_tpu_torch.ops import newton_step
+    from blueice_tpu_torch.utils import roofline
+    dev = torch.device('cuda')
+    rows = []
+    for L in CELL_LANES:
+        table, lanes, state, g, H = cell_step_batch(L, dev)
+        u, f, lam = state[:3]
+        c_args = (table, lanes, u, lam, g, H)
+        launch_c, cands = newton_step.newton_cands_launcher(*c_args)
+        launch_c()
+        fs = (f[:, None] - torch.rand((L, table.A), device=dev)).contiguous()
+        a_args = (table, lanes, fs, cands, g, H, state, 1e-8, 1e-3, 4)
+        launch_a, _ = newton_step.newton_accept_launcher(*a_args)
+
+        def wall_ms(fn):
+            times = []
+            for _ in range(21):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return float(np.median(times))
+
+        def kernels():
+            c = newton_step.newton_cands(*c_args)
+            newton_step.newton_accept(table, lanes, fs, c, g, H, state, 1e-8,
+                                      1e-3, 4)
+
+        def plain():
+            c = torch_cands(*c_args)
+            torch_accept(table, lanes, fs, c, g, H, state, 1e-8, 1e-3, 4)
+        walls = {kernels: [], plain: []}
+        for fn in (kernels, plain, plain, kernels):
+            walls[fn].append(wall_ms(fn))
+        for name, launch, launcher, args in (
+                ('newton_cands', launch_c, newton_step.newton_cands_launcher,
+                 c_args),
+                ('newton_accept', launch_a,
+                 newton_step.newton_accept_launcher, a_args)):
+            ms = roofline.launch_elapsed_s(launch) * 1e3
+            cold = roofline.launch_elapsed_s(
+                roofline.cold_launches(launcher, args)) * 1e3
+            nbytes, flops = step_work(name, args)
+            bound_ms, bound_by = roofline.bound(nbytes, flops)
+            row = dict(name=name, path='cells', route='cuda',
+                       source=CSRC + 'newton_step.cu',
+                       replaces=STEP_REPLACES, also_replaces=None,
+                       library_ms=None, L=L, n=table.n, A=table.A,
+                       kernel_ms=ms, kernel_ms_cold=cold, bound_ms=bound_ms,
+                       bound_by=bound_by, mb=nbytes / 1e6,
+                       step_kernels_ms=walls[kernels],
+                       step_torch_ms=walls[plain])
+            log("cells %s at L %d, n %d, A %d: kernel alone %.4f ms warm, "
+                "%.4f ms L2-cold; bound %.4f ms (%s, %.1f MB); the step "
+                "around its value call: kernels %s ms, PyTorch step %s ms"
+                % (name, L, table.n, table.A, ms, cold, bound_ms, bound_by,
+                   nbytes / 1e6, ', '.join('%.3f' % x for x in
+                                           walls[kernels]),
+                   ', '.join('%.3f' % x for x in walls[plain])))
+            rows.append(row)
+    return rows
+
+
 def two_precisions(label, study, cls):
     """Phase 3: the same toys in float32 on the card and in float64 on the
     CPU (plain versions)."""
@@ -1542,6 +1976,7 @@ def run_path(label, mods, api):
             replay_calls(label, study, mods, rows, contract)
     if META[label]:
         rows += graph_rows(label, study, launches)
+    rows += step_rows(label, study, launches)
     two_precisions(label, study, cls)
     return rows, study, cls
 
@@ -1979,19 +2414,16 @@ def engines_gate(what, ad, ref, errors, band=None):
 
 def ad_profile(what, study, toys, target, mods):
     """One profile of the autodiff engine on ``toys``, every counter set to
-    0 just before and read just after (no kernel may launch): ((t, free,
-    cond), seconds, peak device memory in GB)."""
+    0 just before and read just after (no kernel but the Newton step's may
+    launch, ``only_step_launches``): ((t, free, cond), seconds, peak device
+    memory in GB)."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     out, launches = counted(mods, lambda: study._run_profile(
         toys, target, 1.0, None))
     secs = time.time() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log("%s kernel launches in the autodiff engine's profile: %s"
-        % (what, launches))
-    if any(launches.values()):
-        raise AssertionError("%s: a kernel launched in the autodiff "
-                             "engine's profile" % what)
+    only_step_launches("%s, the autodiff engine's profile" % what, launches)
     return out, secs, peak
 
 
@@ -2408,11 +2840,17 @@ def reparam_likelihood(lf):
         'wimp_xsec': (np.linspace(0.0, 10 * XSEC_BASE, 11), None, None)})
 
 
-def no_launches(phase, launches):
+def only_step_launches(phase, launches):
+    """Raise unless a phase of fits on the autodiff (or the dense) engine
+    launched the Newton step's two kernels (``STEP_KERNELS``), which every
+    fit on the card takes, and no other kernel."""
     log("%s kernel launches: %s" % (phase, launches))
-    if any(launches.values()):
-        raise AssertionError("%s: a kernel launched on the autodiff engine"
+    if not all(launches[name] > 0 for name in STEP_KERNELS):
+        raise AssertionError("%s: the Newton step's kernels never launched"
                              % phase)
+    if any(n for name, n in launches.items() if name not in STEP_KERNELS):
+        raise AssertionError("%s: a likelihood kernel launched on the "
+                             "autodiff engine" % phase)
 
 
 def ad_fit_phase(phase, lf, target, mods):
@@ -2433,7 +2871,7 @@ def ad_fit_phase(phase, lf, target, mods):
     (fit, ll), launches = counted(mods, lambda: lf.bestfit_jax())
     cold = time.time() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    no_launches(phase, launches)
+    only_step_launches(phase, launches)
     warm = []
     for _ in range(2):
         t0 = time.time()
@@ -2486,7 +2924,7 @@ def ad_interval_phase(phase, lf, target, mods):
         lf, target, INTERVAL_BOUND, kind='upper', confidence_level=0.9,
         bestfit_routine=jax_fit))
     secs = time.time() - t0
-    no_launches(phase, launches)
+    only_step_launches(phase, launches)
     t0 = time.time()
     ul64 = one_parameter_interval(lf, target, INTERVAL_BOUND, kind='upper',
                                   confidence_level=0.9,
@@ -2847,14 +3285,14 @@ def dense_phase(label, mods, api, studies):
         _, launches = counted(mods, lambda: dense._run_profile(
             toys, target, 1.0, None))
         recorder.active = False
-        no_launches('(s3) %s dense engine, first run' % label, launches)
+        only_step_launches('(s3) %s dense engine, first run' % label, launches)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
         out, launches = counted(mods, lambda: dense._run_profile(
             toys, target, 1.0, None))
         secs = time.time() - t0
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        no_launches('(s3) %s dense engine, warm run' % label, launches)
+        only_step_launches('(s3) %s dense engine, warm run' % label, launches)
     finally:
         fitter._FORCE_DENSE_UNBINNED = False
         recorder.restore()
@@ -3341,7 +3779,8 @@ def main(labels):
     from blueice_tpu_torch import likelihood, test_helpers
     from blueice_tpu_torch.examples import xenon_like
     from blueice_tpu_torch.ops import (fused, fused_bb, fused_bb_lite,
-                                       fused_unbinned, param_graph)
+                                       fused_unbinned, newton_step,
+                                       param_graph)
     from blueice_tpu_torch.parallel import BinnedToyStudy, UnbinnedToyStudy
     from blueice_tpu_torch.utils import roofline, set_progress
 
@@ -3354,7 +3793,7 @@ def main(labels):
                                           torch.cuda.get_device_name(0)))
     mods = dict(fused=fused, fused_bb=fused_bb, fused_bb_lite=fused_bb_lite,
                 fused_unbinned=fused_unbinned, param_graph=param_graph,
-                roofline=roofline)
+                newton_step=newton_step, roofline=roofline)
     api = dict(xenon_like=xenon_like, test_helpers=test_helpers,
                likelihood=likelihood, BinnedToyStudy=BinnedToyStudy,
                UnbinnedToyStudy=UnbinnedToyStudy)
@@ -3398,6 +3837,7 @@ def main(labels):
         log("host part: %.1f s" % (time.time() - t0))
     if not labels:
         t0 = time.time()
+        rows += step_cell_rows()
         rows += roofline_part(mods)
         log("roofline part: %.1f s" % (time.time() - t0))
 

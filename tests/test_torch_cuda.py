@@ -1235,23 +1235,23 @@ def test_one_rank_mesh_on_the_card(cuda_device):
 def test_two_gloo_ranks_on_the_card(cuda_device):
     """Two ranks spawned on the one card (gloo) profile 16 xenon toys at
     full width: both hold the same arrays, they drew the single process's
-    toys, each launched the binned kernels and the parameter graph's and
-    no other, and their fits agree with one process's (max |d max_ll| <=
-    0.05, median |d t| <= 0.01)."""
+    toys, each launched the binned kernels, the parameter graph's and the
+    Newton step's and no other, and their fits agree with one process's
+    (max |d max_ll| <= 0.05, median |d t| <= 0.01)."""
     from blueice_tpu_torch import dryrun
-    from blueice_tpu_torch.ops import param_graph
+    from blueice_tpu_torch.ops import newton_step, param_graph
     from blueice_tpu_torch.parallel import BinnedToyStudy
     from blueice_tpu_torch.utils import set_progress
     set_progress(False)
     for module in (fused, fused_bb, fused_bb_lite, fused_unbinned,
-                   param_graph):
+                   param_graph, newton_step):
         module.load_library()           # built before the ranks start
     kw = dict(max_iter=96, tol=3e-4)
     results = dryrun.run_ranks(2, dict(runs=[dict(
         model='xenon', seed=0, n_toys=16)], study=kw), 'cuda', timeout=600)
     dryrun.same_on_every_rank(results)
     own = ('binned_vgh_fused', 'binned_ll_fused_multi', 'graph_fwd',
-           'graph_chain')
+           'graph_chain', 'newton_cands', 'newton_accept')
     for res in results:
         launches = res['runs'][0]['launches']
         assert all(launches[name] > 0 for name in own)

@@ -96,21 +96,26 @@ def test_spans_nest_under_their_call(lf, tracing):
     stages = [s.attrs['fit'] for s in spans if s.name == 'study.stage']
     assert stages == ['free', 'cond'] * 2
     # each iteration's lane selection waits twice, on its two nonzero
-    # calls; each write-back once, on its host scalar; each fit once, on
+    # calls; the Newton lanes' write-back once, on its host scalar, and the
+    # polish lanes' not at all (a fill on the device); each fit once, on
     # its tables; each solve once, on its batched Cholesky factor and solve
     # (eight free parameters)
-    waits = {'newton.select': ['sync', 'sync'], 'newton.scatter': ['sync'],
-             'newton.solve': ['sync']}
+    waits = {'newton.select': ['sync', 'sync'], 'newton.solve': ['sync']}
     for i, s in enumerate(spans):
         kids = [k.name for k in spans if k.parent == i]
         if s.name in waits:
             assert kids == waits[s.name], s.name
+        if s.name == 'newton.scatter':
+            before = [k.name for k in spans[:i] if k.parent == s.parent][-1]
+            assert kids == (['sync'] if before == 'newton.step' else []), \
+                before
         if s.name == 'newton.fit':
             assert kids[0] == 'sync' and kids.count('sync') == 1
         if s.name == 'sync':
             assert not kids
             assert spans[s.parent].name in set(waits) | {
-                'newton.fit', 'study.gather', 'study.refine'}
+                'newton.scatter', 'newton.fit', 'study.gather',
+                'study.refine'}
 
 
 def test_counters_match_the_fits(lf, tracing):
